@@ -1,0 +1,230 @@
+"""ADMM core: one iteration, residuals, termination and infeasibility
+tests (OSQP, arXiv:1711.08013) on
+
+    min ½xᵀPx + qᵀx + g(z)   s.t.  Ax = z,
+
+with g the product-cone indicator/penalty (ops/prox). One iteration
+(diagonal penalty R = diag(rho_vec)):
+
+    x̃   = (P + σI + AᵀRA)⁻¹ (σx − q + Aᵀ(Rz − y))
+    z̃   = A x̃
+    x⁺  = α x̃ + (1−α) x
+    w   = α z̃ + (1−α) z
+    z⁺  = Π_g(w + y/R)
+    y⁺  = y + R (w − z⁺)
+
+Iterates are lane-batched rows: x (B, n), z and y (B, m). Everything
+here works on the Ruiz-scaled problem; residuals and termination use
+unscaled quantities through the Scaling vectors.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import kkt
+from ..ops.prox import project_cone
+from ..problem import QPData, is_equality_row
+from ..settings import Settings
+from .scaling import Scaling
+
+
+def linf(v):
+    return v.abs().amax(dim=-1)
+
+
+def rho_vec_of(rho_bar, eq_mask, settings: Settings, cone=None):
+    """Per-row penalty: rho_bar, boosted on equality rows (OSQP §5.2)
+    and, with Settings.rho_soc_scale != 1, uniformly on SOC rows."""
+    rv = torch.where(eq_mask, settings.rho_eq_scale * rho_bar, rho_bar)
+    if cone is not None and cone.m_soc and settings.rho_soc_scale != 1.0:
+        m = rv.shape[-1]
+        soc = torch.arange(m, device=rv.device) >= (m - cone.m_soc)
+        rv = torch.where(soc, settings.rho_soc_scale * rho_bar, rv)
+    return rv
+
+
+def is_equality_row_shared(qp: QPData):
+    """Equality-row mask shared across a bound-batched problem: a
+    dispersion perturbs bound values, not which rows are equalities, so
+    lane 0's mask holds for every lane and the factor stays shared."""
+    eq = is_equality_row(qp)
+    return eq[0] if eq.dim() > 1 else eq
+
+
+def admm_iteration(qp: QPData, fac, x, z, y, rho_vec, settings: Settings,
+                   backend: str, z_off=None):
+    """One ADMM iteration on the scaled problem (the plain body).
+
+    z_off: optional shifted-prox offset for L1/SOC rows (re-centred
+    refinement; see ops/prox.project_cone).
+    """
+    rhs = settings.sigma * x - qp.q + (rho_vec * z - y) @ qp.A
+    xt = kkt.solve_condensed(fac, rhs, backend,
+                             refine_steps=settings.refine_steps)
+    zt = xt @ qp.A.mT
+    a = settings.alpha
+    x_new = a * xt + (1.0 - a) * x
+    w = a * zt + (1.0 - a) * z
+    v = w + y / rho_vec
+    mb, ml = qp.cone.m_box, qp.cone.m_l1
+    lam_over_rho = (qp.lam / rho_vec[..., mb:mb + ml]) if ml else qp.lam
+    z_new = project_cone(v, qp.l, qp.u, lam_over_rho, qp.cone,
+                         offset=z_off)
+    y_new = y + rho_vec * (w - z_new)
+    return x_new, z_new, y_new
+
+
+def iterate_block(qp, fac, x, z, y, rho_vec, settings, backend, k: int,
+                  z_off=None):
+    """Run k plain iterations."""
+    for _ in range(k):
+        x, z, y = admm_iteration(qp, fac, x, z, y, rho_vec, settings,
+                                 backend, z_off=z_off)
+    return x, z, y
+
+
+def l1_grad_scale(qp: QPData, scaling: Scaling):
+    """Unscaled L1 objective gradient bound max_j max_i λᵢ|A_l1[i, j]|,
+    folded into the dual-residual scale: on min-fuel LPs (P ≈ 0, q = 0)
+    the objective lives entirely in λ. 0 when m_l1 == 0."""
+    cone = qp.cone
+    if not cone.m_l1:
+        return torch.zeros((), dtype=qp.dtype, device=qp.device)
+    mb, ml = cone.m_box, cone.m_l1
+    cd_inv = 1.0 / (scaling.c * scaling.d)
+    lamA = (qp.lam[..., :, None] * qp.A[..., mb:mb + ml, :].abs()).amax(-2)
+    return linf(cd_inv * lamA)
+
+
+def l1_grad_scale_raw(qp: QPData):
+    """l1_grad_scale for unscaled data (the f64 acceptance checks of the
+    re-centred path use the same eps_d reference as the solver loop)."""
+    cone = qp.cone
+    if not cone.m_l1:
+        return torch.zeros((), dtype=qp.dtype, device=qp.device)
+    mb, ml = cone.m_box, cone.m_l1
+    return (qp.lam[..., :, None] * qp.A[..., mb:mb + ml, :].abs()).amax()
+
+
+def residuals(qp: QPData, scaling: Scaling, x, z, y, nlam=None):
+    """Unscaled residual norms and eps_rel scale factors:
+    (r_prim, r_dual, norm_Ax, norm_z, norm_Px, norm_Aty, norm_q), where
+    norm_q includes the L1 gradient scale. Inputs are SCALED iterates."""
+    einv = 1.0 / scaling.e
+    cd_inv = 1.0 / (scaling.c * scaling.d)
+    Ax = x @ qp.A.mT
+    Px = x @ qp.P.mT
+    Aty = y @ qp.A
+    r_prim = linf(einv * (Ax - z))
+    r_dual = linf(cd_inv * (Px + qp.q + Aty))
+    if nlam is None:
+        nlam = l1_grad_scale(qp, scaling)
+    return (r_prim, r_dual,
+            linf(einv * Ax), linf(einv * z),
+            linf(cd_inv * Px), linf(cd_inv * Aty),
+            torch.maximum(linf(cd_inv * qp.q), nlam))
+
+
+def eps_thresholds(res, settings: Settings):
+    (_, _, nAx, nz, nPx, nAty, nq) = res
+    eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(nAx, nz)
+    eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+        torch.maximum(nPx, nAty), nq)
+    return eps_p, eps_d
+
+
+def _support_box(dy, l, u, eps):
+    """sup_{z in [l,u]} zᵀdy; +inf where an unbounded side is reached."""
+    inf = torch.full_like(dy, float("inf"))
+    up = torch.where(dy > eps, torch.where(torch.isfinite(u), u * dy, inf),
+                     0.0)
+    lo = torch.where(dy < -eps, torch.where(torch.isfinite(l), l * dy, inf),
+                     0.0)
+    return (up + lo).sum(-1)
+
+
+def _soc_all_within(v, cone, t_sign: float, eps):
+    """Per lane: every SOC block (t, u) of v has ||u|| <= t_sign*t + eps."""
+    def ok(blk):
+        return (torch.linalg.vector_norm(blk[..., 1:], dim=-1)
+                <= t_sign * blk[..., 0] + eps)
+
+    if cone.soc_uniform:
+        d = cone.soc_dims[0]
+        return ok(v.reshape(v.shape[:-1] + (cone.n_soc, d))).all(-1)
+    oks = []
+    off = 0
+    for d in cone.soc_dims:
+        oks.append(ok(v[..., off:off + d]))
+        off += d
+    return torch.stack(oks, dim=-1).all(-1)
+
+
+def infeasibility(qp: QPData, scaling: Scaling, dx_s, dy_s, settings):
+    """OSQP §3.4 infeasibility certificates from the SCALED iterate
+    deltas across the last check interval, extended to L1 rows (a dual
+    ray needs dy = 0 there) and SOC rows (support 0 iff -dy in the cone;
+    a recession direction must lie in the cone).
+    Returns (primal_infeasible, dual_infeasible) per lane."""
+    cone = qp.cone
+    mb, ml = cone.m_box, cone.m_l1
+    dtype = dx_s.dtype
+    tiny = torch.finfo(dtype).tiny
+    eps_p = settings.eps_pinf
+    eps_d = settings.eps_dinf
+
+    # ---- primal infeasibility from dy ----
+    dy = scaling.unscale_y(dy_s)
+    ndy = linf(dy)
+    dyn = dy / torch.clamp(ndy, min=tiny)[..., None]
+    Aty = (scaling.scale_y(dyn) @ qp.A) / (scaling.c * scaling.d)
+    cond_A = linf(Aty) <= eps_p
+    mbl = mb + ml
+    lu_l = qp.l[..., :mbl] / scaling.e[..., :mbl]
+    lu_u = qp.u[..., :mbl] / scaling.e[..., :mbl]
+    sup = _support_box(dyn[..., :mbl], lu_l, lu_u, eps_p)
+    if cone.m_soc:
+        # The SOC indicator's support is 0 iff -dy lies in the cone.
+        bad_soc = ~_soc_all_within(dyn[..., mbl:], cone, -1.0, eps_p)
+        sup = torch.where(bad_soc, float("inf"), sup)
+    primal_infeas = (ndy > 0) & cond_A & (sup <= eps_p)
+
+    # ---- dual infeasibility (unboundedness) from dx ----
+    dx = scaling.unscale_x(dx_s)
+    ndx = linf(dx)
+    dxn = dx / torch.clamp(ndx, min=tiny)[..., None]
+    Pdx = ((dxn / scaling.d) @ qp.P.mT) / (scaling.c * scaling.d)
+    Adx = ((dxn / scaling.d) @ qp.A.mT) / scaling.e
+    cond_P = linf(Pdx) <= eps_d
+    qdx = ((qp.q / (scaling.c * scaling.d)) * dxn).sum(-1)
+    if ml:
+        lam_unscaled = qp.lam * scaling.e[..., mb:mb + ml] / scaling.c
+        qdx = qdx + (lam_unscaled * Adx[..., mb:mb + ml].abs()).sum(-1)
+    cond_q = qdx <= -eps_d
+    # Recession of the constraint domain over box + bounded-L1 rows.
+    bl = qp.l[..., :mbl] / scaling.e[..., :mbl]
+    bu = qp.u[..., :mbl] / scaling.e[..., :mbl]
+    av = Adx[..., :mbl]
+    ok_up = (av <= eps_d) | ~torch.isfinite(bu)
+    ok_lo = (av >= -eps_d) | ~torch.isfinite(bl)
+    dual_infeas = ((ndx > 0) & cond_P & cond_q
+                   & (ok_up & ok_lo).all(-1))
+    if cone.m_soc:
+        # A recession direction must lie in the cone.
+        dual_infeas = dual_infeas & _soc_all_within(Adx[..., mbl:], cone,
+                                                    1.0, eps_d)
+    return primal_infeas, dual_infeas
+
+
+def restart_cadence_checks(settings: Settings) -> int:
+    """Restart boundary in units of residual checks (0 disables)."""
+    if settings.restart_every <= 0:
+        return 0
+    return max(1, settings.restart_every // settings.check_every)
+
+
+def scaled_resid_ratio(res, settings: Settings):
+    """max(r_p/eps_p, r_d/eps_d): the termination criterion as one
+    number, so 'better' means 'closer to stopping'."""
+    eps_p, eps_d = eps_thresholds(res, settings)
+    return torch.maximum(res[0] / eps_p, res[1] / eps_d)

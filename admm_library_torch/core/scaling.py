@@ -1,0 +1,148 @@
+"""Modified Ruiz equilibration (OSQP §5).
+
+Scaled problem:  P̄ = c·D P D,  q̄ = c·D q,  Ā = E A D,  l̄ = E l,  ū = E u,
+L1 weights λ̄ = c·λ/E. Recovery: x = D x̄, z = E⁻¹ z̄, y = c⁻¹ E ȳ.
+
+A second-order cone is invariant only under uniform positive scaling,
+so E is forced constant within each SOC block (the geometric mean of
+the block's Ruiz factors).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..problem import ConeSpec, QPData
+
+
+@dataclasses.dataclass(frozen=True)
+class Scaling:
+    """Diagonal scaling state: d (n,), e (m,), cost scalar c."""
+
+    d: torch.Tensor
+    e: torch.Tensor
+    c: torch.Tensor
+
+    @classmethod
+    def identity(cls, n, m, dtype, device):
+        return cls(d=torch.ones(n, dtype=dtype, device=device),
+                   e=torch.ones(m, dtype=dtype, device=device),
+                   c=torch.ones((), dtype=dtype, device=device))
+
+    # --- variable recovery (scaled -> unscaled) ---
+    def unscale_x(self, xb):
+        return self.d * xb
+
+    def unscale_z(self, zb):
+        return zb / self.e
+
+    def unscale_y(self, yb):
+        return (self.e / self.c) * yb
+
+    # --- warm-start injection (unscaled -> scaled) ---
+    def scale_x(self, x):
+        return x / self.d
+
+    def scale_z(self, z):
+        return self.e * z
+
+    def scale_y(self, y):
+        return (self.c / self.e) * y
+
+    def astype(self, dtype):
+        return Scaling(d=self.d.to(dtype), e=self.e.to(dtype),
+                       c=self.c.to(dtype))
+
+
+def _soc_block_uniform(e_step, cone: ConeSpec):
+    """Replace per-row factors inside each SOC block by their geomean."""
+    if not cone.soc_dims:
+        return e_step
+    mb = cone.m_box + cone.m_l1
+    head = e_step[:mb]
+    tail = e_step[mb:]
+    parts = [head]
+    if cone.soc_uniform:
+        d = cone.soc_dims[0]
+        blk = tail.reshape(cone.n_soc, d)
+        g = torch.exp(torch.mean(torch.log(blk), dim=1, keepdim=True))
+        parts.append(g.expand(blk.shape).reshape(-1))
+    else:
+        off = 0
+        for d in cone.soc_dims:
+            g = torch.exp(torch.mean(torch.log(tail[off:off + d])))
+            parts.append(g.expand(d))
+            off += d
+    return torch.cat(parts)
+
+
+def _bounds_and_lam(qp: QPData, e, c):
+    l = torch.where(torch.isfinite(qp.l), e * qp.l, qp.l)
+    u = torch.where(torch.isfinite(qp.u), e * qp.u, qp.u)
+    mb, ml = qp.cone.m_box, qp.cone.m_l1
+    lam = c * qp.lam / e[mb:mb + ml] if ml else qp.lam
+    return l, u, lam
+
+
+def scale_qp(qp: QPData, scaling: Scaling) -> QPData:
+    """Apply a precomputed Scaling to dense problem data (q/l/u may carry
+    a lane dimension). The re-centred rounds use it: their correction
+    problems keep the original (P, A), so re-running Ruiz would
+    recompute the same (d, e)."""
+    d, e, c = scaling.d, scaling.e, scaling.c
+    P = c * (d[:, None] * qp.P * d[None, :])
+    q = c * (d * qp.q)
+    A = e[:, None] * qp.A * d[None, :]
+    l, u, lam = _bounds_and_lam(qp, e, c)
+    return QPData(P=P, q=q, A=A, l=l, u=u, lam=lam, cone=qp.cone)
+
+
+def ruiz_equilibrate(qp: QPData, iters: int):
+    """Return (scaled QPData, Scaling). iters=0 -> identity scaling."""
+    n, m = qp.n, qp.m
+    dtype, device = qp.dtype, qp.device
+    if iters <= 0:
+        return qp, Scaling.identity(n, m, dtype, device)
+
+    def norm_cols(M):
+        return M.abs().amax(dim=-2)
+
+    def norm_rows(M):
+        return M.abs().amax(dim=-1)
+
+    def safe_inv_sqrt(v):
+        v = torch.where((v < 1e-10) | ~torch.isfinite(v),
+                        torch.ones_like(v), v)
+        return 1.0 / torch.sqrt(v)
+
+    mb, ml = qp.cone.m_box, qp.cone.m_l1
+    P, q, A = qp.P, qp.q, qp.A
+    d = torch.ones(n, dtype=dtype, device=device)
+    e = torch.ones(m, dtype=dtype, device=device)
+    c = torch.ones((), dtype=dtype, device=device)
+    for _ in range(iters):
+        # Column norms of the symmetric KKT block for the x variables.
+        dx = safe_inv_sqrt(torch.maximum(norm_cols(P), norm_cols(A)))
+        de = _soc_block_uniform(safe_inv_sqrt(norm_rows(A)), qp.cone)
+        P = dx[:, None] * P * dx[None, :]
+        q = dx * q
+        A = de[:, None] * A * dx[None, :]
+        d = d * dx
+        e = e * de
+        # Cost normalisation (OSQP Alg. 2) with the L1 term: the scaled
+        # per-column L1 gradient scale max_i λ̄ᵢ|Āᵢⱼ| belongs in the
+        # normaliser, or c explodes on min-fuel LPs (P ≈ 0, q = 0).
+        cost_scale = torch.maximum(norm_cols(P).mean(), q.abs().max())
+        if ml:
+            lam_bar = c * qp.lam / e[mb:mb + ml]
+            cost_scale = torch.maximum(cost_scale, norm_cols(
+                lam_bar[:, None] * A[mb:mb + ml, :]).max())
+        gamma = 1.0 / torch.clamp(cost_scale, min=1e-10)
+        P = gamma * P
+        q = gamma * q
+        c = c * gamma
+
+    l, u, lam = _bounds_and_lam(qp, e, c)
+    return (QPData(P=P, q=q, A=A, l=l, u=u, lam=lam, cone=qp.cone),
+            Scaling(d=d, e=e, c=c))

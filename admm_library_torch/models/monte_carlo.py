@@ -1,0 +1,85 @@
+"""Monte-Carlo scenario dispersions of the rendezvous MPC.
+
+A dispersion perturbs the initial state s0, which enters only the
+constraint bounds, so the batch shares (P, q, A): a bound-batched
+QPData for parallel.batch.solve_batch_shared.
+
+`reference_s0(batch)` returns the dispersions that the JAX package's
+`monte_carlo_mpc(jax.random.PRNGKey(0), batch)` draws, stored in
+mc_s0_seed0.npz (torch.Generator draws other numbers from the same
+seed), so the port can solve the reference's own batch.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..problem import QPData
+from . import double_integrator as di
+
+_REFERENCE_S0 = Path(__file__).with_name("mc_s0_seed0.npz")
+
+
+def disperse_s0(generator: torch.Generator, s0_nominal, sigma_pos: float,
+                sigma_vel: float, batch: int,
+                dtype: torch.dtype = torch.float32, device="cpu"):
+    """Gaussian initial-state dispersion: (batch, ns) states; the first
+    half of the state is position (sigma_pos), the second velocity
+    (sigma_vel). The noise is drawn on the generator's device."""
+    s0 = torch.as_tensor(s0_nominal, dtype=dtype, device=device)
+    ns = s0.shape[-1]
+    d = ns // 2
+    noise = torch.randn((batch, ns), generator=generator, dtype=dtype,
+                        device=generator.device).to(device)
+    scale = torch.cat([torch.full((d,), sigma_pos, dtype=dtype, device=device),
+                       torch.full((ns - d,), sigma_vel, dtype=dtype,
+                                  device=device)])
+    return s0 + noise * scale
+
+
+def _nominal(dim, dtype, device):
+    return torch.cat([torch.ones(dim, dtype=dtype, device=device),
+                      -0.5 * torch.ones(dim, dtype=dtype, device=device)])
+
+
+def monte_carlo_mpc_from_s0(s0s, N: int = 50, dim: int = 3,
+                            dtype: torch.dtype = torch.float32,
+                            device="cpu"):
+    """Bound-batched rendezvous MPC for the given initial states
+    s0s (B, 2*dim). Returns (QPData, MPCSpec, s0s)."""
+    if not isinstance(s0s, torch.Tensor):
+        s0s = torch.from_numpy(np.array(s0s))
+    s0s = s0s.to(dtype=dtype, device=device)
+    qp, spec = di.build_mpc_qp(
+        _nominal(dim, dtype, device),
+        torch.zeros(2 * dim, dtype=dtype), N=N, dim=dim, dtype=dtype,
+        device=device)
+    l, u = di.mpc_bounds_for_s0(qp, spec, s0s)
+    return (QPData(P=qp.P, q=qp.q, A=qp.A, l=l, u=u, lam=qp.lam,
+                   cone=qp.cone), spec, s0s)
+
+
+def monte_carlo_mpc(generator: torch.Generator, batch: int = 1024,
+                    N: int = 50, dim: int = 3, sigma_pos: float = 0.1,
+                    sigma_vel: float = 0.01,
+                    dtype: torch.dtype = torch.float32, device="cpu"):
+    """Dispersed double-integrator rendezvous MPC batch.
+
+    Returns (bound-batched QPData, MPCSpec, s0 batch (B, 2*dim)).
+    """
+    s0s = disperse_s0(generator, _nominal(dim, dtype, device), sigma_pos,
+                      sigma_vel, batch, dtype, device)
+    return monte_carlo_mpc_from_s0(s0s, N=N, dim=dim, dtype=dtype,
+                                   device=device)
+
+
+def reference_s0(batch: int) -> np.ndarray:
+    """The JAX reference's config-5 dispersions, (batch, 6) f32, for
+    batch 128 or 1024 (N=50, dim=3, PRNGKey(0))."""
+    with np.load(_REFERENCE_S0) as f:
+        key = f"s0_batch{batch}"
+        if key not in f:
+            raise KeyError(f"no reference dispersions for batch {batch}")
+        return f[key]

@@ -1,0 +1,536 @@
+"""Shared-matrix lane batch: B problems that share (P, A) and differ in
+their bounds (and optionally q) — the Monte-Carlo dispersion shape,
+where dispersed initial states enter only the constraint bounds.
+
+M = P + σI + AᵀρA is factored once for the whole batch; every x-update
+is one (B, n) product against the shared factor. The lanes run in
+lockstep with per-lane convergence masking: finished lanes freeze and
+keep honest per-lane iteration counts. On f32 'inv' batches each
+`check_every` block of iterations is one call of the fused CUDA kernel
+(ops/fused.py).
+
+The solve runs as a host loop over residual checks. Each check reads one
+small tensor from the device (loop liveness and the refactor flag);
+the restart boundary and the adaptive-rho cadence follow from the
+lockstep count, which the host keeps.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..api import resolve_backend
+from ..core import admm
+from ..core.scaling import ruiz_equilibrate, scale_qp
+from ..ops import fused as fused_ops
+from ..ops import kkt
+from ..ops.prox import project_soc_block
+from ..problem import QPData, objective
+from ..settings import Settings
+from ..solution import Solution, Status
+
+_UNSOLVED = int(Status.UNSOLVED)
+_SOLVED = int(Status.SOLVED)
+_PINF = int(Status.PRIMAL_INFEASIBLE)
+_DINF = int(Status.DUAL_INFEASIBLE)
+_STALLED = int(Status.STALLED)
+_F64_MAX_ITER = 8000
+
+
+class BatchCarry(NamedTuple):
+    x: torch.Tensor            # (B, n) scaled iterates
+    z: torch.Tensor            # (B, m)
+    y: torch.Tensor            # (B, m)
+    rho_bar: torch.Tensor      # scalar — shared so the factor stays shared
+    iters_lane: torch.Tensor   # (B,) int32 honest per-lane counts
+    status: torch.Tensor       # (B,) int32
+    r_prim: torch.Tensor       # (B,)
+    r_dual: torch.Tensor       # (B,)
+    hist: torch.Tensor         # (slots, 3) residual ring buffer
+
+
+def _geomean_masked(v, mask):
+    """Geometric mean of v over lanes where mask, 1.0 if none."""
+    logv = torch.where(mask, torch.log(torch.clamp(v, min=1e-30)), 0.0)
+    cnt = torch.clamp(mask.sum(), min=1)
+    return torch.exp(logv.sum() / cnt)
+
+
+def _status_of(numerr, solved, pinf, dinf, like):
+    st = torch.full_like(like, _UNSOLVED)
+    st = torch.where(dinf, _DINF, st)
+    st = torch.where(pinf, _PINF, st)
+    st = torch.where(solved, _SOLVED, st)
+    return torch.where(numerr, int(Status.NUMERICAL_ERROR), st)
+
+
+def _pick(mask, a, b):
+    """Per-lane select between two (B, ·) tensors."""
+    return torch.where(mask[:, None], a, b)
+
+
+def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
+                          x0, z0, y0, backend: str, rho0=None,
+                          z_off=None) -> BatchCarry:
+    """Lockstep batched ADMM with one shared KKT factor.
+
+    `qp` carries unbatched P and A with (B, m) l, u (q may be (B, n));
+    iterates are (B, ·). The shared scalar rho_bar adapts on the
+    geometric-mean residual ratio of the still-active lanes, so one
+    refactorisation serves all lanes.
+    """
+    dtype, dev = qp.dtype, qp.device
+    cone = qp.cone
+    eq_mask = admm.is_equality_row_shared(qp)
+    rho_bar = (torch.tensor(settings.rho, dtype=dtype, device=dev)
+               if rho0 is None else
+               torch.clamp(rho0.to(dtype), settings.rho_min,
+                           settings.rho_max))
+    B = x0.shape[0]
+
+    def factor(rho_bar):
+        rv = admm.rho_vec_of(rho_bar, eq_mask, settings, cone)
+        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend)
+
+    # The only place where the plain iteration body is chosen over the
+    # fused kernel: f32, explicit inverse, shared q/lam, no shifted prox,
+    # uniform SOC blocks.
+    use_fused = (
+        settings.fused != "off"
+        and backend == "inv"
+        and qp.A.dim() == 2
+        and qp.q.dim() == 1
+        and qp.lam.dim() == 1
+        and dtype == torch.float32
+        and z_off is None
+        and (cone.m_soc == 0 or cone.soc_uniform))
+
+    fac = factor(rho_bar)
+    big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    slots = max(settings.history, 0)
+    x, z, y = x0, z0, y0
+    it = 0
+    iters_lane = torch.zeros(B, dtype=torch.int32, device=dev)
+    status = torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev)
+    r_prim, r_dual = big, big
+    x_chk, y_chk = x0, y0
+    x_sum, z_sum, y_sum = (torch.zeros_like(t) for t in (x0, z0, y0))
+    avg_cnt = 0
+    best_ratio = big
+    since_best = torch.zeros(B, dtype=torch.int32, device=dev)
+    x_best, z_best, y_best = x0, z0, y0
+    rp_best, rd_best = big, big
+    hist = torch.full((slots, 3), -1.0, dtype=dtype, device=dev)
+    hist_ptr = 0
+
+    k = settings.check_every
+    interval_checks = max(1, settings.adaptive_rho_interval // k)
+    restart_checks = admm.restart_cadence_checks(settings)
+    alive = True
+
+    while alive and it < settings.max_iter:
+        check = it // k
+        rho_vec = admm.rho_vec_of(rho_bar, eq_mask, settings, cone)
+        active = status == _UNSOLVED
+
+        if use_fused:
+            xn, zn, yn = fused_ops.fused_iterate_shared(
+                qp.A, fac["Minv"], fac["M"], qp.q, rho_vec, qp.lam,
+                qp.l, qp.u, x, z, y, cone=cone, sigma=settings.sigma,
+                alpha=settings.alpha, k=k,
+                refine_steps=settings.refine_steps)
+        else:
+            xn, zn, yn = admm.iterate_block(
+                qp, fac, x, z, y, rho_vec, settings, backend, k,
+                z_off=z_off)
+        # Freeze converged/infeasible lanes.
+        xn, zn, yn = (_pick(active, a, b)
+                      for a, b in ((xn, x), (zn, z), (yn, y)))
+        it += k
+        iters_lane = iters_lane + active.to(torch.int32) * k
+
+        res = admm.residuals(qp, scaling, xn, zn, yn)
+
+        # Per-lane restarted averaging (Settings.restart_every): adopt a
+        # lane's running average iff its scaled residuals beat the
+        # lane's current iterate. Frozen lanes never restart.
+        x_sum, z_sum, y_sum = x_sum + xn, z_sum + zn, y_sum + yn
+        avg_cnt += 1
+        if restart_checks and check % restart_checks == restart_checks - 1:
+            denom = float(max(avg_cnt, 1))
+            xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
+            res_a = admm.residuals(qp, scaling, xa, za, ya)
+            take = active & (admm.scaled_resid_ratio(res_a, settings)
+                             < admm.scaled_resid_ratio(res, settings))
+            # nq (res[6]) is point-independent and may be a scalar.
+            res = tuple(torch.where(take, ra, rc)
+                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+            xn, zn, yn = (_pick(take, a, b)
+                          for a, b in ((xa, xn), (za, zn), (ya, yn)))
+            x_sum, z_sum, y_sum = (torch.zeros_like(t)
+                                   for t in (x_sum, z_sum, y_sum))
+            avg_cnt = 0
+
+        rp_now, rd_now = res[0], res[1]
+        eps_p, eps_d = admm.eps_thresholds(res, settings)
+        solved = (rp_now <= eps_p) & (rd_now <= eps_d)
+        pinf, dinf = admm.infeasibility(
+            qp, scaling, xn - x_chk, yn - y_chk, settings)
+        numerr = ~(torch.isfinite(rp_now) & torch.isfinite(rd_now))
+        new_status = _status_of(numerr, solved, pinf, dinf, status)
+        # Per-lane stall exit (Settings.stall_checks).
+        ratio_now = admm.scaled_resid_ratio(res, settings)
+        improved = active & (ratio_now < best_ratio)
+        best_ratio = torch.where(improved, ratio_now, best_ratio)
+        since_best = torch.where(
+            active, torch.where(improved, 0, since_best + 1), since_best)
+        x_best, z_best, y_best = (
+            _pick(improved, a, b)
+            for a, b in ((xn, x_best), (zn, z_best), (yn, y_best)))
+        rp_best = torch.where(improved, res[0], rp_best)
+        rd_best = torch.where(improved, res[1], rd_best)
+        if settings.stall_checks > 0:
+            stalled = since_best >= settings.stall_checks
+            new_status = torch.where(
+                (new_status == _UNSOLVED) & stalled, _STALLED, new_status)
+            # A stalling lane freezes at its BEST iterate: stall can
+            # fire mid-excursion.
+            swap = active & stalled & (new_status == _STALLED)
+            xn, zn, yn = (_pick(swap, a, b)
+                          for a, b in ((x_best, xn), (z_best, zn),
+                                       (y_best, yn)))
+            res = (torch.where(swap, rp_best, res[0]),
+                   torch.where(swap, rd_best, res[1])) + res[2:]
+        status = torch.where(active, new_status, status)
+        r_prim = torch.where(active, rp_now, r_prim)
+        r_dual = torch.where(active, rd_now, r_dual)
+
+        # Shared adaptive rho from the active lanes' geomean ratio.
+        still = status == _UNSOLVED
+        alive_t = still.any()
+        do_t = torch.zeros((), dtype=torch.bool, device=dev)
+        if settings.adaptive_rho and check % interval_checks == (
+                interval_checks - 1):
+            tiny = torch.finfo(dtype).tiny
+            _, _, nAx, nz, nPx, nAty, nq = res
+            sp = res[0] / torch.clamp(torch.maximum(nAx, nz), min=tiny)
+            sd = res[1] / torch.clamp(
+                torch.maximum(torch.maximum(nPx, nAty), nq), min=tiny)
+            ratio = torch.sqrt(
+                _geomean_masked(sp, still)
+                / torch.clamp(_geomean_masked(sd, still), min=tiny))
+            new_rho = torch.clamp(rho_bar * ratio, settings.rho_min,
+                                  settings.rho_max)
+            tol = settings.adaptive_rho_tol
+            do_t = ((ratio > tol) | (ratio < 1.0 / tol)) & alive_t
+
+        if slots > 0:
+            row = hist[hist_ptr % slots]
+            row[0] = float(it)
+            row[1] = r_prim.max()
+            row[2] = r_dual.max()
+            hist_ptr += 1
+        x, z, y = xn, zn, yn
+        x_chk, y_chk = xn, yn
+
+        # The one device-to-host read of this check.
+        alive, do = torch.stack([alive_t, do_t]).tolist()
+        if do:
+            fac = factor(new_rho)
+            rho_bar = new_rho
+
+    # Lanes that ran out of iterations also return their BEST iterate.
+    unsolved = status == _UNSOLVED
+    return BatchCarry(
+        x=_pick(unsolved, x_best, x), z=_pick(unsolved, z_best, z),
+        y=_pick(unsolved, y_best, y), rho_bar=rho_bar,
+        iters_lane=iters_lane,
+        status=torch.where(unsolved, int(Status.MAX_ITER), status),
+        r_prim=torch.where(unsolved, rp_best, r_prim),
+        r_dual=torch.where(unsolved, rd_best, r_dual), hist=hist)
+
+
+def _phase(qp, x0, z0, y0, settings, backend, scaling=None, rho0=None,
+           z_off=None):
+    if scaling is not None:
+        # Precomputed scaling (re-centred rounds keep phase 1's P/A, so
+        # the Ruiz loop would recompute identical factors).
+        scaling = scaling.astype(qp.dtype)
+        qps = scale_qp(qp, scaling)
+    else:
+        qps, scaling = ruiz_equilibrate(qp, settings.scaling_iters)
+    if settings.warm_start:
+        xs = scaling.scale_x(x0)
+        zs = scaling.scale_z(z0)
+        ys = scaling.scale_y(y0)
+    else:
+        xs, zs, ys = x0, z0, y0
+    if z_off is not None:
+        # Shifted-prox offsets live in z-space; they keep their own
+        # (f64) dtype — ops/prox upcasts there.
+        z_off = scaling.e.to(z_off.dtype) * z_off
+    carry = run_admm_batch_shared(
+        qps, scaling, settings, xs, zs, ys, backend, rho0=rho0, z_off=z_off)
+    x = scaling.unscale_x(carry.x)
+    z = scaling.unscale_z(carry.z)
+    y = scaling.unscale_y(carry.y)
+    return Solution(
+        x=x, z=z, y=y, status=carry.status, iters=carry.iters_lane,
+        r_prim=carry.r_prim, r_dual=carry.r_dual, obj=objective(qp, x, z),
+        rho=carry.rho_bar, history=carry.hist)
+
+
+def _s32_of_shared(settings: Settings) -> Settings:
+    """f32-phase settings: relaxed eps and f32 condition-number caps.
+    rho_soc_scale is stripped here (in raw coordinates the boost wrecks
+    f32 conditioning); the re-centred rounds re-apply it."""
+    return settings.replace(
+        precision="single",
+        eps_abs=max(settings.hybrid_eps, settings.eps_abs),
+        eps_rel=max(settings.hybrid_eps, settings.eps_rel),
+        sigma=max(settings.sigma, 1e-5),
+        rho_soc_scale=1.0,
+        rho_eq_scale=min(settings.rho_eq_scale, 1e2))
+
+
+def _clean64(v):
+    v = v.to(torch.float64)
+    return torch.where(torch.isfinite(v), v, 0.0)
+
+
+def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
+                             backend: str) -> Solution:
+    """Hybrid precision via f32 re-centring (all cone types).
+
+    Round 0 solves in f32 to the f32 residual plateau. Each refinement
+    round re-solves the same QP with data shifted around the accumulated
+    (x, y): g = Px + q (f64) becomes the correction's q, box bounds
+    shift by -Ax; L1/SOC rows keep their bounds and evaluate the shifted
+    prox with an f64 offset = Ax. The correction lives at the residual
+    scale, so f32 iterations reach the 1e-6 target. A capped,
+    warm-started f64 phase runs only for lanes the rounds left unsolved.
+    """
+    f32, f64 = torch.float32, torch.float64
+    s1 = _s32_of_shared(settings)
+    qp64 = qp.astype(f64)
+    # One Ruiz pass serves phase 1 and every correction round.
+    _, scaling1 = ruiz_equilibrate(qp.astype(f32), s1.scaling_iters)
+    sol = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32), s1,
+                 backend, scaling=scaling1)
+    p1_inf = (sol.status == _PINF) | (sol.status == _DINF)
+    x_t = _clean64(sol.x)
+    y_t = _clean64(sol.y)
+    z_t64 = _clean64(sol.z)
+    iters = sol.iters
+    rho = sol.rho
+
+    # Correction rounds: absolute eps at the target tolerance.
+    s_c = s1.replace(eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
+                     rho_soc_scale=settings.rho_soc_scale)
+    B = x_t.shape[0]
+    cone = qp.cone
+    mb, ml = cone.m_box, cone.m_l1
+    mixed = (ml + cone.m_soc) > 0
+    act_tol = 10.0 * max(settings.hybrid_eps, settings.eps_abs)
+    A64, P64, q64 = qp64.A, qp64.P, qp64.q
+
+    def mask_dual(y, z):
+        """Dual base for re-centring — the part of the accumulated dual
+        the correction's linear term absorbs (g_c includes Aᵀy_base, and
+        the round solves for the O(residual) remainder):
+          box:  y within act_tol of a bound, else exactly 0;
+          L1:   0 (∂(λ|z|) is bounded, so the round's dual replaces);
+          SOC:  the projection of y onto the normal cone at the current
+                primal — 0 in the interior, the component along the
+                normal ray on the boundary, the polar part at the tip.
+        """
+        scale = 1.0 + z.abs()
+        near_l = torch.isfinite(qp64.l) & (z - qp64.l <= act_tol * scale)
+        near_u = torch.isfinite(qp64.u) & (qp64.u - z <= act_tol * scale)
+        parts = [torch.where((near_l | near_u)[..., :mb], y[..., :mb], 0.0)]
+        if ml:
+            parts.append(torch.zeros_like(y[..., mb:mb + ml]))
+        if cone.m_soc:
+            d = cone.soc_dims[0]
+            shp = z[..., mb + ml:].shape[:-1] + (cone.n_soc, d)
+            zb = z[..., mb + ml:].reshape(shp)
+            yb = y[..., mb + ml:].reshape(shp)
+            t, u = zb[..., 0], zb[..., 1:]
+            yt, yu = yb[..., 0], yb[..., 1:]
+            nu = torch.linalg.vector_norm(u, dim=-1)
+            sc = act_tol * (1.0 + t.abs() + nu)
+            interior = nu <= t - sc
+            tip = (nu <= sc) & (t <= sc)
+            # Boundary outward normal ray n = (−1, u/‖u‖)/√2:
+            # base = <y, n>₊ n.
+            safe = torch.clamp(nu, min=torch.finfo(z.dtype).tiny)
+            cross = (yu * u).sum(-1) / safe - yt
+            s_ray = 0.5 * torch.clamp(cross, min=0.0)
+            ray_t = -s_ray
+            ray_u = s_ray[..., None] * (u / safe[..., None])
+            # Tip: polar-cone part via Moreau (y − Π_SOC(y)).
+            pt, pu = project_soc_block(yt, yu)
+            tip_t, tip_u = yt - pt, yu - pu
+            bt = torch.where(interior, 0.0, torch.where(tip, tip_t, ray_t))
+            bu = torch.where(interior[..., None], 0.0,
+                             torch.where(tip[..., None], tip_u, ray_u))
+            base = torch.cat([bt[..., None], bu], dim=-1)
+            parts.append(base.reshape(z[..., mb + ml:].shape))
+        return torch.cat(parts, dim=-1)
+
+    linf = admm.linf
+
+    def true_residuals(x, y, z):
+        """(r_p, r_d, eps_p, eps_d) per lane on the original f64 data,
+        with the solver loop's eps_d reference (incl. the L1 term)."""
+        Ax = x @ A64.mT
+        Px = x @ P64.mT
+        Aty = y @ A64
+        eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(
+            linf(Ax), linf(z))
+        eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+            torch.maximum(linf(Px), linf(Aty)),
+            torch.maximum(linf(q64), admm.l1_grad_scale_raw(qp64)))
+        return linf(Ax - z), linf(Px + q64 + Aty), eps_p, eps_d
+
+    def true_ratio(x, y, z):
+        r_p, r_d, eps_p, eps_d = true_residuals(x, y, z)
+        return torch.maximum(r_p / eps_p, r_d / eps_d)
+
+    def round_fn(x_t, y_t, z_t64, iters, rho, frozen):
+        y_base = mask_dual(y_t, z_t64) if mixed else None
+        Ax = x_t @ A64.mT
+        Px = x_t @ P64.mT
+        if mixed:
+            g = Px + q64 + y_base @ A64
+            # Box rows shift through the bounds; L1/SOC rows keep the
+            # original bounds/lam and use the shifted prox (offset=Ax).
+            l_c = torch.cat([qp64.l[..., :mb] - Ax[..., :mb],
+                             qp64.l[..., mb:]], dim=-1)
+            u_c = torch.cat([qp64.u[..., :mb] - Ax[..., :mb],
+                             qp64.u[..., mb:]], dim=-1)
+            z_off = torch.cat([torch.zeros_like(Ax[..., :mb]),
+                               Ax[..., mb:]], dim=-1)
+            y_warm = (y_t - y_base).to(f32)
+        else:
+            # Box-only: the correction is the original problem in shifted
+            # coordinates, so its dual is a complete dual and replaces.
+            g = Px + q64
+            l_c = qp64.l - Ax
+            u_c = qp64.u - Ax
+            z_off = None
+            y_warm = y_t.to(f32)
+        qp_c = QPData(P=qp.P.to(f32), q=g.to(f32), A=qp.A.to(f32),
+                      l=l_c.to(f32), u=u_c.to(f32), lam=qp.lam.to(f32),
+                      cone=cone)
+        zc0 = (z_t64 - Ax).to(f32)
+        solc = _phase(qp_c, torch.zeros((B, qp.n), dtype=f32,
+                                        device=x_t.device),
+                      zc0, y_warm, s_c, backend, scaling=scaling1,
+                      rho0=rho.to(f32), z_off=z_off)
+        x_n = x_t + _clean64(solc.x)
+        y_n = (y_base + _clean64(solc.y)) if mixed else _clean64(solc.y)
+        z_n = Ax + _clean64(solc.z)
+        # Round safeguard: accept a lane's round only when it improves
+        # the true scaled residual ratio on the original f64 data;
+        # rejected lanes keep their iterate and freeze.
+        ok = ~frozen & (true_ratio(x_n, y_n, z_n)
+                        < true_ratio(x_t, y_t, z_t64))
+        rstat = torch.where(ok, solc.status, _STALLED)
+        return (_pick(ok, x_n, x_t), _pick(ok, y_n, y_t),
+                _pick(ok, z_n, z_t64), iters + solc.iters,
+                solc.rho.to(rho.dtype), frozen | ~ok), rstat
+
+    carry = (x_t, y_t, z_t64, iters, rho,
+             torch.zeros(B, dtype=torch.bool, device=x_t.device))
+    for r in range(max(settings.recenter_rounds, 0)):
+        # Later rounds are skipped once every lane met the round
+        # criterion or froze: a round costs a factorisation and
+        # check_every iterations even when it converges at once.
+        if r > 0 and bool(((round_status == _SOLVED) | carry[5]).all()):
+            break
+        carry, round_status = round_fn(*carry)
+    x_t, y_t, z_t, iters, rho, _frozen = carry
+
+    # True residuals/status in f64 on the original data.
+    r_p, r_d, eps_p, eps_d = true_residuals(x_t, y_t, z_t)
+    solved = (r_p <= eps_p) & (r_d <= eps_d)
+    status = torch.where(p1_inf, sol.status,
+                         torch.where(solved, _SOLVED,
+                                     int(Status.MAX_ITER)).to(torch.int32))
+    d = qp.dtype
+
+    if not bool((~solved & ~p1_inf).any()):
+        return Solution(
+            x=x_t.to(d), z=z_t.to(d), y=y_t.to(d), status=status,
+            iters=iters, r_prim=r_p.to(d), r_dual=r_d.to(d),
+            obj=objective(qp64, x_t, z_t).to(d), rho=rho.to(d),
+            history=sol.history.to(d))
+
+    # f64 fallback for targets below the f32 dual floor: a warm-started,
+    # capped last-digit refiner (native f64 on the device) that exits on
+    # a plateau whatever the caller's stall_checks.
+    s64 = settings.replace(precision="single", warm_start=True,
+                           recenter_rounds=0,
+                           stall_checks=max(settings.stall_checks, 16),
+                           max_iter=min(settings.max_iter, _F64_MAX_ITER))
+    sol64 = _phase(qp64, x_t, z_t, y_t, s64, backend)
+    return Solution(
+        x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
+        status=torch.where(p1_inf, sol.status, sol64.status),
+        iters=iters + sol64.iters,
+        r_prim=sol64.r_prim.to(d), r_dual=sol64.r_dual.to(d),
+        obj=sol64.obj.to(d), rho=sol64.rho.to(d),
+        history=sol64.history.to(d))
+
+
+def _solve_shared_core(qp, x0, z0, y0, settings: Settings,
+                       backend: str) -> Solution:
+    precision = settings.precision
+    if precision == "single":
+        return _phase(qp, x0, z0, y0, settings, backend)
+    f64 = torch.float64
+    if precision == "double":
+        return _phase(qp.astype(f64), x0.to(f64), z0.to(f64), y0.to(f64),
+                      settings, backend)
+    if settings.recenter_rounds > 0:
+        return _solve_shared_recentered(qp, x0, z0, y0, settings, backend)
+    # recenter_rounds=0: the classic f32 -> f64 two-phase.
+    f32 = torch.float32
+    sol32 = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32),
+                   _s32_of_shared(settings), backend)
+    sol64 = _phase(qp.astype(f64), _clean64(sol32.x), _clean64(sol32.z),
+                   _clean64(sol32.y),
+                   settings.replace(precision="single", warm_start=True),
+                   backend)
+    p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)
+    d = qp.dtype
+    return Solution(
+        x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
+        status=torch.where(p1_inf, sol32.status, sol64.status),
+        iters=sol32.iters + sol64.iters,
+        r_prim=sol64.r_prim.to(d), r_dual=sol64.r_dual.to(d),
+        obj=sol64.obj.to(d), rho=sol64.rho.to(d), history=sol64.history)
+
+
+def solve_batch_shared(qp: QPData, settings: Settings = Settings(),
+                       x0=None, z0=None, y0=None) -> Solution:
+    """Solve B problems sharing (P, A) and differing in (l, u) and/or q.
+
+    `qp` holds unbatched P (n, n) and A (m, n) with (B, m) l, u (q may
+    be (n,) or (B, n)). One factorisation serves the whole batch; the
+    solve runs on qp's device.
+    """
+    if qp.l.dim() < 2:
+        raise ValueError("solve_batch_shared expects batched l/u (B, m)")
+    dtype, dev = qp.dtype, qp.device
+    B = qp.l.shape[0]
+    if x0 is None:
+        x0 = torch.zeros((B, qp.n), dtype=dtype, device=dev)
+    if z0 is None:
+        z0 = torch.zeros((B, qp.m), dtype=dtype, device=dev)
+    if y0 is None:
+        y0 = torch.zeros_like(z0)
+    backend = resolve_backend(settings, dev)
+    return _solve_shared_core(qp, x0, z0, y0, settings, backend)

@@ -1,0 +1,163 @@
+"""The fused CUDA kernel on the card: against its plain twin, its input
+checks and its launch counter, and a small solve through it.
+
+Needs a CUDA device, nvcc and no JAX; skipped elsewhere. On the GPU
+machine run it without the JAX suite's conftest:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from admm_library_torch import ConeSpec, QPData, Settings, Status
+from admm_library_torch import solve_batch_shared
+from admm_library_torch.core import admm
+from admm_library_torch.core.scaling import ruiz_equilibrate
+from admm_library_torch.models import monte_carlo as mc
+from admm_library_torch.ops import fused, kkt
+
+pytestmark = pytest.mark.gpu
+
+# Small shapes: one intra-op thread keeps the CPU free for the other
+# test workers.
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _operands(qp, x, z, y):
+    s = Settings(precision="single")
+    qps, _ = ruiz_equilibrate(qp, s.scaling_iters)
+    rho = admm.rho_vec_of(torch.tensor(s.rho, device=qp.device),
+                          admm.is_equality_row_shared(qps), s)
+    fac = kkt.factor_condensed(qps.P, qps.A, s.sigma, rho, "inv")
+    args = [qps.A, fac["Minv"], fac["M"], qps.q, rho, qps.lam, qps.l,
+            qps.u, x, z, y]
+    return args, dict(cone=qps.cone, sigma=s.sigma, alpha=s.alpha,
+                      refine_steps=s.refine_steps)
+
+
+def _box(dev):
+    qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(0),
+                                  batch=37, N=9, dim=3, device=dev)
+    B = qp.l.shape[0]
+    x, z, y = (torch.zeros((B, w), device=dev) for w in (qp.n, qp.m, qp.m))
+    return _operands(qp, x, z, y)
+
+
+def _l1_soc(dev):
+    rng = np.random.default_rng(3)
+    n, mb, ml, nsoc, d = 20, 8, 6, 3, 4
+    m = mb + ml + nsoc * d
+    R = rng.standard_normal((n, n)) / np.sqrt(n)
+    l = np.full(m, -np.inf)
+    u = np.full(m, np.inf)
+    l[:mb], u[:mb] = -1.0, 1.0
+    l[mb:mb + ml], u[mb:mb + ml] = -0.7, 0.7
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    qp = QPData(P=t(R @ R.T + 0.5 * np.eye(n)), q=t(rng.standard_normal(n)),
+                A=t(rng.standard_normal((m, n)) / np.sqrt(n)), l=t(l), u=t(u),
+                lam=torch.full((ml,), 0.3, device=dev),
+                cone=ConeSpec(m_box=mb, m_l1=ml, soc_dims=(d,) * nsoc))
+    x = t(rng.standard_normal((3, n)))
+    z = torch.zeros((3, m), device=dev)
+    return _operands(qp, x, z, torch.zeros_like(z))
+
+
+@pytest.mark.parametrize("case", [_box, _l1_soc], ids=["box", "l1_soc"])
+@pytest.mark.parametrize("k,refine", [(1, 1), (10, 1), (10, 0), (7, 2)])
+def test_kernel_matches_twin(case, k, refine, dev):
+    """Kernel and f32 twin are both held against the twin in f64 on the
+    same inputs; M is ill-conditioned, so f32 rounding is amplified in
+    any implementation: the kernel must stay within twice the twin's
+    own error (floor 1e-5)."""
+    args, kw = case(dev)
+    kw.update(k=k, refine_steps=refine)
+    before = fused.fused_iterate_shared.launches
+    got = fused.fused_iterate_shared(*args, **kw)
+    twin = fused.fused_iterate_shared_reference(*args, **kw)
+    ref = fused.fused_iterate_shared_reference(*(a.double() for a in args),
+                                               **kw)
+    torch.cuda.synchronize()
+    assert fused.fused_iterate_shared.launches == before + 1
+    err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+    twin_err = max(float((w.double() - r).abs().max())
+                   for w, r in zip(twin, ref))
+    assert err <= max(2.0 * twin_err, 1e-5)
+
+
+def test_kernel_leaves_inputs_and_reruns_bitwise(dev):
+    args, kw = _box(dev)
+    kw["k"] = 5
+    x0 = [a.clone() for a in args[-3:]]
+    a = fused.fused_iterate_shared(*args, **kw)
+    b = fused.fused_iterate_shared(*args, **kw)
+    for t, t0 in zip(args[-3:], x0):
+        assert torch.equal(t, t0)
+    for p, q in zip(a, b):
+        assert torch.equal(p, q)
+
+
+def test_wrapper_rejects_bad_inputs(dev):
+    args, kw = _box(dev)
+    kw["k"] = 1
+    bad_dtype = list(args)
+    bad_dtype[0] = args[0].double()
+    with pytest.raises(TypeError):
+        fused.fused_iterate_shared(*bad_dtype, **kw)
+    bad_layout = list(args)
+    bad_layout[1] = args[1].t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fused_iterate_shared(*bad_layout, **kw)
+    bad_shape = list(args)
+    bad_shape[3] = args[3][:-1]
+    with pytest.raises(ValueError, match="shape"):
+        fused.fused_iterate_shared(*bad_shape, **kw)
+    mixed = list(args)
+    mixed[0] = args[0].cpu()
+    with pytest.raises(ValueError, match="cpu"):
+        fused.fused_iterate_shared(*mixed, **kw)
+
+
+def test_small_solve_goes_through_the_kernel(dev):
+    qp, spec, s0s = mc.monte_carlo_mpc(torch.Generator().manual_seed(1),
+                                       batch=16, N=10, dim=2, device=dev)
+    fused.fused_iterate_shared.launches = 0
+    sol = solve_batch_shared(qp, Settings())
+    assert fused.fused_iterate_shared.launches > 0
+    assert bool((sol.status == int(Status.SOLVED)).all())
+    plain = solve_batch_shared(qp, Settings(fused="off"))
+    assert bool((plain.status == int(Status.SOLVED)).all())
+    assert abs(int(sol.iters.max()) - int(plain.iters.max())) <= 25
+
+
+def test_mixed_cone_solve_through_the_kernel(dev):
+    """Box + L1 + SOC rows: phase 1 runs the kernel's L1 and SOC
+    epilogues inside a real solve; the plain body agrees."""
+    rng = np.random.default_rng(7)
+    n, mb, ml, d, nb, B = 10, 6, 3, 3, 2, 3
+    m = mb + ml + d * nb
+    R = rng.standard_normal((n, n)) / np.sqrt(n)
+    l = np.full((B, m), -np.inf)
+    u = np.full((B, m), np.inf)
+    l[:, :mb] = -0.3 - 0.2 * rng.random((B, mb))
+    u[:, :mb] = 0.3 + 0.2 * rng.random((B, mb))
+    l[:, mb:mb + ml], u[:, mb:mb + ml] = -0.5, 0.5
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    qp = QPData(P=t(R @ R.T + 0.5 * np.eye(n)), q=t(rng.standard_normal(n)),
+                A=t(rng.standard_normal((m, n)) / np.sqrt(n)), l=t(l), u=t(u),
+                lam=torch.full((ml,), 0.2, device=dev),
+                cone=ConeSpec(m_box=mb, m_l1=ml, soc_dims=(d,) * nb))
+    fused.fused_iterate_shared.launches = 0
+    sol = solve_batch_shared(qp, Settings())
+    assert fused.fused_iterate_shared.launches > 0
+    plain = solve_batch_shared(qp, Settings(fused="off"))
+    assert bool((sol.status == int(Status.SOLVED)).all())
+    assert torch.equal(sol.status, plain.status)
+    torch.testing.assert_close(sol.x, plain.x, atol=1e-5, rtol=0.0)
