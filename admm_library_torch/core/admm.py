@@ -19,13 +19,18 @@ unscaled quantities through the Scaling vectors.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..ops import kkt
 from ..ops.prox import project_cone
 from ..problem import QPData, is_equality_row
 from ..settings import Settings
+from ..solution import Status
 from .scaling import Scaling
+
+_UNSOLVED = int(Status.UNSOLVED)
 
 
 def linf(v):
@@ -60,7 +65,9 @@ def admm_iteration(qp: QPData, fac, x, z, y, rho_vec, settings: Settings,
     """
     rhs = settings.sigma * x - qp.q + (rho_vec * z - y) @ qp.A
     xt = kkt.solve_condensed(fac, rhs, backend,
-                             refine_steps=settings.refine_steps)
+                             refine_steps=settings.refine_steps,
+                             cg_tol=settings.cg_tol,
+                             cg_max_iter=settings.cg_max_iter)
     zt = xt @ qp.A.mT
     a = settings.alpha
     x_new = a * xt + (1.0 - a) * x
@@ -228,3 +235,162 @@ def scaled_resid_ratio(res, settings: Settings):
     number, so 'better' means 'closer to stopping'."""
     eps_p, eps_d = eps_thresholds(res, settings)
     return torch.maximum(res[0] / eps_p, res[1] / eps_d)
+
+
+def status_of(numerr, solved, pinf, dinf, like):
+    """Status codes from the check's verdicts: a NaN residual first,
+    then solved, primal and dual infeasibility, else UNSOLVED."""
+    st = torch.full_like(like, _UNSOLVED)
+    st = torch.where(dinf, int(Status.DUAL_INFEASIBLE), st)
+    st = torch.where(pinf, int(Status.PRIMAL_INFEASIBLE), st)
+    st = torch.where(solved, int(Status.SOLVED), st)
+    return torch.where(numerr, int(Status.NUMERICAL_ERROR), st)
+
+
+def adapt_rho(rho_bar, res, settings: Settings):
+    """OSQP §5.2 residual-balancing rho update; returns (new_rho,
+    changed)."""
+    r_prim, r_dual, nAx, nz, nPx, nAty, nq = res
+    tiny = torch.finfo(rho_bar.dtype).tiny
+    sp = r_prim / torch.clamp(torch.maximum(nAx, nz), min=tiny)
+    sd = r_dual / torch.clamp(torch.maximum(torch.maximum(nPx, nAty), nq),
+                              min=tiny)
+    ratio = torch.sqrt(sp / torch.clamp(sd, min=tiny))
+    new = torch.clamp(rho_bar * ratio, settings.rho_min, settings.rho_max)
+    tol = settings.adaptive_rho_tol
+    changed = (ratio > tol) | (ratio < 1.0 / tol)
+    return torch.where(changed, new, rho_bar), changed
+
+
+class AdmmCarry(NamedTuple):
+    """Final state of `run_admm` (scaled iterates)."""
+    x: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    rho_bar: torch.Tensor       # scalar penalty level
+    fac: dict                   # the KKT factor of the last rho
+    it: int                     # iterations run
+    status: torch.Tensor        # int32 Status
+    r_prim: torch.Tensor
+    r_dual: torch.Tensor
+    hist: torch.Tensor          # (slots, 3) residual ring buffer
+
+
+def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
+             x0, z0, y0, backend: str, z_off=None, rho0=None) -> AdmmCarry:
+    """Solve one scaled problem: a host loop over residual checks, each
+    of which reads one small tensor from the device (liveness and the
+    refactor flag).
+
+    Every check runs check_every iterations, then the restarted
+    averaging, the termination and infeasibility tests, the NaN
+    tripwire, the stall exit and, on its cadence, the adaptive rho
+    (a refactorisation, or for the matrix-free 'cg' backend only a new
+    rho in the operator). A run that ends UNSOLVED reports MAX_ITER.
+    z_off: optional scaled shifted-prox offset for L1/SOC rows.
+    rho0: optional initial rho-bar (warm rho).
+    """
+    dtype, dev = qp.dtype, qp.device
+    eq_mask = is_equality_row(qp)
+    rho_bar = torch.as_tensor(settings.rho if rho0 is None else rho0,
+                              dtype=dtype, device=dev)
+
+    def factor(rho_bar):
+        rv = rho_vec_of(rho_bar, eq_mask, settings, qp.cone)
+        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend)
+
+    fac = factor(rho_bar)
+    slots = max(settings.history, 0)
+    hist = torch.full((slots, 3), -1.0, dtype=dtype, device=dev)
+    hist_ptr = 0
+    big = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    x, z, y = x0, z0, y0
+    it = 0
+    status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
+    r_prim, r_dual = big, big
+    x_chk, y_chk = x0, y0
+    x_sum, z_sum, y_sum = (torch.zeros_like(t) for t in (x0, z0, y0))
+    avg_cnt = 0
+    best_ratio = big
+    since_best = torch.zeros((), dtype=torch.int32, device=dev)
+
+    k = settings.check_every
+    interval_checks = max(1, settings.adaptive_rho_interval // k)
+    restart_checks = restart_cadence_checks(settings)
+    alive = True
+
+    while alive and it < settings.max_iter:
+        check = it // k
+        rho_vec = rho_vec_of(rho_bar, eq_mask, settings, qp.cone)
+        x, z, y = iterate_block(qp, fac, x, z, y, rho_vec, settings,
+                                backend, k, z_off=z_off)
+        it += k
+        res = residuals(qp, scaling, x, z, y)
+
+        # Restarted averaging: at each restart boundary adopt the running
+        # average of the check-cadence iterates iff its scaled residuals
+        # beat the current iterate's.
+        x_sum, z_sum, y_sum = x_sum + x, z_sum + z, y_sum + y
+        avg_cnt += 1
+        if restart_checks and check % restart_checks == restart_checks - 1:
+            denom = float(max(avg_cnt, 1))
+            xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
+            res_a = residuals(qp, scaling, xa, za, ya)
+            take = (scaled_resid_ratio(res_a, settings)
+                    < scaled_resid_ratio(res, settings))
+            x, z, y = (torch.where(take, a, b)
+                       for a, b in ((xa, x), (za, z), (ya, y)))
+            res = tuple(torch.where(take, ra, rc)
+                        for ra, rc in zip(res_a, res))
+            x_sum, z_sum, y_sum = (torch.zeros_like(t)
+                                   for t in (x_sum, z_sum, y_sum))
+            avg_cnt = 0
+
+        r_prim, r_dual = res[0], res[1]
+        eps_p, eps_d = eps_thresholds(res, settings)
+        solved = (r_prim <= eps_p) & (r_dual <= eps_d)
+        pinf, dinf = infeasibility(qp, scaling, x - x_chk, y - y_chk,
+                                   settings)
+        # NaN tripwire: a failed factorisation or a divergent iterate
+        # poisons the residuals; stop instead of spinning to max_iter.
+        numerr = ~(torch.isfinite(r_prim) & torch.isfinite(r_dual))
+        status = status_of(numerr, solved, pinf, dinf, status)
+
+        # Stall exit: no new best scaled ratio for a whole window.
+        ratio_now = scaled_resid_ratio(res, settings)
+        improved = ratio_now < best_ratio
+        best_ratio = torch.minimum(ratio_now, best_ratio)
+        since_best = torch.where(improved, 0, since_best + 1)
+        if settings.stall_checks > 0:
+            stalled = since_best >= settings.stall_checks
+            status = torch.where((status == _UNSOLVED) & stalled,
+                                 int(Status.STALLED), status)
+
+        do_t = torch.zeros((), dtype=torch.bool, device=dev)
+        if settings.adaptive_rho and check % interval_checks == (
+                interval_checks - 1):
+            new_rho, changed = adapt_rho(rho_bar, res, settings)
+            do_t = changed & (status == _UNSOLVED)
+
+        if slots > 0:
+            row = hist[hist_ptr % slots]
+            row[0] = float(it)
+            row[1] = r_prim
+            row[2] = r_dual
+            hist_ptr += 1
+        x_chk, y_chk = x, y
+
+        # The one device-to-host read of this check.
+        alive, do = torch.stack([status == _UNSOLVED, do_t]).tolist()
+        if do:
+            rho_bar = new_rho
+            if backend == "cg":
+                # Matrix-free: rho enters the operator, no refactorisation.
+                fac = dict(fac, rho=rho_vec_of(rho_bar, eq_mask, settings,
+                                               qp.cone))
+            else:
+                fac = factor(rho_bar)
+
+    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER), status)
+    return AdmmCarry(x=x, z=z, y=y, rho_bar=rho_bar, fac=fac, it=it,
+                     status=status, r_prim=r_prim, r_dual=r_dual, hist=hist)

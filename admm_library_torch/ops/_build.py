@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-`csrc/*.cu` is compiled with nvcc for Hopper (sm_90a) into one shared
-library with a plain C interface, on first use, into
-`admm_library_torch/_build/` (git-ignored). The file name carries a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once. There is no fallback: a missing nvcc or a
-failed build raises.
+Each `csrc/*.cu` is compiled with nvcc for Hopper (sm_90a) into its own
+shared library with a plain C interface, on first use, into
+`admm_library_torch/_build/` (git-ignored). All sources are compiled
+together, one nvcc process each. A library's file name carries a hash of
+its source and the flags, so an edited source rebuilds and an unchanged
+one loads at once. There is no fallback: a missing nvcc or a failed
+build raises.
 """
 from __future__ import annotations
 
@@ -43,45 +44,62 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libadmm_kernels_{h.hexdigest()[:16]}.so"
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernels unless the library for these sources exists.
+def build(verbose: bool = False) -> dict[str, tuple[Path, str]]:
+    """Compile every source whose library does not exist yet, all nvcc
+    processes at once.
 
-    Returns (library path, compiler output). verbose adds
+    Returns {source stem: (library path, compiler output)}. verbose adds
     `-Xptxas -v` (registers, shared memory and spills per kernel), and
-    rebuilds even when the library exists so that output is produced.
+    rebuilds even when a library exists so that output is produced.
     """
-    out = library_path()
-    if out.exists() and not verbose:
-        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, *map(str, sources())]
+    done: dict[str, tuple[Path, str]] = {}
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)          # atomic against a concurrent build
+        for src in sources():
+            out = library_path(src)
+            if out.exists() and not verbose:
+                done[src.stem] = (out, "")
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS,
+                   *(("-Xptxas", "-v") if verbose else ()),
+                   "-o", tmp, str(src)]
+            jobs.append((src.stem, out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for stem, out, tmp, cmd, proc in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{log}")
+                continue
+            os.replace(tmp, out)      # atomic against a concurrent build
+            done[stem] = (out, log)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+        for _, _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return done
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
-    path = str(build()[0])
+def load_library(name: str) -> ctypes.CDLL:
+    """The shared library of `csrc/<name>.cu`, built on first use."""
+    path = str(build()[name][0])
     if path not in _loaded:
         _loaded[path] = ctypes.CDLL(path)
     return _loaded[path]

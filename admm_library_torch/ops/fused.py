@@ -47,7 +47,7 @@ def _entry():
     """The C entry point, with its argument types declared."""
     global _c_entry
     if _c_entry is None:
-        lib = _build.load_library()
+        lib = _build.load_library("fused_iterate")
         fn = lib.admm_fused_iterate_f32
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([ptr] * 15 + [i32] * 7 + [f32] * 3

@@ -4,9 +4,13 @@
 
 M is symmetric positive definite. Backends:
 
-  'chol' — dense Cholesky, triangular solves per iteration.
-  'inv'  — explicit M⁻¹; each iteration's solve is one product, and the
-           fused kernel (ops/fused.py) consumes M⁻¹ and M directly.
+  'chol'      — dense Cholesky, triangular solves per iteration.
+  'inv'       — explicit M⁻¹; each iteration's solve is one product, and
+                the fused kernel (ops/fused.py) consumes M⁻¹ and M.
+  'cg'        — matrix-free lockstep conjugate gradient on P, A, rho and
+                sigma (adaptive rho needs no refactorisation).
+  'pallas_cg' — M assembled once; each solve is one launch of the
+                Jacobi-PCG kernel (ops/pallas_cg.py).
 
 Right-hand sides keep the lane layout (B, n) against one shared factor.
 A Cholesky that fails (M not positive definite in the working
@@ -16,6 +20,12 @@ NUMERICAL_ERROR instead of raising.
 from __future__ import annotations
 
 import torch
+
+from .pallas_cg import pallas_cg_solve
+
+# Lockstep CG reads its loop condition from the device every this many
+# steps; extra steps with every lane frozen leave x unchanged.
+_CG_CHECK = 8
 
 
 def condensed_matrix(P, A, sigma, rho_vec):
@@ -32,9 +42,17 @@ def _cholesky(M):
 
 
 def factor_condensed(P, A, sigma, rho_vec, backend: str):
-    """Build the cached factor for `backend`: a dict holding 'M' (kept
-    for refinement) and 'L' ('chol') or 'Minv' ('inv')."""
+    """Build the cached factor for `backend`: a dict holding 'M' and
+    'L' ('chol') or 'Minv' ('inv'); M alone ('pallas_cg'); or the
+    operator pieces P, A, rho, sigma ('cg')."""
+    if backend == "cg":
+        return {"P": P, "A": A, "rho": rho_vec,
+                "sigma": torch.tensor(sigma, dtype=P.dtype, device=P.device)}
     M = condensed_matrix(P, A, sigma, rho_vec)
+    if backend == "pallas_cg":
+        # CG needs exact symmetry, which the product's rounding need not
+        # give.
+        return {"M": 0.5 * (M + M.transpose(-1, -2))}
     if backend == "chol":
         return {"M": M, "L": _cholesky(M)}
     if backend == "inv":
@@ -55,13 +73,51 @@ def _chol_solve(L, rhs):
 
 
 def _matvec_M(fac, v):
-    """M v for lane-batched v (..., n)."""
-    return v @ fac["M"].mT
+    """M v for lane-batched v (..., n); matrix-free for the 'cg' factor."""
+    if "M" in fac:
+        return v @ fac["M"].mT
+    Av = v @ fac["A"].mT
+    return v @ fac["P"].mT + fac["sigma"] * v + (fac["rho"] * Av) @ fac["A"]
 
 
-def solve_condensed(fac, rhs, backend: str, refine_steps: int = 0):
+def cg_solve(fac, rhs, x0=None, tol: float = 1e-9, max_iter: int = 200):
+    """Lockstep conjugate gradient on M x = rhs, all lanes of rhs's
+    leading dims together; a lane freezes once ‖r‖² ≤ tol²·max(‖rhs‖², 1).
+    Runs until every lane froze or max_iter steps."""
+    x = torch.zeros_like(rhs) if x0 is None else x0
+    r = rhs - _matvec_M(fac, x)
+    p = r
+    rs = (r * r).sum(-1)
+    tol2 = (tol * tol) * torch.clamp((rhs * rhs).sum(-1), min=1.0)
+    for it in range(max_iter):
+        if it % _CG_CHECK == 0 and not bool((rs > tol2).any()):
+            break
+        Mp = _matvec_M(fac, p)
+        pMp = (p * Mp).sum(-1)
+        active = rs > tol2
+        alpha = torch.where(active, rs / torch.where(pMp > 0, pMp, 1.0), 0.0)
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * Mp
+        rs_new = (r * r).sum(-1)
+        beta = torch.where(active, rs_new / torch.where(rs > 0, rs, 1.0), 0.0)
+        p = r + beta[..., None] * p
+        rs = torch.where(active, rs_new, rs)
+    return x
+
+
+def solve_condensed(fac, rhs, backend: str, refine_steps: int = 0,
+                    cg_tol: float = 1e-9, cg_max_iter: int = 200):
     """Solve M x = rhs with the cached factor, then `refine_steps`
-    steps of iterative refinement."""
+    steps of iterative refinement (none for the CG backends)."""
+    if backend == "cg":
+        return cg_solve(fac, rhs, tol=cg_tol, max_iter=cg_max_iter)
+    if backend == "pallas_cg":
+        M = fac["M"]
+        if M.dim() != 2:
+            raise ValueError("pallas_cg requires an unbatched (shared) M")
+        flat = rhs.reshape(-1, rhs.shape[-1])
+        x = pallas_cg_solve(M, flat, iters=cg_max_iter, tol=cg_tol)
+        return x.reshape(rhs.shape)
     if backend == "chol":
         def apply(r):
             return _chol_solve(fac["L"], r)

@@ -26,6 +26,7 @@ from ..core.scaling import ruiz_equilibrate, scale_qp
 from ..ops import fused as fused_ops
 from ..ops import kkt
 from ..ops.prox import project_soc_block
+from ..precision import clean64
 from ..problem import QPData, objective
 from ..settings import Settings
 from ..solution import Solution, Status
@@ -55,14 +56,6 @@ def _geomean_masked(v, mask):
     logv = torch.where(mask, torch.log(torch.clamp(v, min=1e-30)), 0.0)
     cnt = torch.clamp(mask.sum(), min=1)
     return torch.exp(logv.sum() / cnt)
-
-
-def _status_of(numerr, solved, pinf, dinf, like):
-    st = torch.full_like(like, _UNSOLVED)
-    st = torch.where(dinf, _DINF, st)
-    st = torch.where(pinf, _PINF, st)
-    st = torch.where(solved, _SOLVED, st)
-    return torch.where(numerr, int(Status.NUMERICAL_ERROR), st)
 
 
 def _pick(mask, a, b):
@@ -178,7 +171,7 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         pinf, dinf = admm.infeasibility(
             qp, scaling, xn - x_chk, yn - y_chk, settings)
         numerr = ~(torch.isfinite(rp_now) & torch.isfinite(rd_now))
-        new_status = _status_of(numerr, solved, pinf, dinf, status)
+        new_status = admm.status_of(numerr, solved, pinf, dinf, status)
         # Per-lane stall exit (Settings.stall_checks).
         ratio_now = admm.scaled_resid_ratio(res, settings)
         improved = active & (ratio_now < best_ratio)
@@ -237,8 +230,13 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         # The one device-to-host read of this check.
         alive, do = torch.stack([alive_t, do_t]).tolist()
         if do:
-            fac = factor(new_rho)
             rho_bar = new_rho
+            if backend == "cg":
+                # Matrix-free: rho enters the operator, no refactorisation.
+                fac = dict(fac, rho=admm.rho_vec_of(rho_bar, eq_mask,
+                                                    settings, cone))
+            else:
+                fac = factor(rho_bar)
 
     # Lanes that ran out of iterations also return their BEST iterate.
     unsolved = status == _UNSOLVED
@@ -294,11 +292,6 @@ def _s32_of_shared(settings: Settings) -> Settings:
         rho_eq_scale=min(settings.rho_eq_scale, 1e2))
 
 
-def _clean64(v):
-    v = v.to(torch.float64)
-    return torch.where(torch.isfinite(v), v, 0.0)
-
-
 def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
                              backend: str) -> Solution:
     """Hybrid precision via f32 re-centring (all cone types).
@@ -319,9 +312,9 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     sol = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32), s1,
                  backend, scaling=scaling1)
     p1_inf = (sol.status == _PINF) | (sol.status == _DINF)
-    x_t = _clean64(sol.x)
-    y_t = _clean64(sol.y)
-    z_t64 = _clean64(sol.z)
+    x_t = clean64(sol.x)
+    y_t = clean64(sol.y)
+    z_t64 = clean64(sol.z)
     iters = sol.iters
     rho = sol.rho
 
@@ -429,9 +422,9 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
                                         device=x_t.device),
                       zc0, y_warm, s_c, backend, scaling=scaling1,
                       rho0=rho.to(f32), z_off=z_off)
-        x_n = x_t + _clean64(solc.x)
-        y_n = (y_base + _clean64(solc.y)) if mixed else _clean64(solc.y)
-        z_n = Ax + _clean64(solc.z)
+        x_n = x_t + clean64(solc.x)
+        y_n = (y_base + clean64(solc.y)) if mixed else clean64(solc.y)
+        z_n = Ax + clean64(solc.z)
         # Round safeguard: accept a lane's round only when it improves
         # the true scaled residual ratio on the original f64 data;
         # rejected lanes keep their iterate and freeze.
@@ -500,8 +493,8 @@ def _solve_shared_core(qp, x0, z0, y0, settings: Settings,
     f32 = torch.float32
     sol32 = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32),
                    _s32_of_shared(settings), backend)
-    sol64 = _phase(qp.astype(f64), _clean64(sol32.x), _clean64(sol32.z),
-                   _clean64(sol32.y),
+    sol64 = _phase(qp.astype(f64), clean64(sol32.x), clean64(sol32.z),
+                   clean64(sol32.y),
                    settings.replace(precision="single", warm_start=True),
                    backend)
     p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)

@@ -1,4 +1,4 @@
-"""f32 matrix-product precision policy.
+"""Precision policy: exact f32 products, and the f32 -> f64 hand-off.
 
 The JAX package pins every solver dot product to exact f32 because a
 reduced-precision product gave a KKT factor with ||I - M^-1 M|| > 1 and
@@ -16,3 +16,10 @@ def exact_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def clean64(v):
+    """f64 copy with non-finite entries reset to zero: a poisoned f32
+    phase must not poison the f64 stage it warm-starts."""
+    v = v.to(torch.float64)
+    return torch.where(torch.isfinite(v), v, 0.0)

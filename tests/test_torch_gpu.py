@@ -1,5 +1,6 @@
-"""The fused CUDA kernel on the card: against its plain twin, its input
-checks and its launch counter, and a small solve through it.
+"""The CUDA kernels on the card (the fused ADMM iteration and the
+Jacobi-PCG solve): each against its plain twin, its input checks and its
+launch counter, and small solves through it.
 
 Needs a CUDA device, nvcc and no JAX; skipped elsewhere. On the GPU
 machine run it without the JAX suite's conftest:
@@ -161,3 +162,130 @@ def test_mixed_cone_solve_through_the_kernel(dev):
     assert bool((sol.status == int(Status.SOLVED)).all())
     assert torch.equal(sol.status, plain.status)
     torch.testing.assert_close(sol.x, plain.x, atol=1e-5, rtol=0.0)
+
+
+# ---- the Jacobi-PCG kernel (ops/pallas_cg.py, csrc/pallas_cg.cu) ----
+
+def _pcg_case(dev, dtype, B=5):
+    """M from a Ruiz-scaled 'pallas_cg' factor of a small Monte-Carlo
+    MPC (n=81), rhs the x-update of a real iteration: z at the
+    projection of zero onto the bounds."""
+    from admm_library_torch.parallel.batch import _s32_of_shared
+    qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(2),
+                                  batch=B, N=9, dim=3, device=dev)
+    s = _s32_of_shared(Settings())
+    qps, _ = ruiz_equilibrate(qp, s.scaling_iters)
+    rho = admm.rho_vec_of(torch.tensor(s.rho, device=dev),
+                          admm.is_equality_row_shared(qps), s)
+    M = kkt.factor_condensed(qps.P, qps.A, s.sigma, rho, "pallas_cg")["M"]
+    z = torch.clamp(torch.zeros_like(qps.l), qps.l, qps.u)
+    rhs = (rho * z) @ qps.A - qps.q
+    return M.to(dtype), rhs.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 5, 40])
+def test_pcg_kernel_matches_twin(dtype, B, dev):
+    """200 steps at tol 1e-9: the kernel and the twin in the working
+    type are both held against the twin in f64. f64: within 1e-8 of it
+    (two f64 summation orders). f32: within twice the f32 twin's own
+    error (floor 1e-5), since M is ill-conditioned. 1-3 steps: within
+    a few ulps of the twin."""
+    from admm_library_torch.ops import pallas_cg as pcg
+    M, rhs = _pcg_case(dev, dtype, B)
+    ref = pcg.pallas_cg_solve_reference(M.double(), rhs.double(),
+                                        iters=200, tol=1e-9)
+    got = pcg.pallas_cg_solve(M, rhs, iters=200, tol=1e-9)
+    twin = pcg.pallas_cg_solve_reference(M, rhs, iters=200, tol=1e-9)
+    torch.cuda.synchronize()
+    err = float((got.double() - ref).abs().max())
+    twin_err = float((twin.double() - ref).abs().max())
+    if dtype == torch.float64:
+        assert err <= 1e-8
+    else:
+        assert err <= max(2.0 * twin_err, 1e-5)
+    ulp = torch.finfo(dtype).eps
+    for iters in (1, 2, 3):
+        a = pcg.pallas_cg_solve(M, rhs, iters=iters, tol=1e-9)
+        b = pcg.pallas_cg_solve_reference(M, rhs, iters=iters, tol=1e-9)
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 64 * ulp * scale
+
+
+def test_pcg_kernel_freezes_lanes_and_reruns_bitwise(dev, monkeypatch):
+    from admm_library_torch.ops import pallas_cg as pcg
+    M, rhs = _pcg_case(dev, torch.float64, B=6)
+    rhs[3] = 0.0
+    x0 = torch.zeros_like(rhs)
+    a = pcg.pallas_cg_solve(M, rhs, x0=x0, iters=50, tol=1e-9)
+    b = pcg.pallas_cg_solve(M, rhs, x0=x0, iters=50, tol=1e-9)
+    assert torch.equal(a, b)
+    assert torch.equal(a[3], torch.zeros_like(a[3]))
+    # 1-D rhs and lane tiles give the same lane.
+    v = pcg.pallas_cg_solve(M, rhs[0], iters=50, tol=1e-9)
+    assert v.shape == rhs[0].shape
+    for tile in pcg.LANE_TILES:
+        monkeypatch.setattr(pcg, "auto_lane_tile", lambda B, t=tile: t)
+        t = pcg.pallas_cg_solve(M, rhs, iters=50, tol=1e-9)
+        assert torch.equal(t[0], v)
+
+
+def test_pcg_wrapper_rejects_bad_inputs(dev):
+    from admm_library_torch.ops import pallas_cg as pcg
+    M, rhs = _pcg_case(dev, torch.float32, B=3)
+    with pytest.raises(TypeError):
+        pcg.pallas_cg_solve(M.half(), rhs.half())
+    with pytest.raises(TypeError):
+        pcg.pallas_cg_solve(M.double(), rhs)
+    with pytest.raises(ValueError, match="contiguous"):
+        pcg.pallas_cg_solve(M, rhs.repeat(1, 2)[:, ::2])
+    with pytest.raises(ValueError, match="cpu"):
+        pcg.pallas_cg_solve(M.cpu(), rhs)
+    with pytest.raises(ValueError, match="unbatched"):
+        pcg.pallas_cg_solve(M.expand(3, *M.shape), rhs)
+
+
+def test_pcg_launch_counter_and_no_path_to_the_twin(dev, monkeypatch):
+    """Each CUDA call is one launch; the kernel path never runs the twin,
+    and a kernel that cannot be loaded raises instead of falling back."""
+    from admm_library_torch.ops import pallas_cg as pcg
+    M, rhs = _pcg_case(dev, torch.float32, B=3)
+
+    def boom(*a, **k):
+        raise AssertionError("the plain twin ran on CUDA tensors")
+
+    monkeypatch.setattr(pcg, "_cg_math", boom)
+    before = pcg.pallas_cg_solve.launches
+    pcg.pallas_cg_solve(M, rhs, iters=10)
+    pcg.pallas_cg_solve(M, rhs[0], iters=10)
+    assert pcg.pallas_cg_solve.launches == before + 2
+
+    def no_library():
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(pcg, "_entry", no_library)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        pcg.pallas_cg_solve(M, rhs, iters=10)
+    assert pcg.pallas_cg_solve.launches == before + 2
+
+
+def test_small_solve_goes_through_the_pcg_kernel(dev):
+    from admm_library_torch import solve
+    from admm_library_torch.models.random_qp import random_box_qp
+    from admm_library_torch.ops import pallas_cg as pcg
+    qp = random_box_qp(torch.Generator().manual_seed(13), n=30, m=60,
+                       device=dev)
+    pcg.pallas_cg_solve.launches = 0
+    sol = solve(qp, Settings(backend="pallas_cg"))
+    assert pcg.pallas_cg_solve.launches > 0
+    assert int(sol.status) == int(Status.SOLVED)
+    ref = solve(qp, Settings(backend="inv"))
+    assert int(ref.status) == int(Status.SOLVED)
+    torch.testing.assert_close(sol.x, ref.x, atol=1e-4, rtol=0.0)
+    for precision in ("single", "double"):
+        pcg.pallas_cg_solve.launches = 0
+        s = solve(qp, Settings(backend="pallas_cg", precision=precision,
+                               eps_abs=1e-4, eps_rel=1e-4))
+        assert pcg.pallas_cg_solve.launches > 0
+        assert int(s.status) == int(Status.SOLVED)

@@ -137,3 +137,39 @@ def test_resolve_backend():
     assert T.resolve_backend(T.Settings(), "cpu") == "chol"
     assert T.resolve_backend(T.Settings(), "cuda") == "inv"
     assert T.resolve_backend(T.Settings(backend="inv"), "cpu") == "inv"
+
+
+def test_reference_random_box_qp_is_the_jax_draw():
+    """The committed config-1 instance is exactly what the JAX
+    reference's random_box_qp(PRNGKey(0)) draws (f32, n=100, m=200)."""
+    from admm_library_tpu.models.random_qp import random_box_qp
+    from admm_library_torch.models.random_qp import reference_random_box_qp
+    jqp = random_box_qp(jax.random.PRNGKey(0))
+    tqp = reference_random_box_qp()
+    _equal(tqp, jqp)
+    assert tqp.dtype == torch.float32 and (tqp.n, tqp.m) == (100, 200)
+
+
+@pytest.mark.parametrize("kind", ["box", "eq_ineq"])
+def test_random_qp_generators(kind):
+    """Seeded and device-explicit; P symmetric positive definite, the
+    bounds nonempty around A x_feas, equality rows first (eq_ineq)."""
+    from admm_library_torch.models import random_qp as trq
+    if kind == "box":
+        make = lambda g: trq.random_box_qp(g, n=12, m=20)  # noqa: E731
+    else:
+        make = lambda g: trq.random_eq_ineq_qp(  # noqa: E731
+            g, n=12, m_eq=3, m_in=9)
+    qp = make(torch.Generator().manual_seed(4))
+    again = make(torch.Generator().manual_seed(4))
+    for f in FIELDS:
+        assert torch.equal(getattr(qp, f), getattr(again, f)), f
+    assert qp.dtype == torch.float32 and qp.device.type == "cpu"
+    assert torch.equal(qp.P, qp.P.T)
+    assert float(torch.linalg.eigvalsh(qp.P.double()).min()) >= 0.09
+    assert bool((qp.l <= qp.u).all())
+    eq = (qp.l == qp.u)
+    if kind == "box":
+        assert not bool(eq.any()) and qp.cone.m_box == 20
+    else:
+        assert eq.tolist() == [True] * 3 + [False] * 9
