@@ -113,6 +113,23 @@ def l1_grad_scale_raw(qp: QPData):
     return (qp.lam[..., :, None] * qp.A[..., mb:mb + ml, :].abs()).amax()
 
 
+def unscaled_criterion(qp: QPData, x, z, y, eps_abs: float, eps_rel: float):
+    """Residuals of an unscaled point (x, z, y) on unscaled data, and the
+    solver loop's mixed stopping criterion (eps_d includes the L1
+    gradient scale, or min-fuel points that the loop calls SOLVED would
+    fail it): (Ax, Px, r_p, r_d, eps_p, eps_d, solved)."""
+    Ax = x @ qp.A.mT
+    Px = x @ qp.P.mT
+    Aty = y @ qp.A
+    r_p = linf(Ax - z)
+    r_d = linf(Px + qp.q + Aty)
+    eps_p = eps_abs + eps_rel * torch.maximum(linf(Ax), linf(z))
+    eps_d = eps_abs + eps_rel * torch.maximum(
+        torch.maximum(linf(Px), linf(Aty)),
+        torch.maximum(linf(qp.q), l1_grad_scale_raw(qp)))
+    return Ax, Px, r_p, r_d, eps_p, eps_d, (r_p <= eps_p) & (r_d <= eps_d)
+
+
 def residuals(qp: QPData, scaling: Scaling, x, z, y, nlam=None):
     """Unscaled residual norms and eps_rel scale factors:
     (r_prim, r_dual, norm_Ax, norm_z, norm_Px, norm_Aty, norm_q), where

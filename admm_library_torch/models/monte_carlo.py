@@ -1,8 +1,9 @@
-"""Monte-Carlo scenario dispersions of the rendezvous MPC.
+"""Monte-Carlo scenario dispersions of the rendezvous MPC, the CW
+min-fuel rendezvous and the low-thrust SOCP.
 
 A dispersion perturbs the initial state s0, which enters only the
-constraint bounds, so the batch shares (P, q, A): a bound-batched
-QPData for parallel.batch.solve_batch_shared.
+constraint bounds of every model here, so the batch shares (P, q, A): a
+bound-batched QPData for parallel.batch.solve_batch_shared.
 
 `reference_s0(batch)` returns the dispersions that the JAX package's
 `monte_carlo_mpc(jax.random.PRNGKey(0), batch)` draws, stored in
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 
 from ..problem import QPData
+from . import clohessy_wiltshire as cw
 from . import double_integrator as di
+from . import low_thrust as lt
 
 _REFERENCE_S0 = Path(__file__).with_name("mc_s0_seed0.npz")
 
@@ -73,6 +76,47 @@ def monte_carlo_mpc(generator: torch.Generator, batch: int = 1024,
                       sigma_vel, batch, dtype, device)
     return monte_carlo_mpc_from_s0(s0s, N=N, dim=dim, dtype=dtype,
                                    device=device)
+
+
+def _dispersed(builder, bounds_for_s0, s0_nominal, generator, batch,
+               sigma_pos, sigma_vel, dtype, device, **kw):
+    """Bound-batched QPData of `builder` at the nominal s0, bounds for
+    `batch` draws around it: (QPData, spec, s0 batch (B, 6))."""
+    s0_nom = torch.tensor(s0_nominal, dtype=dtype, device=device)
+    qp, spec = builder(s0_nom, dtype=dtype, device=device, **kw)
+    s0s = disperse_s0(generator, s0_nom, sigma_pos, sigma_vel, batch,
+                      dtype, device)
+    l, u = bounds_for_s0(qp, spec, s0s)
+    return (QPData(P=qp.P, q=qp.q, A=qp.A, l=l, u=u, lam=qp.lam,
+                   cone=qp.cone), spec, s0s)
+
+
+def monte_carlo_cw(generator: torch.Generator, batch: int = 1024,
+                   N: int = 20, sigma_pos: float = 50.0,
+                   sigma_vel: float = 0.05,
+                   dtype: torch.dtype = torch.float32, device="cpu"):
+    """Dispersed CW impulsive min-fuel rendezvous batch around a 1 km
+    along-track offset with small radial and velocity errors.
+
+    Returns (bound-batched QPData, CWSpec, s0 batch (B, 6)).
+    """
+    return _dispersed(cw.build_cw_rendezvous, cw.cw_bounds_for_s0,
+                      [100.0, -1000.0, 20.0, 0.1, 0.5, -0.05], generator,
+                      batch, sigma_pos, sigma_vel, dtype, device, N=N)
+
+
+def monte_carlo_low_thrust(generator: torch.Generator, batch: int = 128,
+                           N: int = 200, sigma_pos: float = 50.0,
+                           sigma_vel: float = 0.05,
+                           dtype: torch.dtype = torch.float32,
+                           device="cpu"):
+    """Dispersed low-thrust SOCP batch.
+
+    Returns (bound-batched QPData, LowThrustSpec, s0 batch (B, 6)).
+    """
+    return _dispersed(lt.build_low_thrust_socp, lt.lt_bounds_for_s0,
+                      [500.0, -2000.0, 100.0, 0.0, 1.0, -0.1], generator,
+                      batch, sigma_pos, sigma_vel, dtype, device, N=N)
 
 
 def reference_s0(batch: int) -> np.ndarray:

@@ -35,7 +35,9 @@ def condensed_matrix(P, A, sigma, rho_vec):
     return P + sigma * eye + A.transpose(-1, -2) @ (rho_vec[..., :, None] * A)
 
 
-def _cholesky(M):
+def cholesky_or_nan(M):
+    """Cholesky factor of M, all NaN where M is not positive definite
+    (as the JAX package's cholesky returns)."""
     L, info = torch.linalg.cholesky_ex(M)
     bad = (info != 0)[..., None, None]
     return torch.where(bad, torch.full_like(L, float("nan")), L)
@@ -54,9 +56,9 @@ def factor_condensed(P, A, sigma, rho_vec, backend: str):
         # give.
         return {"M": 0.5 * (M + M.transpose(-1, -2))}
     if backend == "chol":
-        return {"M": M, "L": _cholesky(M)}
+        return {"M": M, "L": cholesky_or_nan(M)}
     if backend == "inv":
-        L = _cholesky(M)
+        L = cholesky_or_nan(M)
         eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
         Linv = torch.linalg.solve_triangular(L, eye, upper=False)
         return {"M": M, "Minv": Linv.transpose(-1, -2) @ Linv}

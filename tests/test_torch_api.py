@@ -86,8 +86,8 @@ def test_small_mpc_matches_jax(backend):
 
 
 def _soc_problem(seed=0):
-    """Box rows and two uniform SOC blocks; the JAX shared pass solves
-    it, so its f64 continuation (not ported) never runs."""
+    """Box rows and two uniform SOC blocks; at the default max_iter the
+    shared pass solves it, so the f64 continuation never runs."""
     rng = np.random.default_rng(seed)
     n, mb, d, nb = 8, 4, 3, 2
     m = mb + d * nb
@@ -260,29 +260,37 @@ def test_batched_problem_is_rejected():
 
 
 @pytest.mark.parametrize("case", ["l1", "no_rounds"])
-def test_unported_paths_raise_before_any_work(case, monkeypatch):
-    def boom(*a, **k):
-        raise AssertionError("work started")
-
-    monkeypatch.setattr(tapi.admm, "run_admm", boom)
-    monkeypatch.setattr(tapi, "_warm_check", boom)
+def test_staged_path_takes_l1_and_no_rounds(case, monkeypatch):
+    """Hybrid L1 problems and recenter_rounds=0 take the staged path,
+    never the batch delegation, and finish as in JAX."""
+    import admm_library_torch.parallel.batch as tbatch
+    taken = []
+    staged = tapi._solve_staged
+    monkeypatch.setattr(tapi, "_solve_staged",
+                        lambda *a, **k: taken.append(1) or staged(*a, **k))
+    monkeypatch.setattr(tbatch, "solve_batch_shared", None)
     if case == "l1":
-        qp = T.make_qp(np.eye(2), np.ones(2), np.eye(2), -np.ones(2),
-                       np.ones(2), cone=ConeSpec(m_box=1, m_l1=1),
-                       lam=[0.5])
-        s = T.Settings()
+        qpj = jmake_qp(np.eye(2), np.ones(2), np.eye(2), -np.ones(2),
+                       np.ones(2), cone=JCone(m_box=1, m_l1=1), lam=[0.5])
+        js, ts = _settings(backend="chol")
     else:
-        qp = _to_torch(random_box_qp(jax.random.key(2), n=6, m=8))
-        s = T.Settings(recenter_rounds=0)
-    z = torch.zeros(qp.m, dtype=qp.dtype)
-    with pytest.raises(NotImplementedError, match="polish"):
-        T.solve(qp, s, x0=torch.zeros(qp.n, dtype=qp.dtype), z0=z, y0=z)
+        qpj = random_box_qp(jax.random.key(2), n=6, m=8)
+        js, ts = _settings(backend="chol", recenter_rounds=0)
+    _compare(J.solve(qpj, js), T.solve(_to_torch(qpj), ts))
+    assert taken == [1]
 
 
-def test_unsolved_soc_problem_raises():
-    """An SOC problem the shared pass leaves unsolved would need the f64
-    continuation, which is not ported: solve raises rather than return
-    the unfinished point."""
-    qp = _to_torch(_soc_problem())
-    with pytest.raises(NotImplementedError, match="continuation"):
-        T.solve(qp, T.Settings(max_iter=25))
+def test_unsolved_soc_problem_continues_in_f64(monkeypatch):
+    """An SOC problem that the shared pass leaves unsolved (max_iter 25)
+    continues in `_f64_continuation`, in both packages."""
+    calls = []
+    cont = japi._f64_continuation
+    monkeypatch.setattr(japi, "_f64_continuation",
+                        lambda *a, **k: calls.append(1) or cont(*a, **k))
+    qpj = _soc_problem()
+    js, ts = _settings(max_iter=25, backend="chol")
+    jsol = J.solve(qpj, js)
+    assert calls == [1]
+    tsol = T.solve(_to_torch(qpj), ts)
+    _compare(jsol, tsol)
+    assert int(tsol.status) == int(T.Status.SOLVED)

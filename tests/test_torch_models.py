@@ -173,3 +173,157 @@ def test_random_qp_generators(kind):
         assert not bool(eq.any()) and qp.cone.m_box == 20
     else:
         assert eq.tolist() == [True] * 3 + [False] * 9
+
+
+# ---- CW min-fuel (config 3) and low-thrust SOCP (config 4) models ----
+
+def _cw_s0():
+    return np.array([100.0, -800.0, 30.0, 0.1, 0.4, -0.02])
+
+
+def _lt_s0():
+    return np.array([500.0, -2000.0, 100.0, 0.0, 1.0, -0.1])
+
+
+def _builders():
+    from admm_library_tpu.models import clohessy_wiltshire as jcw
+    from admm_library_tpu.models import low_thrust as jlt
+    from admm_library_torch.models import clohessy_wiltshire as tcw
+    from admm_library_torch.models import low_thrust as tlt
+    return {
+        "cw": (jcw.build_cw_rendezvous, tcw.build_cw_rendezvous, _cw_s0(),
+               dict(N=7, dt=600.0, dv_max=2.0)),
+        "cw_sparse": (jcw.build_cw_rendezvous_sparse,
+                      tcw.build_cw_rendezvous_sparse, _cw_s0(), dict(N=5)),
+        "low_thrust": (jlt.build_low_thrust_socp, tlt.build_low_thrust_socp,
+                       _lt_s0(), dict(N=6)),
+    }
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("model", ["cw", "cw_sparse", "low_thrust"])
+def test_astro_builders_match_jax(model, dtype):
+    """Both packages assemble the data in f64 numpy and convert once:
+    bitwise equal data and equal specs."""
+    jbuild, tbuild, s0, kw = _builders()[model]
+    target = np.array([5.0, 0.0, -2.0, 0.0, 0.01, 0.0])
+    jqp, jspec = jbuild(s0, target, dtype=getattr(jnp, dtype), **kw)
+    tqp, tspec = tbuild(s0, target, dtype=getattr(torch, dtype), **kw)
+    _equal(tqp, jqp)
+    assert tqp.cone == type(tqp.cone)(**dataclasses.asdict(jqp.cone))
+    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
+    assert tqp.dtype == getattr(torch, dtype) and tqp.device.type == "cpu"
+
+
+def test_cw_stm_properties():
+    from admm_library_tpu.models import clohessy_wiltshire as jcw
+    from admm_library_torch.models import clohessy_wiltshire as tcw
+    n = 1.2e-3
+    # Phi(0) = I; Phi(a) Phi(b) = Phi(a + b) (a linear time-invariant
+    # flow); the same closed form as the reference, bit for bit.
+    np.testing.assert_allclose(tcw.cw_stm(n, 0.0), np.eye(6), atol=1e-14)
+    a, b = 137.0, 402.0
+    np.testing.assert_allclose(tcw.cw_stm(n, a) @ tcw.cw_stm(n, b),
+                               tcw.cw_stm(n, a + b), rtol=1e-10, atol=1e-10)
+    np.testing.assert_array_equal(tcw.cw_stm(n, a), jcw.cw_stm(n, a))
+
+
+def test_astro_solution_helpers_match_jax():
+    """propagate, dv_impulses, rollout and thrust_profile on one vector
+    and the bounds of a batch of dispersed states, against JAX (f64;
+    the products sum in another order, hence 1e-12 relative)."""
+    from admm_library_tpu.models import clohessy_wiltshire as jcw
+    from admm_library_tpu.models import low_thrust as jlt
+    from admm_library_torch.models import clohessy_wiltshire as tcw
+    from admm_library_torch.models import low_thrust as tlt
+    rng = np.random.default_rng(2)
+    f64 = dict(dtype=jnp.float64)
+    t64 = dict(dtype=torch.float64)
+    close = dict(rtol=1e-12, atol=1e-12)
+    s0b = rng.standard_normal((3, 6)) * [50, 50, 50, 0.05, 0.05, 0.05]
+
+    jqp, jspec = jcw.build_cw_rendezvous(_cw_s0(), N=7, **f64)
+    tqp, tspec = tcw.build_cw_rendezvous(_cw_s0(), N=7, **t64)
+    x = rng.standard_normal(tspec.n)
+    np.testing.assert_allclose(
+        tcw.propagate(tspec, torch.from_numpy(_cw_s0()),
+                      torch.from_numpy(x)).numpy(),
+        np.asarray(jcw.propagate(jspec, _cw_s0(), jnp.asarray(x))), **close)
+    assert tcw.dv_impulses(tspec, torch.from_numpy(x)).shape == (7, 3)
+    for got, ref in zip(
+            tcw.cw_bounds_for_s0(tqp, tspec, torch.from_numpy(s0b)),
+            jcw.cw_bounds_for_s0(jqp, jspec, s0b)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **close)
+
+    jqp, jspec = jcw.build_cw_rendezvous_sparse(_cw_s0(), N=5, **f64)
+    tqp, tspec = tcw.build_cw_rendezvous_sparse(_cw_s0(), N=5, **t64)
+    for got, ref in zip(
+            tcw.cw_sparse_bounds_for_s0(tqp, tspec, torch.from_numpy(s0b)),
+            jcw.cw_sparse_bounds_for_s0(jqp, jspec, s0b)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **close)
+
+    jqp, jspec = jlt.build_low_thrust_socp(_lt_s0(), N=6, **f64)
+    tqp, tspec = tlt.build_low_thrust_socp(_lt_s0(), N=6, **t64)
+    x = rng.standard_normal(tspec.n)
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    np.testing.assert_allclose(
+        tlt.rollout(tspec, torch.from_numpy(_lt_s0()), tx).numpy(),
+        np.asarray(jlt.rollout(jspec, _lt_s0(), jx)), **close)
+    for got, ref in zip(tlt.thrust_profile(tspec, tx),
+                        jlt.thrust_profile(jspec, jx)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(
+        tspec.accel_from_nd(tx).numpy(), np.asarray(jspec.accel_from_nd(jx)))
+    for got, ref in zip(
+            tlt.lt_bounds_for_s0(tqp, tspec, torch.from_numpy(s0b)),
+            jlt.lt_bounds_for_s0(jqp, jspec, s0b)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **close)
+
+
+@pytest.mark.parametrize("model", ["cw", "low_thrust"])
+def test_monte_carlo_astro_batches_share_matrices(model):
+    """Seeded, device-explicit dispersions whose batch shares P, q and A
+    with the nominal problem and differs only in the bounds of the s0
+    rows."""
+    from admm_library_torch.models import clohessy_wiltshire as tcw
+    from admm_library_torch.models import low_thrust as tlt
+    if model == "cw":
+        make = lambda g: tmc.monte_carlo_cw(  # noqa: E731
+            g, batch=8, N=6, dtype=torch.float64)
+        build = tcw.build_cw_rendezvous
+    else:
+        make = lambda g: tmc.monte_carlo_low_thrust(  # noqa: E731
+            g, batch=4, N=5, dtype=torch.float64)
+        build = tlt.build_low_thrust_socp
+    qp, spec, s0s = make(torch.Generator().manual_seed(0))
+    again = make(torch.Generator().manual_seed(0))[0]
+    B = s0s.shape[0]
+    assert qp.P.dim() == 2 and qp.A.dim() == 2 and qp.q.dim() == 1
+    assert qp.l.shape == (B, qp.m) and qp.u.shape == (B, qp.m)
+    for f in FIELDS:
+        assert torch.equal(getattr(qp, f), getattr(again, f)), f
+    # P, q and A do not depend on s0 in either model.
+    other, _ = build(s0s[0], N=spec.N, dtype=torch.float64)
+    for f in ("P", "q", "A", "lam"):
+        assert torch.equal(getattr(qp, f), getattr(other, f)), f
+    assert torch.equal(qp.l[:, 6:], qp.l[:1, 6:].expand(B, -1))
+    assert not torch.equal(qp.l[0, :6], qp.l[1, :6])
+
+
+def test_reference_continuation_entry_fits_config4():
+    """The stored point where the JAX package's solve entered its f64
+    continuation on config 4: f64 fields of config 4's shape (N=200:
+    n=2000, m=2206), STALLED after 4,525 iterations, and its stored
+    objective is the objective of the port's own build of config 4 at
+    that point (f32 data solved as f64, as the bench does)."""
+    from admm_library_torch.models import low_thrust as tlt
+    from admm_library_torch.problem import objective
+    e = tlt.reference_continuation_entry()
+    qp, _ = tlt.build_low_thrust_socp(_lt_s0(), N=200)
+    qp = qp.astype(torch.float64)
+    assert e.x.shape == (qp.n,) and e.z.shape == e.y.shape == (qp.m,)
+    assert (qp.n, qp.m) == (2000, 2206)
+    assert e.x.dtype == e.z.dtype == e.y.dtype == torch.float64
+    assert int(e.status) == int(T.Status.STALLED) and int(e.iters) == 4525
+    np.testing.assert_allclose(float(objective(qp, e.x, e.z)), float(e.obj),
+                               rtol=1e-12)
