@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..problem import ConeSpec, QPData, make_qp
+from . import model_device
 
 
 def state_to_nd(s, lu: float, tu: float):
@@ -107,7 +108,7 @@ def _as_np(s):
 def build_cw_rendezvous(s0, s_target=None, N: int = 20, dt: float = 300.0,
                         n_mean: float = 1.1288e-3, dv_max: float = 1.0,
                         lam: float = 1.0, reg: float = 1e-6,
-                        dtype: torch.dtype = torch.float32, device="cpu"):
+                        dtype: torch.dtype = torch.float32, device=None):
     """Build the L1 min-fuel impulsive CW rendezvous problem.
 
     s0: (6,) initial relative state; s_target: (6,) final state (default
@@ -117,6 +118,7 @@ def build_cw_rendezvous(s0, s_target=None, N: int = 20, dt: float = 300.0,
     s0 enters only the terminal-equality bounds, so Monte-Carlo
     dispersions share (P, q, A) (see `cw_bounds_for_s0`).
     """
+    device = model_device(device)
     s0 = _as_np(s0)
     s_t = np.zeros(6) if s_target is None else _as_np(s_target)
     nvar = 3 * N
@@ -163,7 +165,7 @@ def build_cw_rendezvous_sparse(s0, s_target=None, N: int = 20,
                                dv_max: float = 1.0, lam: float = 1.0,
                                reg: float = 1e-6,
                                dtype: torch.dtype = torch.float32,
-                               device="cpu"):
+                               device=None):
     """Banded state-space transcription of the L1 min-fuel CW problem.
 
     The states stay decision variables, so A is block-banded. Variables
@@ -179,6 +181,7 @@ def build_cw_rendezvous_sparse(s0, s_target=None, N: int = 20,
     and spec.lu / spec.tu convert back. The same optimum as the
     condensed form. Returns (QPData, CWSpec).
     """
+    device = model_device(device)
     s0 = _as_np(s0)
     s_t = np.zeros(6) if s_target is None else _as_np(s_target)
     lu = max(float(np.linalg.norm(s0[:3])), 1.0)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..problem import ConeSpec, QPData, make_qp
+from . import model_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +65,14 @@ def dynamics_matrices(spec: MPCSpec):
 
 def build_mpc_qp(s0, s_target, N: int = 50, dim: int = 3, dt: float = 1.0,
                  u_max: float = 1.0, state_reg: float = 1e-8,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device=None):
     """Build the min-energy rendezvous QP. Returns (QPData, MPCSpec).
 
     s0 and s_target are (2*dim,) states. s0 enters only the bounds of
     the first dynamics rows, so a dispersion of s0 keeps P and A shared
     across a batch.
     """
+    device = model_device(device)
     spec = MPCSpec(N=N, dim=dim, dt=dt)
     ns, nu, b = spec.ns, spec.nu, spec.block
     n = spec.n

@@ -33,6 +33,7 @@ import torch
 
 from ..problem import ConeSpec, QPData, make_qp
 from ..solution import Solution
+from . import model_device
 from .clohessy_wiltshire import _as_np, _with_rows0, cw_stm, state_to_nd
 
 _REFERENCE_ENTRY = Path(__file__).with_name("low_thrust_entry_seed0.npz")
@@ -90,13 +91,14 @@ def _zoh_control_matrix(n_mean: float, dt: float, order: int = 24):
 def build_low_thrust_socp(s0, s_target=None, N: int = 200, dt: float = 60.0,
                           n_mean: float = 1.1288e-3, u_max: float = 0.01,
                           state_reg: float = 1e-8, ctrl_reg: float = 1e-6,
-                          dtype: torch.dtype = torch.float32, device="cpu"):
+                          dtype: torch.dtype = torch.float32, device=None):
     """Build the banded low-thrust rendezvous SOCP. Returns (QPData,
     LowThrustSpec).
 
     s0 enters only the first dynamics rows' bounds, so Monte-Carlo
     dispersions share (P, q, A) (see `lt_bounds_for_s0`).
     """
+    device = model_device(device)
     s0 = _as_np(s0)
     s_t = np.zeros(6) if s_target is None else _as_np(s_target)
     lu = max(float(np.linalg.norm(s0[:3])), 1.0)
@@ -206,11 +208,12 @@ def rollout(spec: LowThrustSpec, s0, x):
     return torch.stack(out)
 
 
-def reference_continuation_entry(device="cpu") -> Solution:
+def reference_continuation_entry(device=None) -> Solution:
     """The unsolved point that the JAX package's solve hands to its f64
     continuation on config 4 (bench_low_thrust: N=200, its f32 data
     solved as f64, the bench settings), on the CPU: STALLED after the
     shared pass's 4,525 iterations. Floating fields in f64."""
+    device = model_device(device)
     with np.load(_REFERENCE_ENTRY) as f:
         return Solution(**{k: torch.as_tensor(f[k], device=device)
                            for k in f.files})

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..problem import QPData
+from . import model_device
 from . import clohessy_wiltshire as cw
 from . import double_integrator as di
 from . import low_thrust as lt
@@ -27,10 +28,11 @@ _REFERENCE_S0 = Path(__file__).with_name("mc_s0_seed0.npz")
 
 def disperse_s0(generator: torch.Generator, s0_nominal, sigma_pos: float,
                 sigma_vel: float, batch: int,
-                dtype: torch.dtype = torch.float32, device="cpu"):
+                dtype: torch.dtype = torch.float32, device=None):
     """Gaussian initial-state dispersion: (batch, ns) states; the first
     half of the state is position (sigma_pos), the second velocity
     (sigma_vel). The noise is drawn on the generator's device."""
+    device = model_device(device)
     s0 = torch.as_tensor(s0_nominal, dtype=dtype, device=device)
     ns = s0.shape[-1]
     d = ns // 2
@@ -49,9 +51,10 @@ def _nominal(dim, dtype, device):
 
 def monte_carlo_mpc_from_s0(s0s, N: int = 50, dim: int = 3,
                             dtype: torch.dtype = torch.float32,
-                            device="cpu"):
+                            device=None):
     """Bound-batched rendezvous MPC for the given initial states
     s0s (B, 2*dim). Returns (QPData, MPCSpec, s0s)."""
+    device = model_device(device)
     if not isinstance(s0s, torch.Tensor):
         s0s = torch.from_numpy(np.array(s0s))
     s0s = s0s.to(dtype=dtype, device=device)
@@ -67,11 +70,12 @@ def monte_carlo_mpc_from_s0(s0s, N: int = 50, dim: int = 3,
 def monte_carlo_mpc(generator: torch.Generator, batch: int = 1024,
                     N: int = 50, dim: int = 3, sigma_pos: float = 0.1,
                     sigma_vel: float = 0.01,
-                    dtype: torch.dtype = torch.float32, device="cpu"):
+                    dtype: torch.dtype = torch.float32, device=None):
     """Dispersed double-integrator rendezvous MPC batch.
 
     Returns (bound-batched QPData, MPCSpec, s0 batch (B, 2*dim)).
     """
+    device = model_device(device)
     s0s = disperse_s0(generator, _nominal(dim, dtype, device), sigma_pos,
                       sigma_vel, batch, dtype, device)
     return monte_carlo_mpc_from_s0(s0s, N=N, dim=dim, dtype=dtype,
@@ -94,12 +98,13 @@ def _dispersed(builder, bounds_for_s0, s0_nominal, generator, batch,
 def monte_carlo_cw(generator: torch.Generator, batch: int = 1024,
                    N: int = 20, sigma_pos: float = 50.0,
                    sigma_vel: float = 0.05,
-                   dtype: torch.dtype = torch.float32, device="cpu"):
+                   dtype: torch.dtype = torch.float32, device=None):
     """Dispersed CW impulsive min-fuel rendezvous batch around a 1 km
     along-track offset with small radial and velocity errors.
 
     Returns (bound-batched QPData, CWSpec, s0 batch (B, 6)).
     """
+    device = model_device(device)
     return _dispersed(cw.build_cw_rendezvous, cw.cw_bounds_for_s0,
                       [100.0, -1000.0, 20.0, 0.1, 0.5, -0.05], generator,
                       batch, sigma_pos, sigma_vel, dtype, device, N=N)
@@ -109,11 +114,12 @@ def monte_carlo_low_thrust(generator: torch.Generator, batch: int = 128,
                            N: int = 200, sigma_pos: float = 50.0,
                            sigma_vel: float = 0.05,
                            dtype: torch.dtype = torch.float32,
-                           device="cpu"):
+                           device=None):
     """Dispersed low-thrust SOCP batch.
 
     Returns (bound-batched QPData, LowThrustSpec, s0 batch (B, 6)).
     """
+    device = model_device(device)
     return _dispersed(lt.build_low_thrust_socp, lt.lt_bounds_for_s0,
                       [500.0, -2000.0, 100.0, 0.0, 1.0, -0.1], generator,
                       batch, sigma_pos, sigma_vel, dtype, device, N=N)

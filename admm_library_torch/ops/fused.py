@@ -15,16 +15,17 @@ SOC blocks.
 The CUDA kernel (csrc/fused_iterate.cu) replaces
 admm_library_tpu/ops/fused.py::fused_iterate_shared, a Pallas kernel
 that keeps every shared matrix resident in TPU VMEM for the whole
-k-block. On the H100 those 3.3 MB (flagship n=450, m=456) fit only in
-the 50 MB L2, so every product re-reads its shared matrix from L2. Its
-design: each product is one launch of a tiled FFMA GEMM whose
-shared-memory tiles let every L2 byte of a shared matrix feed 32 lanes;
-the elementwise stages (rhs assembly, refinement, over-relaxation,
-prox, dual update) ride in the GEMMs' prologue and epilogues so no
-intermediate makes an extra pass through memory. Measured on the H100
-(PERF.md §5), that leaves it far from both the L2 bandwidth and the f32
-FMA peak: what bounds it is latency, with few warps per SM (60 blocks
-at batch 128).
+k-block. One H100 SM holds 227 KB, but the whole card holds 132 times
+that: the kernel is one persistent cooperative launch per k-block whose
+blocks each own a tile of A and of M⁻¹/M, keep it in shared memory for
+all k iterations where it fits (2.44 MB in all at n=450, 18.5 KB per
+SM) and stream it from L2 where it does not. Every product is spread
+over the whole grid, split over its reduction axis as well as its
+outputs; grid-wide barriers separate each product's partial sums from
+the phase that adds them in a fixed order and applies the elementwise
+step (rhs assembly, refinement, relaxation, prox, dual update).
+`plan` chooses the partition from the shapes, the SM count and the
+shared memory a block may use.
 
 `fused_iterate_shared_reference` is the same math in plain PyTorch (the
 JAX kernel's `_iter_math`). The wrapper uses it for CPU tensors only;
@@ -33,6 +34,8 @@ for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -40,23 +43,304 @@ from ..problem import ConeSpec
 from .prox import project_cone
 from . import _build
 
+SMALL_BATCH = 8                 # B up to this: GEMV-shaped, one lane per tile
+F64_BATCH = 256                 # B up to this: f64 accumulators
+LEFT_BYTES = 32 * 1024          # shared memory for the staged left operand
+# Cost model of one block's share of a product: FFMA at half the SM's
+# issue rate (the operands come from shared memory) and its share of the
+# L2 bandwidth, both per nanosecond (H100 SXM, ~1.7 GHz).
+_FMA_PER_NS = 128 * 1.7 * 0.5
+_L2_BYTES_PER_NS = 30.0
+_STREAM_BYTES_PER_NS = 8.0
+
 _c_entry = None
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up4(v: int) -> int:
+    return _cdiv(v, 4) * 4
+
+
+def padded_ld(cols: int) -> int:
+    """Row length in floats of a tile in shared memory: a multiple of 4
+    (16-byte rows for float4 loads) and not of 8, so that float4 loads
+    of neighbouring rows fall in different banks."""
+    c = _up4(cols)
+    return c if c % 8 else c + 4
+
+
+def lane_tile(B: int) -> int:
+    """Lanes of one thread's register tile (times 4 output columns).
+    Measured on the H100 at B=128 and 1024, 4 lanes beat 8."""
+    return 1 if B <= SMALL_BATCH else 4
+
+
+def threads(tl: int) -> int:
+    """Threads per block: 512 in the GEMV-shaped regime, where loads in
+    flight set the pace, 256 above it (registers for the tile)."""
+    return 512 if tl == 1 else 256
+
+
+@dataclasses.dataclass(frozen=True)
+class Tiling:
+    """A cut of a (rows, cols) shared matrix and of the lanes over the
+    grid: tile t = (lane group, row chunk, column chunk), row-major in
+    that order, is block t's work in each product on that matrix. Chunks
+    are multiples of 4 long, except the last."""
+
+    lane_groups: int
+    lanes: int
+    row_splits: int
+    row_chunk: int
+    col_splits: int
+    col_chunk: int
+
+    @property
+    def tiles(self) -> int:
+        return self.lane_groups * self.row_splits * self.col_splits
+
+    def tile(self, t: int, B: int, rows: int, cols: int):
+        """(lanes, rows, cols) ranges of tile t."""
+        g, rest = divmod(t, self.row_splits * self.col_splits)
+        i, j = divmod(rest, self.col_splits)
+        return (range(g * self.lanes, min(B, (g + 1) * self.lanes)),
+                range(i * self.row_chunk, min(rows, (i + 1) * self.row_chunk)),
+                range(j * self.col_chunk, min(cols, (j + 1) * self.col_chunk)))
+
+    def as_ints(self):
+        return [self.lane_groups, self.lanes, self.row_splits,
+                self.row_chunk, self.col_splits, self.col_chunk]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The kernel's partition of one (B, n, m) problem over the grid.
+
+    `a` cuts A (m, n): the rhs product reduces over its row chunks and
+    writes its column chunks; the z̃ product reduces over its column
+    chunks and writes its row chunks, from the same tile. `nn` cuts M⁻¹
+    and M (n, n) for the x̃ products. A tile is resident in shared
+    memory for the whole launch where the flag says so, else streamed
+    from L2 in every product. Shared memory, in floats: [A tile | M⁻¹
+    tile | M tile | left operand (lane_chunk × ld_left) | partial sums
+    (threads × lane_tile × 4 accumulators)]."""
+
+    grid: int
+    lane_tile: int
+    lane_chunk: int
+    acc_bytes: int
+    a: Tiling
+    nn: Tiling
+    a_resident: bool
+    minv_resident: bool
+    m_resident: bool
+    ld_a: int
+    ld_nn: int
+    ld_left: int
+    smem_bytes: int
+
+    def offsets(self):
+        """Float offsets of (A, M⁻¹, M, left, partial sums) in shared
+        memory, and the total floats."""
+        a = self.a.row_chunk * self.ld_a if self.a_resident else 0
+        nn = self.nn.row_chunk * self.ld_nn
+        minv = nn if self.minv_resident else 0
+        mm = nn if self.m_resident else 0
+        left = self.lane_chunk * self.ld_left
+        red = threads(self.lane_tile) * self.lane_tile * self.acc_bytes
+        offs = [0, a, a + minv, a + minv + mm, a + minv + mm + left]
+        return offs, offs[-1] + red
+
+    def as_ints(self):
+        offs, _ = self.offsets()
+        return ([self.grid, self.lane_tile, self.lane_chunk,
+                 threads(self.lane_tile),
+                 self.smem_bytes, int(self.a_resident),
+                 int(self.minv_resident), int(self.m_resident), self.ld_a,
+                 self.ld_nn, self.ld_left] + offs
+                + self.a.as_ints() + self.nn.as_ints() + [self.acc_bytes])
+
+
+def _tiling(B, rows, cols, lane_groups, row_splits, col_splits):
+    lanes = _cdiv(B, lane_groups)
+    rc = _up4(_cdiv(rows, row_splits))
+    cc = _up4(_cdiv(cols, col_splits))
+    return Tiling(_cdiv(B, lanes), lanes, _cdiv(rows, rc), rc,
+                  _cdiv(cols, cc), cc)
+
+
+def _candidates(B, rows, cols, grid, tl):
+    """Tilings that use as many of the grid's blocks as their row split
+    allows, with at least tl lanes per group (one seen once)."""
+    seen = set()
+    nl = 1
+    while nl <= min(grid, _cdiv(B, tl)):
+        for rs in range(1, grid // nl + 1):
+            t = _tiling(B, rows, cols, nl, rs, grid // (nl * rs))
+            if t.tiles <= grid and t not in seen:
+                seen.add(t)
+                yield t
+        nl *= 2
+
+
+def acc_bytes(B: int) -> int:
+    """Bytes of the kernel's accumulator. f64 up to F64_BATCH lanes,
+    where latency and barriers set the pace and the FMA units idle: a
+    product of f32 operands is then rounded once, whatever the
+    partition (measured on the H100: the f32-accumulated kernel's
+    error at B=128 was 1.7 times the cuBLAS twin's, and config 5's
+    batch then took 375 iterations to an f64 KKT residual of
+    1.00002e-6; f64 accumulation, 350 and 9.995e-7). f32 above it,
+    where the FMA rate starts to matter (B=1024: 5.8 ms per block with
+    f32, 10.4 ms with f64)."""
+    return 8 if B <= F64_BATCH else 4
+
+
+def _lane_chunk(lanes, tl, ld_left):
+    return min(_cdiv(lanes, tl), LEFT_BYTES // (4 * ld_left * tl)) * tl
+
+
+def _product_ns(t: Tiling, B, k_chunk, out_chunk, splits, n_out, tl,
+                streamed, grid, acc):
+    """Modelled time of one block's share of one product and of the
+    phase that adds its partial sums. A streamed tile is read once per
+    lane chunk with few loads in flight, so at a fraction of the L2
+    rate."""
+    fma = _cdiv(t.lanes, tl) * tl * k_chunk * out_chunk
+    moved = t.lanes * (4 * k_chunk + acc * out_chunk)
+    moved += acc * splits * B * n_out / grid
+    ns = fma / _FMA_PER_NS + moved / _L2_BYTES_PER_NS
+    if streamed:
+        chunks = _cdiv(t.lanes, _lane_chunk(t.lanes, tl, padded_ld(k_chunk)))
+        ns += 4 * k_chunk * out_chunk * chunks / _STREAM_BYTES_PER_NS
+    return ns
+
+
+def _best_under(options, room):
+    """The cheapest (cost, key, ...) of options [(bytes, cost, ...)]
+    whose bytes fit room, or None."""
+    fits = [o[1:] for o in options if o[0] <= room]
+    return min(fits, key=lambda o: o[:2]) if fits else None
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, n: int, m: int, refine_steps: int, sms: int,
+         smem_bytes: int) -> Plan:
+    """The partition of (B, n, m) over a grid of one block per SM, for a
+    card with `sms` SMs and `smem_bytes` of shared memory per block.
+
+    A cut of A (rhs and z-tilde products) and a cut of M⁻¹ and M (the
+    x-tilde products) are chosen together for the least modelled time
+    per iteration, each tile resident in shared memory where the room
+    left allows, among cuts whose left operand fits LEFT_BYTES for one
+    register tile of lanes."""
+    tl, acc = lane_tile(B), acc_bytes(B)
+    red = threads(tl) * tl * 4 * acc
+    budget = smem_bytes - red - LEFT_BYTES - 1024
+    if budget < 0:
+        raise ValueError(f"{smem_bytes} bytes of shared memory per block "
+                         "is too little for the fused kernel")
+
+    def left_fits(t):
+        return 4 * tl * padded_ld(max(t.row_chunk, t.col_chunk)) <= LEFT_BYTES
+
+    # A: (resident bytes, cost, tiles, tiling, resident).
+    a_opts = []
+    for t in _candidates(B, m, n, sms, tl):
+        if not left_fits(t):
+            continue
+        tile = 4 * t.row_chunk * padded_ld(t.col_chunk)
+        for res in (True, False):
+            cost = (_product_ns(t, B, t.row_chunk, t.col_chunk, t.row_splits,
+                                n, tl, not res, sms, acc)
+                    + _product_ns(t, B, t.col_chunk, t.row_chunk,
+                                  t.col_splits, m, tl, not res, sms, acc))
+            a_opts.append((tile if res else 0, cost, t.tiles, t, res))
+    # M⁻¹ and M: (resident bytes, cost, tiles, tiling, M⁻¹ res, M res).
+    n_opts = []
+    for t in _candidates(B, n, n, sms, tl):
+        if not left_fits(t):
+            continue
+        tile = 4 * t.row_chunk * padded_ld(t.col_chunk)
+
+        def one(streamed):
+            return _product_ns(t, B, t.row_chunk, t.col_chunk, t.row_splits,
+                               n, tl, streamed, sms, acc)
+        for res_minv, res_m in ((True, True), (True, False), (False, False)):
+            cost = ((1 + refine_steps) * one(not res_minv)
+                    + refine_steps * one(not res_m))
+            n_opts.append(((res_minv + res_m) * tile, cost, t.tiles, t,
+                           res_minv, res_m))
+    best = None
+    for a_bytes, a_cost, a_tiles, ta, a_res in a_opts:
+        if a_bytes > budget:
+            continue
+        nb = _best_under(n_opts, budget - a_bytes)
+        if nb is None:
+            continue
+        key = (a_cost + nb[0], a_tiles + nb[1])
+        if best is None or key < best[0]:
+            best = (key, ta, a_res, nb[2], nb[3], nb[4])
+    if best is None:
+        raise ValueError(f"no partition of ({B}, {n}, {m}) fits the fused "
+                         "kernel's shared memory")
+    _, ta, a_res, tn, minv_res, m_res = best
+    ld_left = padded_ld(max(ta.row_chunk, ta.col_chunk, tn.row_chunk))
+    p = Plan(grid=sms, lane_tile=tl, acc_bytes=acc,
+             lane_chunk=_lane_chunk(max(ta.lanes, tn.lanes), tl, ld_left),
+             a=ta, nn=tn, a_resident=a_res, minv_resident=minv_res,
+             m_resident=m_res, ld_a=padded_ld(ta.col_chunk),
+             ld_nn=padded_ld(tn.col_chunk), ld_left=ld_left, smem_bytes=0)
+    total = 4 * p.offsets()[1]
+    if total > smem_bytes:
+        raise ValueError(f"fused kernel plan needs {total} bytes of "
+                         f"shared memory, {smem_bytes} available")
+    return dataclasses.replace(p, smem_bytes=total)
+
+
+def prox_units(cone: ConeSpec):
+    """(first row, rows) of each unit of the prox phase: one box or L1
+    row, or one whole uniform SOC block. One thread owns one unit of
+    one lane, so an SOC projection never crosses threads."""
+    rows = cone.m_box + cone.m_l1
+    units = [(c, 1) for c in range(rows)]
+    d = cone.soc_dims[0] if cone.m_soc else 0
+    units += [(rows + b * d, d) for b in range(cone.n_soc)]
+    return units
+
+
 def _entry():
-    """The C entry point, with its argument types declared."""
+    """The C entry points, with their argument types declared."""
     global _c_entry
     if _c_entry is None:
         lib = _build.load_library("fused_iterate")
         fn = lib.admm_fused_iterate_f32
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([ptr] * 15 + [i32] * 7 + [f32] * 3
-                       + [i32, i32, ptr])
+        fn.argtypes = ([ptr] * 17 + [i32] * 7 + [f32] * 3
+                       + [i32, i32, ptr, i32, ptr])
         fn.restype = ctypes.c_int
+        lib.admm_fused_device_limits.argtypes = [i32, ptr, ptr]
+        lib.admm_fused_device_limits.restype = ctypes.c_int
         lib.admm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.admm_cuda_error_string.restype = ctypes.c_char_p
-        _c_entry = (fn, lib.admm_cuda_error_string)
+        _c_entry = (fn, lib.admm_fused_device_limits,
+                    lib.admm_cuda_error_string)
     return _c_entry
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int):
+    """(SM count, shared memory a block may opt in to) of a CUDA card."""
+    _, limits, err_str = _entry()
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    rc = limits(index, ctypes.byref(sms), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"fused kernel: device query failed ({rc}: "
+                           f"{err_str(rc).decode()})")
+    return sms.value, smem.value
 
 
 def _lam_over_rho(lam, rho_vec, cone: ConeSpec):
@@ -128,24 +412,31 @@ def fused_iterate_shared(A, Minv, M, q, rho_vec, lam, l, u, x, z, y,
         raise ValueError(f"fused kernel: unsupported device {x.device}")
     _check_cuda(B, n, m, cone, A=A, Minv=Minv, M=M, q=q, rho_vec=rho_vec,
                 lam=lam, l=l, u=u, x=x, z=z, y=y)
-    fn, err_str = _entry()
+    fn, _, err_str = _entry()
+    p = plan(B, n, m, int(refine_steps), *device_limits(x.device.index))
     lam_r = _lam_over_rho(lam, rho_vec, cone).contiguous()
     xo, zo, yo = (t.clone() for t in (x, z, y))
     rhs, xt, r = (torch.empty_like(xo) for _ in range(3))
-    w = torch.empty_like(zo) if cone.m_soc else None
+    acc = torch.float64 if p.acc_bytes == 8 else torch.float32
+    part_n = torch.empty((max(p.a.row_splits, p.nn.row_splits), B, n),
+                         dtype=acc, device=x.device)
+    part_m = torch.empty((p.a.col_splits, B, m), dtype=acc, device=x.device)
+    barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
+    ints = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
     soc_dim = cone.soc_dims[0] if cone.m_soc else 0
 
-    def p(t):
+    def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(p(A), p(Minv), p(M), p(q), p(rho_vec),
-                p(lam_r) if cone.m_l1 else None, p(l), p(u),
-                p(xo), p(zo), p(yo), p(rhs), p(xt), p(r), p(w),
+        rc = fn(ptr(A), ptr(Minv), ptr(M), ptr(q), ptr(rho_vec),
+                ptr(lam_r) if cone.m_l1 else None, ptr(l), ptr(u),
+                ptr(xo), ptr(zo), ptr(yo), ptr(rhs), ptr(xt), ptr(r),
+                ptr(part_n), ptr(part_m), ptr(barrier),
                 B, n, m, cone.m_box, cone.m_l1, cone.n_soc, soc_dim,
                 float(sigma), float(alpha), float(1.0 - alpha), int(k),
-                int(refine_steps), stream)
+                int(refine_steps), ints, len(ints), stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_iterate_shared: CUDA launch failed ({rc}: "

@@ -11,19 +11,21 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                (ptxas register report);
 3. kernel    — the fused ADMM iteration kernel against its plain PyTorch
                twin on the same inputs, at the flagship shape (batch 128,
-               k=25, box rows, from a real Ruiz + 'inv' factor of the
-               config-5 problem), on a small L1 + uniform-SOC case, and
+               1024 and 1, the last config 2's shape through solve; k=25,
+               box rows, from a real Ruiz + 'inv' factor of the config-5
+               problem), on a small L1 + uniform-SOC case, and
                on config 4's f32-phase inputs (batch 1, n=2000, m=2206,
                200 SOC(4) blocks: the arguments of a launch in the
                shared pass of its solve at the bench settings, SOC
                blocks at the tip and on the boundary; k = 1, 2 and
                25); each leaf's max error against its stated tolerance,
-               median times;
-4. slice     — solve_batch_shared on the config-5 Monte-Carlo batch
+               a bitwise rerun, median times of the kernel, its twin and
+               the products alone in cuBLAS, and the card's bound;
+4. slice    — solve_batch_shared on the config-5 Monte-Carlo batch
                (horizon 50, dim 3: n=450, m=456) at batch 128 and 1024,
                using the JAX reference's own dispersions; every lane
                SOLVED, f64 KKT residuals <= 1e-6, lockstep iterations
-               325 ± 25, the kernel launched, a rerun bitwise identical;
+               350 ± 25, the kernel launched, a rerun bitwise identical;
 5. cg_kernel — the Jacobi-PCG kernel against its twin, f32 and f64, on
                the flagship M of a real Ruiz + 'pallas_cg' factor of
                config 5 at batch 128 and 1 (200 steps, tol 1e-9), and on
@@ -67,7 +69,9 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
 
-REFERENCE_ITERS = 325          # the JAX reference, config 5, batch 128/1024
+# The JAX reference on the CPU, config 5 at batch 128 and 1024 (its TPU
+# run gave 325), as for configs 1-3.
+REFERENCE_ITERS = 350
 # The JAX reference with backend='pallas_cg' on the CPU: config 1 and 2
 # through solve, config 5 at batch 128 through solve_batch_shared.
 PCG_REFERENCE_ITERS = {"config1": 100, "config2": 750, "config5": 350}
@@ -98,9 +102,10 @@ CW_PROPAGATE_RTOL = 1e-6
 # land SOLVED at 16,525 with this objective. From zero the iteration
 # count is reported, not held: the f32 shared pass chatters and ends
 # where each implementation's rounding takes it (the port hands over at
-# 9,825 on the CPU with two threads, and between 6,075 and 6,725 in
-# chip runs on the H100). From the reference's entry point it is held
-# to one chunk (LT_CHUNK).
+# 9,825 on the CPU with two threads, and between 6,075 and 7,225 in
+# chip runs on the H100 with two designs of the fused kernel; from
+# there the continuation took one to seven chunks). From the
+# reference's entry point it is held to one chunk (LT_CHUNK).
 LT_REFERENCE_ITERS = 16525
 LT_REFERENCE_OBJ = 1.0248775668290662
 LT_OBJ_RTOL = 1e-4
@@ -125,6 +130,10 @@ LT_CAPTURE_LAUNCH = 40
 # The PCG kernel in f64 against its f64 twin: two summation orders over
 # 200 CG steps (measured 1.0e-10 on the flagship M, solution scale 2.3).
 F64_ERR_FLOOR = 1e-8
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at
+# 700 W): f32 and f64 outside the tensor cores, and HBM3.
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_HBM_BYTES = 3.35e12
 # Two solved points of the same problem: each meets the 1e-6 residual
 # criterion; the MPC states carry only a 1e-8 regularisation.
 X_AGREE = 5e-4
@@ -166,6 +175,16 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def bound(flops, nbytes, dtype="float32"):
+    """(bound_ms, bound_by): the least time the card could take for work
+    of `flops` operations on `dtype` inputs moving `nbytes`, the larger
+    of the operation time and the byte time."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
 def max_abs_diff(a, b):
     return max(float((p.double() - q.double()).abs().max())
                for p, q in zip(a, b))
@@ -195,8 +214,9 @@ def phase_build():
         for stem, (path, log) in libs.items()})
 
 
-def _flagship_inputs(dev):
-    """Phase-1 inputs of the config-5 main path at batch 128."""
+def _flagship_inputs(dev, batch=128):
+    """Phase-1 inputs of the config-5 main path at the given batch (1 is
+    config 2's shape through solve)."""
     import torch
     from admm_library_torch import Settings
     from admm_library_torch.core import admm
@@ -206,7 +226,8 @@ def _flagship_inputs(dev):
     from admm_library_torch.parallel.batch import _s32_of_shared
 
     s = _s32_of_shared(Settings())
-    qp, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128), device=dev)
+    s0 = mc.reference_s0(1024 if batch > 128 else 128)[:batch]
+    qp, _, _ = mc.monte_carlo_mpc_from_s0(s0, device=dev)
     qps, _ = ruiz_equilibrate(qp, s.scaling_iters)
     rho = admm.rho_vec_of(torch.tensor(s.rho, device=dev),
                           admm.is_equality_row_shared(qps), s)
@@ -335,6 +356,47 @@ def _leaf_diffs(a, b):
             for p, q in zip(a, b)]
 
 
+def _fused_work(B, n, m, ml, k, refine):
+    """(operations, bytes) of k fused iterations: the products' FMAs and
+    each input (A, M^-1, M where refined, q, rho, lam, l, u, x, z, y)
+    read once and x, z, y written once, in f32."""
+    flops = 2 * B * k * (2 * m * n + (1 + 2 * refine) * n * n)
+    nbytes = 4 * (m * n + n * n * (2 if refine else 1) + n + m + ml
+                  + 2 * B * m + 2 * B * (n + 2 * m))
+    return flops, nbytes
+
+
+def _fused_library(args, k, refine):
+    """k iterations of the kernel's products alone, each one torch.matmul
+    (cuBLAS) on the same operands: the product-only yardstick, which the
+    port never calls. Returned as the replay of a CUDA graph, so that its
+    time is the card's and not the rate at which the host launches its
+    (3 + 2 refine) k small products."""
+    import torch
+    A, Minv, M, rho, z, y = args[0], args[1], args[2], args[4], args[9], \
+        args[10]
+    v = rho * z - y
+
+    def products():
+        for _ in range(k):
+            rhs = v @ A
+            xt = rhs @ Minv
+            for _ in range(refine):
+                xt = (xt @ M) @ Minv
+            xt @ A.mT
+
+    # Warm up on a side stream (cuBLAS picks its kernels), then capture.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        products()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        products()
+    return graph.replay
+
+
 def phase_kernel(dev):
     import torch
     from admm_library_torch.ops import fused
@@ -343,6 +405,10 @@ def phase_kernel(dev):
     # (case, inputs, the k to check). The last k is timed.
     for case, make, ks in (
             ("flagship_box_b128", _args_of(_flagship_inputs), (25,)),
+            ("flagship_box_b1", _args_of(
+                lambda d: _flagship_inputs(d, 1)), (25,)),
+            ("flagship_box_b1024", _args_of(
+                lambda d: _flagship_inputs(d, 1024)), (25,)),
             ("l1_soc_b3", _args_of(_l1_soc_inputs), (7,)),
             ("low_thrust_soc_b1", _low_thrust_inputs, (1, 2, 25))):
         args, kw0 = make(dev)
@@ -351,6 +417,7 @@ def phase_kernel(dev):
         for k in ks:
             kw = dict(kw0, k=k)
             got = fused.fused_iterate_shared(*args, **kw)
+            again = fused.fused_iterate_shared(*args, **kw)
             twin = fused.fused_iterate_shared_reference(*args, **kw)
             ref64 = fused.fused_iterate_shared_reference(
                 *(a.double() for a in args), **kw)
@@ -360,18 +427,35 @@ def phase_kernel(dev):
             tol = [max(ERR_FACTOR * e, ERR_FLOOR) for e in twin_err]
             check(all(bool(torch.isfinite(t).all()) for t in got),
                   f"{case} k={k}: kernel output not finite")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{case} k={k}: rerun not bitwise identical")
             ms = cuda_ms(lambda: fused.fused_iterate_shared(*args, **kw))
             plain_ms = cuda_ms(
                 lambda: fused.fused_iterate_shared_reference(*args, **kw))
+            library_ms = cuda_ms(_fused_library(args, k,
+                                                kw["refine_steps"]))
+            B, n, m = x.shape[0], x.shape[1], z.shape[1]
+            bound_ms, bound_by = bound(*_fused_work(
+                B, n, m, cone.m_l1, k, kw["refine_steps"]))
+            p = fused.plan(B, n, m, kw["refine_steps"],
+                           *fused.device_limits(x.device.index))
             scale = max(float(t.abs().max()) for t in ref64)
-            rec = dict(case=case, B=x.shape[0], n=x.shape[1], m=z.shape[1],
-                       k=k, max_abs_err=dict(zip(LEAVES, err)),
+            rec = dict(case=case, B=B, n=n, m=m, k=k,
+                       max_abs_err=dict(zip(LEAVES, err)),
                        max_rel_err=max(err) / scale,
                        twin_max_abs_err=dict(zip(LEAVES, twin_err)),
                        tol=dict(zip(LEAVES, tol)),
                        kernel_vs_twin=dict(zip(LEAVES,
                                                _leaf_diffs(got, twin))),
-                       ms=ms, plain_ms=plain_ms)
+                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       library="torch.matmul products only (cuBLAS, "
+                               "one CUDA graph)",
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       plan=dict(lane_tile=p.lane_tile, a=p.a.as_ints(),
+                                 nn=p.nn.as_ints(), a_resident=p.a_resident,
+                                 minv_resident=p.minv_resident,
+                                 m_resident=p.m_resident,
+                                 smem_bytes=p.smem_bytes))
             if case == "low_thrust_soc_b1":
                 rec.update(soc_in=_soc_kinds(z, cone),
                            soc_out=_soc_kinds(ref64[1], cone))
@@ -384,7 +468,9 @@ def phase_kernel(dev):
                       and rec["soc_out"]["boundary"] > 0,
                       f"{case} k={k}: the SOC blocks are not both at the "
                       "tip and on the boundary")
-        out[case] = dict(max_abs_err=max(err), ms=ms, plain_ms=plain_ms)
+        out[case] = dict(max_abs_err=max(err), ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
     return out
 
 
@@ -550,6 +636,51 @@ def _pcg_cw(dev):
     return M, ((rho * z) @ qps.A - qps.q)[None]
 
 
+def _cg_steps(M, rhs, iters, tol):
+    """Steps each lane of the lockstep PCG solve is active before it
+    freezes: the twin's loop (ops/pallas_cg._cg_math) in the working
+    type, counting its `active` mask."""
+    import torch
+    tiny = torch.finfo(rhs.dtype).tiny
+    dinv = (1.0 / torch.diagonal(M)).to(rhs.dtype)
+    x = torch.zeros_like(rhs)
+    r = rhs.clone()
+    z = r * dinv
+    p = z
+    rz = (r * z).sum(-1, keepdim=True)
+    rr = (r * r).sum(-1, keepdim=True)
+    tol2 = (tol * tol) * torch.clamp((rhs * rhs).sum(-1, keepdim=True),
+                                     min=1.0)
+    zero = torch.zeros_like(rz)
+    steps = torch.zeros_like(rz, dtype=torch.int64)
+    for _ in range(iters):
+        Mp = p @ M
+        pMp = (p * Mp).sum(-1, keepdim=True)
+        active = rr > tol2
+        steps += active
+        alpha = torch.where(active, rz / torch.clamp(pMp, min=tiny), zero)
+        x = x + alpha * p
+        r = r - alpha * Mp
+        z = r * dinv
+        rz_new = (r * z).sum(-1, keepdim=True)
+        rr_new = (r * r).sum(-1, keepdim=True)
+        beta = torch.where(active, rz_new / torch.clamp(rz, min=tiny), zero)
+        p = z + beta * p
+        rz = torch.where(active, rz_new, rz)
+        rr = torch.where(active, rr_new, rr)
+    return int(steps.sum())
+
+
+def _cg_work(M, rhs, iters, tol):
+    """(operations, bytes) of a PCG solve on this data: per active lane
+    step the product with M (2 n^2) and ~12 n vector operations; M, rhs
+    and x each moved once."""
+    n = M.shape[0]
+    steps = _cg_steps(M, rhs, iters, tol)
+    return (steps * (2 * n * n + 12 * n),
+            M.element_size() * (n * n + 2 * rhs.numel()))
+
+
 def phase_cg_kernel(dev):
     import torch
     from admm_library_torch.ops import pallas_cg as pcg
@@ -586,14 +717,22 @@ def phase_cg_kernel(dev):
             ms = cuda_ms(lambda: pcg.pallas_cg_solve(Mt, rt, **kw))
             plain_ms = cuda_ms(
                 lambda: pcg.pallas_cg_solve_reference(Mt, rt, **kw))
-            name = f"{case}_{str(dtype).split('.')[-1]}"
+            # The library yardstick: a direct solve against a Cholesky
+            # factor computed beforehand, on the same right-hand sides.
+            chol = torch.linalg.cholesky(Mt)
+            library_ms = cuda_ms(lambda: torch.cholesky_solve(rt.mT, chol))
+            dname = str(dtype).split('.')[-1]
+            bound_ms, bound_by = bound(*_cg_work(Mt, rt, iters, tol), dname)
+            name = f"{case}_{dname}"
             emit("cg_kernel", case=name, B=rt.shape[0], n=rt.shape[1],
                  iters=iters, tol=tol, lane_tile=pcg.auto_lane_tile(
                      rt.shape[0]), max_abs_err=err,
                  twin_max_abs_err=twin_err, err_tol=tol_err,
                  kernel_vs_twin=max_abs_diff([got], [twin]),
                  short_rel_err=short, short_tol=short_tol, ms=ms,
-                 plain_ms=plain_ms)
+                 plain_ms=plain_ms, library_ms=library_ms,
+                 library="torch.cholesky_solve on a precomputed factor",
+                 bound_ms=bound_ms, bound_by=bound_by)
             check(bool(torch.isfinite(got).all()),
                   f"{name}: kernel output not finite")
             check(err <= tol_err, f"{name}: kernel error {err:.3e} against "
@@ -603,7 +742,9 @@ def phase_cg_kernel(dev):
             if case.startswith("spd_zero_lane"):
                 check(torch.equal(got[2], torch.zeros_like(got[2])),
                       f"{name}: the zero-rhs lane moved")
-            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
     return out
 
 
@@ -943,30 +1084,43 @@ def main():
     smi = phase_device()
     phase_build()
     kern = phase_kernel(dev)
-    phase_slice(128, dev)
-    phase_slice(1024, dev)
+    slice128 = phase_slice(128, dev)
+    slice1024 = phase_slice(1024, dev)
     cg = phase_cg_kernel(dev)
     phase_solve(dev)
     phase_slice_pcg(dev)
     l1_soc = phase_solve_l1_soc(dev)
-    # Each kernel with the launches of this slice's path and its check at
-    # that path's shape.
+    # Each kernel with its launches on this slice's paths and its check
+    # and times at the shape of the path that launches it most.
     lt_case = kern["low_thrust_soc_b1"]
     cw_case = cg["cw_b1_float32"]
+    fused_launches = {
+        "config5_b128": slice128["kernel_launches"],
+        "config5_b1024": slice1024["kernel_launches"],
+        "config4": l1_soc["config4"]["launches"]["fused_iterate_shared"]}
     print(json.dumps({"kernels": [{
         "name": "fused_iterate_shared", "route": "cuda",
         "source": "admm_library_torch/csrc/fused_iterate.cu",
         "replaces": "admm_library_tpu/ops/fused.py:201",
-        "launches": l1_soc["config4"]["launches"]["fused_iterate_shared"],
+        "launches": fused_launches["config4"],
+        "launches_by_path": fused_launches,
         "max_abs_err": lt_case["max_abs_err"], "ms": lt_case["ms"],
-        "plain_ms": lt_case["plain_ms"]}, {
+        "plain_ms": lt_case["plain_ms"], "bound_ms": lt_case["bound_ms"],
+        "bound_by": lt_case["bound_by"],
+        "library_ms": lt_case["library_ms"],
+        "at": "config 4, B=1, n=2000, m=2206, k=25; library: torch.matmul "
+              "products only (cuBLAS, one CUDA graph)"}, {
         "name": "pallas_cg_solve", "route": "cuda",
         "source": "admm_library_torch/csrc/pallas_cg.cu",
         "replaces": "admm_library_tpu/ops/pallas_cg.py:82",
         "launches": l1_soc["config3 pallas_cg"]["launches"][
             "pallas_cg_solve"],
         "max_abs_err": cw_case["max_abs_err"], "ms": cw_case["ms"],
-        "plain_ms": cw_case["plain_ms"]}]}))
+        "plain_ms": cw_case["plain_ms"], "bound_ms": cw_case["bound_ms"],
+        "bound_by": cw_case["bound_by"],
+        "library_ms": cw_case["library_ms"],
+        "at": "config 3, B=1, n=60, 200 steps, f32; library: "
+              "torch.cholesky_solve on a precomputed factor"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

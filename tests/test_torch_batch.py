@@ -63,7 +63,7 @@ def test_monte_carlo_matches_jax(path):
     s = JSettings(backend="inv", **_PATHS[path])
     jsol = jsolve(qpj, s)
     qpt, tspec, s0t = tmc.monte_carlo_mpc_from_s0(np.asarray(s0), N=8,
-                                                  dim=2)
+                                                  dim=2, device="cpu")
     tsol = solve_batch_shared(qpt, Settings(**dataclasses.asdict(s)))
     _compare(jsol, tsol)
     assert bool((tsol.status == int(Status.SOLVED)).all())
@@ -86,8 +86,8 @@ def test_f64_fallback_matches_jax(monkeypatch):
                                      dim=2)
     s = JSettings(backend="inv", eps_abs=1e-9, eps_rel=1e-9)
     jsol = jsolve(qpj.astype(jnp.float64), s)
-    qpt = tmc.monte_carlo_mpc_from_s0(np.asarray(s0), N=8,
-                                      dim=2)[0].astype(torch.float64)
+    qpt = tmc.monte_carlo_mpc_from_s0(np.asarray(s0), N=8, dim=2,
+                                      device="cpu")[0].astype(torch.float64)
     phases = []
     phase = tbatch._phase
 
@@ -109,7 +109,7 @@ def test_f64_fallback_matches_jax(monkeypatch):
 
 def test_rerun_is_bitwise_identical():
     qp, _, _ = tmc.monte_carlo_mpc(torch.Generator().manual_seed(5),
-                                   batch=3, N=6, dim=2)
+                                   batch=3, N=6, dim=2, device="cpu")
     s = Settings(backend="inv", history=32)
     a = solve_batch_shared(qp, s)
     b = solve_batch_shared(qp, s)

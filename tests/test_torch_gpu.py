@@ -126,6 +126,90 @@ def test_wrapper_rejects_bad_inputs(dev):
         fused.fused_iterate_shared(*mixed, **kw)
 
 
+def _flagship(dev, B):
+    """Config 5's operands (n=450, m=456: rows of 1,800 bytes, not a
+    multiple of 16) for the first B of the reference's dispersions, with
+    a nonzero iterate."""
+    qp, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128)[:B],
+                                          device=dev)
+    rng = np.random.default_rng(B)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    x = t(0.1 * rng.standard_normal((B, qp.n)))
+    z = t(0.1 * rng.standard_normal((B, qp.m)))
+    return _operands(qp, x, z, torch.zeros_like(z))
+
+
+def _odd_soc(dev, B):
+    """Odd n and m, and SOC(3) blocks after 7 box/L1 rows: the kernel
+    cuts rows in chunks of multiples of 4, so blocks straddle chunk
+    boundaries of the products."""
+    rng = np.random.default_rng(100 + B)
+    n, mb, ml, nsoc, d = 37, 5, 2, 10, 3
+    m = mb + ml + nsoc * d
+    R = rng.standard_normal((n, n)) / np.sqrt(n)
+    l = np.full((B, m), -np.inf)
+    u = np.full((B, m), np.inf)
+    l[:, :mb] = -0.5 - rng.random((B, mb))
+    u[:, :mb] = 0.5 + rng.random((B, mb))
+    l[:, mb:mb + ml], u[:, mb:mb + ml] = -0.7, 0.7
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    qp = QPData(P=t(R @ R.T + 0.5 * np.eye(n)), q=t(rng.standard_normal(n)),
+                A=t(rng.standard_normal((m, n)) / np.sqrt(n)), l=t(l), u=t(u),
+                lam=torch.full((ml,), 0.3, device=dev),
+                cone=ConeSpec(m_box=mb, m_l1=ml, soc_dims=(d,) * nsoc))
+    x = t(rng.standard_normal((B, n)))
+    z = t(rng.standard_normal((B, m)))
+    return _operands(qp, x, z, t(0.1 * rng.standard_normal((B, m))))
+
+
+@pytest.mark.parametrize("case", [_flagship, _odd_soc],
+                         ids=["flagship_n450", "odd_soc"])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 37])
+def test_kernel_regimes(case, B, dev):
+    """Both sides of the small-batch threshold (GEMV-shaped split-K up to
+    8 lanes, register tiles of lanes above), n not a multiple of 4, SOC
+    blocks across chunk boundaries; k=1 with refine_steps 0 and 2, and
+    k=10: each leaf within twice the f32 twin's error against the f64
+    twin (floor 1e-5), and a rerun bitwise identical."""
+    args, kw = case(dev, B)
+    for k, refine in ((1, 0), (1, 2), (10, 1)):
+        kw.update(k=k, refine_steps=refine)
+        got = fused.fused_iterate_shared(*args, **kw)
+        again = fused.fused_iterate_shared(*args, **kw)
+        twin = fused.fused_iterate_shared_reference(*args, **kw)
+        ref = fused.fused_iterate_shared_reference(
+            *(a.double() for a in args), **kw)
+        torch.cuda.synchronize()
+        for g, a, w, r in zip(got, again, twin, ref):
+            assert torch.equal(g, a)
+            err = float((g.double() - r).abs().max())
+            twin_err = float((w.double() - r).abs().max())
+            assert err <= max(2.0 * twin_err, 1e-5), (k, refine)
+
+
+def test_kernel_never_runs_the_twin_and_raises_on_a_refused_launch(
+        dev, monkeypatch):
+    """On CUDA tensors the wrapper launches the kernel, never the plain
+    twin; a cooperative launch larger than the co-resident grid is
+    refused and raises, and is not counted."""
+    args, kw = _flagship(dev, 3)
+    kw["k"] = 2
+
+    def boom(*a, **k):
+        raise AssertionError("the plain twin ran on CUDA tensors")
+
+    monkeypatch.setattr(fused, "fused_iterate_shared_reference", boom)
+    before = fused.fused_iterate_shared.launches
+    fused.fused_iterate_shared(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused.fused_iterate_shared.launches == before + 1
+    sms, smem = fused.device_limits(0)
+    monkeypatch.setattr(fused, "device_limits", lambda i: (4 * sms, smem))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused.fused_iterate_shared(*args, **kw)
+    assert fused.fused_iterate_shared.launches == before + 1
+
+
 def test_small_solve_goes_through_the_kernel(dev):
     qp, spec, s0s = mc.monte_carlo_mpc(torch.Generator().manual_seed(1),
                                        batch=16, N=10, dim=2, device=dev)
@@ -326,7 +410,7 @@ def _cw_polish_case():
         build_cw_rendezvous)
     s0 = np.array([100.0, -800.0, 30.0, 0.1, 0.4, -0.02])
     qp, _ = build_cw_rendezvous(s0, N=10, dt=600.0, dv_max=2.0,
-                                dtype=torch.float64)
+                                dtype=torch.float64, device="cpu")
     return qp, _loose(qp, eps_abs=1e-4, max_iter=20000)
 
 

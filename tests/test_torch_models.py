@@ -42,7 +42,7 @@ def test_build_mpc_qp(dtype):
     jqp, jspec = jdi.build_mpc_qp(s0, target, N=7, dim=3,
                                   dtype=getattr(jnp, dtype))
     tqp, tspec = tdi.build_mpc_qp(s0, target, N=7, dim=3,
-                                  dtype=getattr(torch, dtype))
+                                  dtype=getattr(torch, dtype), device="cpu")
     _equal(tqp, jqp)
     assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
     assert (tspec.n, tspec.block) == (jspec.n, jspec.block)
@@ -51,7 +51,8 @@ def test_build_mpc_qp(dtype):
 def test_monte_carlo_from_s0_matches_jax():
     jqp, _, s0s = jmc.monte_carlo_mpc(jax.random.key(11), batch=5, N=6,
                                       dim=2)
-    tqp, _, t0s = tmc.monte_carlo_mpc_from_s0(np.asarray(s0s), N=6, dim=2)
+    tqp, _, t0s = tmc.monte_carlo_mpc_from_s0(np.asarray(s0s), N=6, dim=2,
+                                                device="cpu")
     _equal(tqp, jqp)
     np.testing.assert_array_equal(t0s.numpy(), np.asarray(s0s))
 
@@ -72,7 +73,7 @@ def test_bounds_and_rollout_match_jax():
     jqp, spec = jdi.build_mpc_qp(np.ones(4), np.zeros(4), N=5, dim=2,
                                  dtype=jnp.float64)
     tqp, tspec = tdi.build_mpc_qp(np.ones(4), np.zeros(4), N=5, dim=2,
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device="cpu")
     s0 = rng.standard_normal(4)
     jl, ju = jdi.mpc_bounds_for_s0(jqp, spec, s0)
     tl, tu = tdi.mpc_bounds_for_s0(tqp, tspec, torch.from_numpy(s0))
@@ -86,9 +87,11 @@ def test_bounds_and_rollout_match_jax():
 
 def test_disperse_s0_generator():
     g = torch.Generator().manual_seed(3)
-    a = tmc.disperse_s0(g, [1.0, 1.0, -0.5, -0.5], 0.1, 0.01, 4096)
+    a = tmc.disperse_s0(g, [1.0, 1.0, -0.5, -0.5], 0.1, 0.01, 4096,
+                        device="cpu")
     b = tmc.disperse_s0(torch.Generator().manual_seed(3),
-                        [1.0, 1.0, -0.5, -0.5], 0.1, 0.01, 4096)
+                        [1.0, 1.0, -0.5, -0.5], 0.1, 0.01, 4096,
+                        device="cpu")
     assert a.shape == (4096, 4) and a.dtype == torch.float32
     assert torch.equal(a, b)
     # Per-axis spread: sigma_pos on positions, sigma_vel on velocities
@@ -97,7 +100,7 @@ def test_disperse_s0_generator():
     torch.testing.assert_close(std, torch.tensor([0.1, 0.1, 0.01, 0.01]),
                                rtol=0.05, atol=0.0)
     qp, spec, s0s = tmc.monte_carlo_mpc(torch.Generator().manual_seed(3),
-                                        batch=6, N=4, dim=2)
+                                        batch=6, N=4, dim=2, device="cpu")
     assert qp.l.shape == (6, qp.m) and s0s.shape == (6, 4)
 
 
@@ -145,7 +148,7 @@ def test_reference_random_box_qp_is_the_jax_draw():
     from admm_library_tpu.models.random_qp import random_box_qp
     from admm_library_torch.models.random_qp import reference_random_box_qp
     jqp = random_box_qp(jax.random.PRNGKey(0))
-    tqp = reference_random_box_qp()
+    tqp = reference_random_box_qp("cpu")
     _equal(tqp, jqp)
     assert tqp.dtype == torch.float32 and (tqp.n, tqp.m) == (100, 200)
 
@@ -156,10 +159,10 @@ def test_random_qp_generators(kind):
     bounds nonempty around A x_feas, equality rows first (eq_ineq)."""
     from admm_library_torch.models import random_qp as trq
     if kind == "box":
-        make = lambda g: trq.random_box_qp(g, n=12, m=20)  # noqa: E731
+        make = lambda g: trq.random_box_qp(g, n=12, m=20, device="cpu")  # noqa: E731
     else:
         make = lambda g: trq.random_eq_ineq_qp(  # noqa: E731
-            g, n=12, m_eq=3, m_in=9)
+            g, n=12, m_eq=3, m_in=9, device="cpu")
     qp = make(torch.Generator().manual_seed(4))
     again = make(torch.Generator().manual_seed(4))
     for f in FIELDS:
@@ -208,7 +211,8 @@ def test_astro_builders_match_jax(model, dtype):
     jbuild, tbuild, s0, kw = _builders()[model]
     target = np.array([5.0, 0.0, -2.0, 0.0, 0.01, 0.0])
     jqp, jspec = jbuild(s0, target, dtype=getattr(jnp, dtype), **kw)
-    tqp, tspec = tbuild(s0, target, dtype=getattr(torch, dtype), **kw)
+    tqp, tspec = tbuild(s0, target, dtype=getattr(torch, dtype),
+                        device="cpu", **kw)
     _equal(tqp, jqp)
     assert tqp.cone == type(tqp.cone)(**dataclasses.asdict(jqp.cone))
     assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
@@ -238,7 +242,7 @@ def test_astro_solution_helpers_match_jax():
     from admm_library_torch.models import low_thrust as tlt
     rng = np.random.default_rng(2)
     f64 = dict(dtype=jnp.float64)
-    t64 = dict(dtype=torch.float64)
+    t64 = dict(dtype=torch.float64, device="cpu")
     close = dict(rtol=1e-12, atol=1e-12)
     s0b = rng.standard_normal((3, 6)) * [50, 50, 50, 0.05, 0.05, 0.05]
 
@@ -289,11 +293,11 @@ def test_monte_carlo_astro_batches_share_matrices(model):
     from admm_library_torch.models import low_thrust as tlt
     if model == "cw":
         make = lambda g: tmc.monte_carlo_cw(  # noqa: E731
-            g, batch=8, N=6, dtype=torch.float64)
+            g, batch=8, N=6, dtype=torch.float64, device="cpu")
         build = tcw.build_cw_rendezvous
     else:
         make = lambda g: tmc.monte_carlo_low_thrust(  # noqa: E731
-            g, batch=4, N=5, dtype=torch.float64)
+            g, batch=4, N=5, dtype=torch.float64, device="cpu")
         build = tlt.build_low_thrust_socp
     qp, spec, s0s = make(torch.Generator().manual_seed(0))
     again = make(torch.Generator().manual_seed(0))[0]
@@ -303,7 +307,7 @@ def test_monte_carlo_astro_batches_share_matrices(model):
     for f in FIELDS:
         assert torch.equal(getattr(qp, f), getattr(again, f)), f
     # P, q and A do not depend on s0 in either model.
-    other, _ = build(s0s[0], N=spec.N, dtype=torch.float64)
+    other, _ = build(s0s[0], N=spec.N, dtype=torch.float64, device="cpu")
     for f in ("P", "q", "A", "lam"):
         assert torch.equal(getattr(qp, f), getattr(other, f)), f
     assert torch.equal(qp.l[:, 6:], qp.l[:1, 6:].expand(B, -1))
@@ -318,8 +322,8 @@ def test_reference_continuation_entry_fits_config4():
     that point (f32 data solved as f64, as the bench does)."""
     from admm_library_torch.models import low_thrust as tlt
     from admm_library_torch.problem import objective
-    e = tlt.reference_continuation_entry()
-    qp, _ = tlt.build_low_thrust_socp(_lt_s0(), N=200)
+    e = tlt.reference_continuation_entry("cpu")
+    qp, _ = tlt.build_low_thrust_socp(_lt_s0(), N=200, device="cpu")
     qp = qp.astype(torch.float64)
     assert e.x.shape == (qp.n,) and e.z.shape == e.y.shape == (qp.m,)
     assert (qp.n, qp.m) == (2000, 2206)
@@ -327,3 +331,36 @@ def test_reference_continuation_entry_fits_config4():
     assert int(e.status) == int(T.Status.STALLED) and int(e.iters) == 4525
     np.testing.assert_allclose(float(objective(qp, e.x, e.z)), float(e.obj),
                                rtol=1e-12)
+
+
+def _default_builds():
+    from admm_library_torch.models import clohessy_wiltshire as tcw
+    from admm_library_torch.models import low_thrust as tlt
+    from admm_library_torch.models import random_qp as trq
+    return {
+        "monte_carlo_mpc": lambda: tmc.monte_carlo_mpc(
+            torch.Generator().manual_seed(0), batch=2, N=3, dim=2)[0],
+        "build_mpc_qp": lambda: tdi.build_mpc_qp(np.ones(4), np.zeros(4),
+                                                 N=3, dim=2)[0],
+        "random_box_qp": lambda: trq.random_box_qp(
+            torch.Generator().manual_seed(0), n=4, m=6),
+        "build_cw_rendezvous": lambda: tcw.build_cw_rendezvous(
+            _cw_s0(), N=3)[0],
+        "build_low_thrust_socp": lambda: tlt.build_low_thrust_socp(
+            _lt_s0(), N=3)[0],
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_default_builds()))
+def test_builders_default_to_the_card(name):
+    """A builder called without a device builds on the CUDA card; with
+    no card it raises, and nothing falls back to the CPU."""
+    from admm_library_torch.models import model_device
+    assert model_device() == torch.device("cuda")
+    assert model_device("cpu") == torch.device("cpu")
+    build = _default_builds()[name]
+    if torch.cuda.is_available():
+        assert build().A.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
