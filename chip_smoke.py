@@ -28,8 +28,11 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                350 ± 25, the kernel launched, a rerun bitwise identical;
 5. cg_kernel — the Jacobi-PCG kernel against its twin, f32 and f64, on
                the flagship M of a real Ruiz + 'pallas_cg' factor of
-               config 5 at batch 128 and 1 (200 steps, tol 1e-9), and on
-               a small SPD case with a zero-rhs lane;
+               config 5 at batch 128 and 1 (200 steps, tol 1e-9), on
+               a small SPD case with a zero-rhs lane and on config 3's
+               M: the card's plan (M resident in a cluster's shared
+               memory where it fits) and the stream design, each held
+               to the error bars and timed in turns;
 6. solve     — solve(..., backend='pallas_cg') on config 1 (the JAX
                reference's random_box_qp draw, n=100, m=200) and config
                2 (the rendezvous MPC of its bench, seed 0, n=450,
@@ -681,68 +684,111 @@ def _cg_work(M, rhs, iters, tol):
             M.element_size() * (n * n + 2 * rhs.numel()))
 
 
-def phase_cg_kernel(dev):
-    import torch
-    from admm_library_torch.ops import pallas_cg as pcg
-
+def pcg_cases(dev):
+    """Kernel 2's cases: (name, M, rhs, iters, tol), f32 inputs."""
     M, rhs = _pcg_flagship(dev)
     Ms, rhs_s = _spd_zero_lane(dev)
     Mc, rhs_c = _pcg_cw(dev)
-    cases = (("flagship_b128", M, rhs, 200, 1e-9),
-             ("flagship_b1", M, rhs[:1].contiguous(), 200, 1e-9),
-             ("spd_zero_lane_b4", Ms, rhs_s, 200, 1e-9),
-             ("cw_b1", Mc, rhs_c, 200, 1e-9))
+    return (("flagship_b128", M, rhs, 200, 1e-9),
+            ("flagship_b1", M, rhs[:1].contiguous(), 200, 1e-9),
+            ("spd_zero_lane_b4", Ms, rhs_s, 200, 1e-9),
+            ("cw_b1", Mc, rhs_c, 200, 1e-9))
+
+
+def stream_plan(B, n, itemsize):
+    """The plan with no cluster placeable: the stream design at the lane
+    tile the planner gives it."""
+    from admm_library_torch.ops import fused, pallas_cg as pcg
+    sms, smem = fused.device_limits(0)
+    return pcg.plan(B, n, itemsize, sms, min(smem, pcg.SMEM_LIMIT),
+                    lambda C, t: 0)
+
+
+def _pcg_check(name, dtype, Mt, rt, plan, ref64, twin_err, iters, tol):
+    """Kernel 2 under `plan` against the f64 twin and, after 1-3 steps,
+    the twin in the working type: (output, record); raises past the
+    error bars."""
+    import torch
+    from admm_library_torch.ops import pallas_cg as pcg
+    got = pcg.pallas_cg_solve_planned(Mt, rt, iters=iters, tol=tol,
+                                      plan=plan)
+    torch.cuda.synchronize()
+    err = max_abs_diff([got], [ref64])
+    tol_err = (max(ERR_FACTOR * twin_err, ERR_FLOOR)
+               if dtype == torch.float32 else F64_ERR_FLOOR)
+    # A few steps: the same arithmetic within a few ulps.
+    short = []
+    for k in (1, 2, 3):
+        a = pcg.pallas_cg_solve_planned(Mt, rt, iters=k, tol=tol, plan=plan)
+        b = pcg.pallas_cg_solve_reference(Mt, rt, iters=k, tol=tol)
+        short.append(max_abs_diff([a], [b])
+                     / max(float(b.abs().max()), 1e-30))
+    short_tol = 64 * torch.finfo(dtype).eps
+    check(bool(torch.isfinite(got).all()),
+          f"{name} {plan}: kernel output not finite")
+    check(err <= tol_err, f"{name} {plan}: kernel error {err:.3e} against "
+          f"the f64 twin exceeds {tol_err:.3e}")
+    check(max(short) <= short_tol,
+          f"{name} {plan}: kernel and twin differ after 1-3 steps")
+    if name.startswith("spd_zero_lane"):
+        check(torch.equal(got[2], torch.zeros_like(got[2])),
+              f"{name} {plan}: the zero-rhs lane moved")
+    return got, dict(max_abs_err=err, err_tol=tol_err, short_rel_err=short,
+                     short_tol=short_tol)
+
+
+def phase_cg_kernel(dev):
+    """Kernel 2 under the card's plan and under the stream design, each
+    held to the error bars, timed in turns (plan, stream, stream,
+    plan)."""
+    import torch
+    from admm_library_torch.ops import pallas_cg as pcg
+
     out = {}
-    for case, M32, rhs32, iters, tol in cases:
+    for case, M32, rhs32, iters, tol in pcg_cases(dev):
         for dtype in (torch.float32, torch.float64):
             Mt, rt = M32.to(dtype), rhs32.to(dtype)
+            B, n = rt.shape
             kw = dict(iters=iters, tol=tol)
-            got = pcg.pallas_cg_solve(Mt, rt, **kw)
+            dname = str(dtype).split('.')[-1]
+            name = f"{case}_{dname}"
             twin = pcg.pallas_cg_solve_reference(Mt, rt, **kw)
             ref64 = pcg.pallas_cg_solve_reference(Mt.double(), rt.double(),
                                                   **kw)
-            torch.cuda.synchronize()
-            err = max_abs_diff([got], [ref64])
             twin_err = max_abs_diff([twin], [ref64])
-            tol_err = (max(ERR_FACTOR * twin_err, ERR_FLOOR)
-                       if dtype == torch.float32 else F64_ERR_FLOOR)
-            # A few steps: the same arithmetic within a few ulps.
-            short = []
-            for k in (1, 2, 3):
-                a = pcg.pallas_cg_solve(Mt, rt, iters=k, tol=tol)
-                b = pcg.pallas_cg_solve_reference(Mt, rt, iters=k, tol=tol)
-                short.append(max_abs_diff([a], [b])
-                             / max(float(b.abs().max()), 1e-30))
-            short_tol = 64 * torch.finfo(dtype).eps
-            ms = cuda_ms(lambda: pcg.pallas_cg_solve(Mt, rt, **kw))
+            plan = pcg.device_plan(B, n, Mt.element_size(), dev.index)
+            splan = stream_plan(B, n, Mt.element_size())
+            got, rec = _pcg_check(name, dtype, Mt, rt, plan, ref64,
+                                  twin_err, iters, tol)
+            _, srec = _pcg_check(name, dtype, Mt, rt, splan, ref64,
+                                 twin_err, iters, tol)
+            plans, turns = (plan, splan), ([], [])
+            for i in (0, 1, 1, 0):
+                turns[i].append(cuda_ms(
+                    lambda p=plans[i]: pcg.pallas_cg_solve_planned(
+                        Mt, rt, plan=p, **kw)))
+            ms, stream_ms = (statistics.mean(t) for t in turns)
             plain_ms = cuda_ms(
                 lambda: pcg.pallas_cg_solve_reference(Mt, rt, **kw))
             # The library yardstick: a direct solve against a Cholesky
             # factor computed beforehand, on the same right-hand sides.
             chol = torch.linalg.cholesky(Mt)
             library_ms = cuda_ms(lambda: torch.cholesky_solve(rt.mT, chol))
-            dname = str(dtype).split('.')[-1]
             bound_ms, bound_by = bound(*_cg_work(Mt, rt, iters, tol), dname)
-            name = f"{case}_{dname}"
-            emit("cg_kernel", case=name, B=rt.shape[0], n=rt.shape[1],
-                 iters=iters, tol=tol, lane_tile=pcg.auto_lane_tile(
-                     rt.shape[0]), max_abs_err=err,
-                 twin_max_abs_err=twin_err, err_tol=tol_err,
-                 kernel_vs_twin=max_abs_diff([got], [twin]),
-                 short_rel_err=short, short_tol=short_tol, ms=ms,
+            emit("cg_kernel", case=name, B=B, n=n, iters=iters, tol=tol,
+                 design=plan[0], cluster=plan[1], lane_tile=plan[2],
+                 **rec, twin_max_abs_err=twin_err,
+                 kernel_vs_twin=max_abs_diff([got], [twin]), ms=ms,
+                 ms_turns=turns[0], stream_lane_tile=splan[2],
+                 stream_max_abs_err=srec["max_abs_err"],
+                 stream_short_rel_err=srec["short_rel_err"],
+                 stream_ms=stream_ms, stream_ms_turns=turns[1],
                  plain_ms=plain_ms, library_ms=library_ms,
                  library="torch.cholesky_solve on a precomputed factor",
                  bound_ms=bound_ms, bound_by=bound_by)
-            check(bool(torch.isfinite(got).all()),
-                  f"{name}: kernel output not finite")
-            check(err <= tol_err, f"{name}: kernel error {err:.3e} against "
-                  f"the f64 twin exceeds {tol_err:.3e}")
-            check(max(short) <= short_tol,
-                  f"{name}: kernel and twin differ after 1-3 steps")
-            if case.startswith("spd_zero_lane"):
-                check(torch.equal(got[2], torch.zeros_like(got[2])),
-                      f"{name}: the zero-rhs lane moved")
-            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            out[name] = dict(design=plan[0], cluster=plan[1],
+                             lane_tile=plan[2], max_abs_err=rec["max_abs_err"],
+                             ms=ms, stream_ms=stream_ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
     return out
@@ -1115,6 +1161,8 @@ def main():
         "replaces": "admm_library_tpu/ops/pallas_cg.py:82",
         "launches": l1_soc["config3 pallas_cg"]["launches"][
             "pallas_cg_solve"],
+        "design": cw_case["design"], "cluster": cw_case["cluster"],
+        "lane_tile": cw_case["lane_tile"], "stream_ms": cw_case["stream_ms"],
         "max_abs_err": cw_case["max_abs_err"], "ms": cw_case["ms"],
         "plain_ms": cw_case["plain_ms"], "bound_ms": cw_case["bound_ms"],
         "bound_by": cw_case["bound_by"],

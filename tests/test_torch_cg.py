@@ -106,6 +106,152 @@ def test_batched_m_raises():
                              "pallas_cg")
 
 
+# ---- the kernel's plan (a CPU function of the card's limits) ----
+
+H100_SMS = 132
+
+
+def _one_block_per_sm(C, t):
+    """Clusters a card holds where each block takes its own SM."""
+    return H100_SMS // C
+
+
+def _scarce(C, t):
+    """Clusters of 8 placed only two to a 16-SM GPC, as on a card with
+    SMs disabled: fewer clusters than SMs / C."""
+    return max(1, 16 // C)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [60, 100])
+@pytest.mark.parametrize("B", [1, 128])
+def test_plan_holds_small_m_in_one_block(B, n, itemsize):
+    design, C, _ = tpcg.plan(B, n, itemsize, H100_SMS, tpcg.SMEM_LIMIT,
+                             _one_block_per_sm)
+    assert (design, C) == ("resident", 1)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 128, 1024])
+def test_plan_spreads_the_flagship_m_over_a_cluster(B, itemsize):
+    """n=450: M is 810 KB in f32 and 1.6 MB in f64; a slice fits one
+    block only in a cluster of 4 (f32: 113 columns, 203,400 B) or 8 (f64:
+    57 columns, 205,200 B)."""
+    design, C, LT = tpcg.plan(B, 450, itemsize, H100_SMS, tpcg.SMEM_LIMIT,
+                              _one_block_per_sm)
+    assert design == "resident" and C in (4, 8)
+    assert tpcg.resident_smem_bytes(C, LT, 450, itemsize) <= tpcg.SMEM_LIMIT
+    smallest = 4 if itemsize == 4 else 8
+    assert tpcg.resident_smem_bytes(smallest // 2, 1, 450, itemsize) > \
+        tpcg.SMEM_LIMIT
+    # f32 at B=1: the cluster of 4 doubled to 8, which holds the lane in
+    # one wave at the same tile; at 128 and 1024 lanes it is not.
+    assert C == (8 if B == 1 else smallest)
+
+
+@pytest.mark.parametrize("n", [60, 100, 450])
+@pytest.mark.parametrize("B", [1, 3, 30, 128])
+def test_plan_doubles_the_cluster_only_above_n128_in_one_wave(B, n):
+    """The cluster grows past the smallest that fits only for n > 128,
+    and only to a size whose clusters hold every lane in one wave at
+    the same lane tile."""
+    waves = {1: 264, 2: 132, 4: 30, 8: 15}          # as an H100 reports
+    mc = lambda C, t: waves[C]  # noqa: E731
+    design, C, LT = tpcg.plan(B, n, 4, H100_SMS, tpcg.SMEM_LIMIT, mc)
+    smallest = next(c for c in tpcg.CLUSTERS
+                    if tpcg.resident_smem_bytes(c, 1, n, 4)
+                    <= tpcg.SMEM_LIMIT)
+    assert design == "resident"
+    if n <= 128 or C == smallest:
+        assert C == smallest
+        return
+    assert -(-B // LT) <= waves[C]
+    base = tpcg.plan(B, n, 4, H100_SMS, tpcg.SMEM_LIMIT,
+                     lambda c, t: waves[c] if c == smallest else 0)
+    assert base == ("resident", smallest, LT)
+    assert (n, B) in {(450, 1), (450, 3)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 128, 1024])
+def test_plan_streams_an_m_no_cluster_holds(B, itemsize):
+    design, C, LT = tpcg.plan(B, 2000, itemsize, H100_SMS, tpcg.SMEM_LIMIT,
+                              _one_block_per_sm)
+    assert (design, C) == ("stream", 1)
+    assert LT <= tpcg.auto_lane_tile(B)
+    # auto_lane_tile's tile, cut only where its block would not fit.
+    if tpcg.stream_smem_bytes(tpcg.auto_lane_tile(B), 2000, itemsize) \
+            <= tpcg.SMEM_LIMIT:
+        assert LT == tpcg.auto_lane_tile(B)
+
+
+@pytest.mark.parametrize("max_clusters", [_one_block_per_sm, _scarce],
+                         ids=["one_per_sm", "scarce"])
+def test_plan_fits_shared_memory_and_one_wave(max_clusters):
+    """Over B × n × item size: the plan's blocks fit 232,448 bytes, and
+    its ⌈B/LT⌉ clusters fit one wave unless LT is already the largest
+    tile that fits."""
+    for B in (1, 3, 128, 1024):
+        for n in (24, 60, 100, 450, 451, 2000):
+            for itemsize in (4, 8):
+                design, C, LT = tpcg.plan(B, n, itemsize, H100_SMS,
+                                          tpcg.SMEM_LIMIT, max_clusters)
+                case = (B, n, itemsize, design, C, LT)
+                if design == "stream":
+                    assert LT in tpcg.LANE_TILES, case
+                    assert C == 1, case
+                    assert tpcg.stream_smem_bytes(LT, n, itemsize) <= \
+                        tpcg.SMEM_LIMIT, case
+                    assert tpcg.resident_smem_bytes(8, 1, n, itemsize) > \
+                        tpcg.SMEM_LIMIT, case
+                    continue
+                assert C in tpcg.CLUSTERS, case
+                assert LT in tpcg.RESIDENT_TILES, case
+                assert tpcg.resident_smem_bytes(C, LT, n, itemsize) <= \
+                    tpcg.SMEM_LIMIT, case
+                fits = [t for t in tpcg.RESIDENT_TILES
+                        if tpcg.resident_smem_bytes(C, t, n, itemsize)
+                        <= tpcg.SMEM_LIMIT]
+                wave = min(max_clusters(C, LT), H100_SMS // C)
+                assert -(-B // LT) <= wave or LT == fits[-1], case
+                # The smallest such LT: one less would need a second wave.
+                smaller = [t for t in fits if t < LT]
+                for t in smaller:
+                    assert -(-B // t) > min(max_clusters(C, t),
+                                            H100_SMS // C), case
+
+
+def test_plan_skips_a_cluster_size_the_card_cannot_place():
+    """A card that can place no cluster of 4 (max_clusters 0) gets 8."""
+    design, C, _ = tpcg.plan(1, 450, 4, H100_SMS, tpcg.SMEM_LIMIT,
+                             lambda C, t: 0 if C == 4 else 16 // C)
+    assert (design, C) == ("resident", 8)
+
+
+def test_smem_reckoning_matches_the_worked_sizes():
+    """The slice of M and p's two buffers as the kernel's layout counts
+    them, at the sizes worked out by hand: n=450 f32, C=4: 113 columns,
+    203,400 B of M; C=8: 57 columns, 102,600 B, plus 2·8·452·4 B of p at
+    LT=8 (rows padded to 16 bytes)."""
+    m4 = 450 * 113 * 4
+    assert m4 == 203400
+    assert tpcg.resident_smem_bytes(4, 1, 450, 4) - m4 < 8 * 1024
+    m8 = 450 * 57 * 4
+    assert m8 == 102600
+    extra = tpcg.resident_smem_bytes(8, 8, 450, 4) - m8 - 2 * 8 * 452 * 4
+    # Product partials (8 groups·8 lanes·57), reduction scratch (16
+    # warps·3·8), slots (6·8 blocks·8 lanes).
+    assert extra == 4 * (8 * 8 * 57 + 16 * 3 * 8 + 6 * 8 * 8)
+    # Up to n=128 k stays whole: one group of partials.
+    assert tpcg.resident_smem_bytes(1, 1, 60, 4) == 4 * (
+        2 * 60 + 60 * 60 + 60 + 48 + 6)
+    # C=4 holds 4 lanes in f32 (226,248 B), C=8 2 lanes in f64.
+    assert tpcg.resident_smem_bytes(4, 4, 450, 4) <= tpcg.SMEM_LIMIT
+    assert tpcg.resident_smem_bytes(4, 8, 450, 4) > tpcg.SMEM_LIMIT
+    assert tpcg.resident_smem_bytes(8, 2, 450, 8) <= tpcg.SMEM_LIMIT
+    assert tpcg.resident_smem_bytes(8, 4, 450, 8) > tpcg.SMEM_LIMIT
+
+
 def _system(seed, n=40, m=60):
     """tests/test_kkt.py's random condensed system."""
     rng = np.random.default_rng(seed)

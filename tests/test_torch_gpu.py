@@ -267,52 +267,161 @@ def _pcg_case(dev, dtype, B=5):
     return M.to(dtype), rhs.to(dtype)
 
 
+def _pcg_ragged(dev, dtype, B=3, n=67):
+    """A random SPD system (cond ~ 80) whose n no cluster size divides:
+    the last block's slice is ragged (C=8: 9 columns, the last 4)."""
+    rng = np.random.default_rng(n)
+    R = rng.standard_normal((n, n)) / np.sqrt(n)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return t(R @ R.T + 0.05 * np.eye(n)), t(rng.standard_normal((B, n)))
+
+
+def _pcg_fits(design, C, n, itemsize):
+    """The lane tiles whose blocks fit one block's shared memory."""
+    from admm_library_torch.ops import pallas_cg as pcg
+    if design == "stream":
+        return [t for t in pcg.LANE_TILES
+                if pcg.stream_smem_bytes(t, n, itemsize) <= pcg.SMEM_LIMIT]
+    return [t for t in pcg.RESIDENT_TILES
+            if pcg.resident_smem_bytes(C, t, n, itemsize) <= pcg.SMEM_LIMIT]
+
+
+def _pcg_plans(B, n, itemsize):
+    """Every design and cluster size the plan admits at this shape: the
+    stream design at its own tile, and the resident one at each C whose
+    blocks fit, with a tile of up to 4 lanes (a partial last tile where
+    B is not a multiple)."""
+    from admm_library_torch.ops import pallas_cg as pcg
+    plans = [("stream", 1, pcg.auto_lane_tile(B))]
+    for C in pcg.CLUSTERS:
+        fits = _pcg_fits("resident", C, n, itemsize)
+        if fits:
+            plans.append(("resident", C, min(fits[-1], 4)))
+    return plans
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("B", [1, 5, 40])
-def test_pcg_kernel_matches_twin(dtype, B, dev):
-    """200 steps at tol 1e-9: the kernel and the twin in the working
-    type are both held against the twin in f64. f64: within 1e-8 of it
-    (two f64 summation orders). f32: within twice the f32 twin's own
-    error (floor 1e-5), since M is ill-conditioned. 1-3 steps: within
-    a few ulps of the twin."""
+@pytest.mark.parametrize("case", ["mc81_b1", "mc81_b5", "mc81_b40",
+                                  "ragged67_b3"])
+def test_pcg_kernel_matches_twin(dtype, case, dev):
+    """200 steps at tol 1e-9, under the card's own plan and under every
+    design and cluster size forced: the kernel and the twin in the
+    working type are both held against the twin in f64. f64: within
+    1e-8 of it (two f64 summation orders). f32: within twice the f32
+    twin's own error (floor 1e-5), since M is ill-conditioned. 1-3
+    steps: within a few ulps of the twin."""
     from admm_library_torch.ops import pallas_cg as pcg
-    M, rhs = _pcg_case(dev, dtype, B)
+    kind, b = case.split("_b")
+    make = _pcg_case if kind == "mc81" else _pcg_ragged
+    M, rhs = make(dev, dtype, int(b))
+    B, n = rhs.shape
     ref = pcg.pallas_cg_solve_reference(M.double(), rhs.double(),
                                         iters=200, tol=1e-9)
-    got = pcg.pallas_cg_solve(M, rhs, iters=200, tol=1e-9)
     twin = pcg.pallas_cg_solve_reference(M, rhs, iters=200, tol=1e-9)
-    torch.cuda.synchronize()
-    err = float((got.double() - ref).abs().max())
     twin_err = float((twin.double() - ref).abs().max())
-    if dtype == torch.float64:
-        assert err <= 1e-8
-    else:
-        assert err <= max(2.0 * twin_err, 1e-5)
     ulp = torch.finfo(dtype).eps
-    for iters in (1, 2, 3):
-        a = pcg.pallas_cg_solve(M, rhs, iters=iters, tol=1e-9)
-        b = pcg.pallas_cg_solve_reference(M, rhs, iters=iters, tol=1e-9)
-        scale = float(b.abs().max())
-        assert float((a - b).abs().max()) <= 64 * ulp * scale
+    for plan in [None] + _pcg_plans(B, n, M.element_size()):
+        got = pcg.pallas_cg_solve_planned(M, rhs, iters=200, tol=1e-9,
+                                          plan=plan)
+        torch.cuda.synchronize()
+        err = float((got.double() - ref).abs().max())
+        if dtype == torch.float64:
+            assert err <= 1e-8, plan
+        else:
+            assert err <= max(2.0 * twin_err, 1e-5), plan
+        for iters in (1, 2, 3):
+            a = pcg.pallas_cg_solve_planned(M, rhs, iters=iters, tol=1e-9,
+                                            plan=plan)
+            b = pcg.pallas_cg_solve_reference(M, rhs, iters=iters, tol=1e-9)
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 64 * ulp * scale, \
+                (plan, iters)
 
 
-def test_pcg_kernel_freezes_lanes_and_reruns_bitwise(dev, monkeypatch):
+def test_pcg_kernel_freezes_lanes_and_reruns_bitwise(dev):
+    """For each design and cluster size: reruns are bitwise identical,
+    the zero-rhs lane stays exactly 0, and every lane is bitwise the
+    same at every lane tile (the sums' order does not depend on LT), as
+    is a 1-D rhs of lane 0."""
     from admm_library_torch.ops import pallas_cg as pcg
     M, rhs = _pcg_case(dev, torch.float64, B=6)
     rhs[3] = 0.0
     x0 = torch.zeros_like(rhs)
     a = pcg.pallas_cg_solve(M, rhs, x0=x0, iters=50, tol=1e-9)
-    b = pcg.pallas_cg_solve(M, rhs, x0=x0, iters=50, tol=1e-9)
-    assert torch.equal(a, b)
+    assert torch.equal(a, pcg.pallas_cg_solve(M, rhs, x0=x0, iters=50,
+                                              tol=1e-9))
     assert torch.equal(a[3], torch.zeros_like(a[3]))
-    # 1-D rhs and lane tiles give the same lane.
-    v = pcg.pallas_cg_solve(M, rhs[0], iters=50, tol=1e-9)
-    assert v.shape == rhs[0].shape
-    for tile in pcg.LANE_TILES:
-        monkeypatch.setattr(pcg, "auto_lane_tile", lambda B, t=tile: t)
-        t = pcg.pallas_cg_solve(M, rhs, iters=50, tol=1e-9)
-        assert torch.equal(t[0], v)
+    n = rhs.shape[1]
+    firsts = {}
+    for design, C, _ in _pcg_plans(6, n, 8):
+        first = None
+        for tile in _pcg_fits(design, C, n, 8):
+            plan = (design, C, tile)
+            got = pcg.pallas_cg_solve_planned(M, rhs, x0=x0, iters=50,
+                                              tol=1e-9, plan=plan)
+            again = pcg.pallas_cg_solve_planned(M, rhs, x0=x0, iters=50,
+                                                tol=1e-9, plan=plan)
+            assert torch.equal(got, again), plan
+            assert torch.equal(got[3], torch.zeros_like(got[3])), plan
+            if first is None:
+                first = got
+            assert torch.equal(got, first), plan
+        v = pcg.pallas_cg_solve_planned(M, rhs[0], iters=50, tol=1e-9,
+                                        plan=(design, C, 1))
+        assert v.shape == rhs[0].shape
+        assert torch.equal(v, first[0]), (design, C)
+        firsts[design, C] = first
+    # Up to n=128 the resident product keeps k whole: a cluster of one
+    # block computes bitwise what the stream design computes.
+    assert torch.equal(firsts["resident", 1], firsts["stream", 1])
+
+
+def test_pcg_refused_plan_raises_and_does_not_fall_back(dev, monkeypatch):
+    """A forced plan whose blocks need more shared memory than the card
+    has (a cluster of 8 at n=700 in f32: 246,400 B of M per block; the
+    stream design with 8 lanes at n=2000) is refused: the wrapper
+    raises, counts no launch and never runs the twin or another design;
+    the next launch is unaffected."""
+    from admm_library_torch.ops import pallas_cg as pcg
+
+    def boom(*a, **k):
+        raise AssertionError("the plain twin ran on CUDA tensors")
+
+    monkeypatch.setattr(pcg, "_cg_math", boom)
+    for plan, n in ((("resident", 8, 1), 700), (("stream", 1, 8), 2000)):
+        M = torch.eye(n, device=dev)
+        rhs = torch.ones((2, n), device=dev)
+        before = pcg.pallas_cg_solve.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            pcg.pallas_cg_solve_planned(M, rhs, iters=5, plan=plan)
+        assert pcg.pallas_cg_solve.launches == before
+    M, rhs = _pcg_case(dev, torch.float32, B=3)
+    x = pcg.pallas_cg_solve_planned(M, rhs, iters=5,
+                                    plan=("resident", 8, 1))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())
+
+
+def test_pcg_plan_matches_the_kernel_and_the_card(dev):
+    """The plan's shared-memory reckoning is the kernel's, byte for
+    byte; the card places at least one cluster of every resident plan
+    it makes, and the flagship (n=450) is resident in f32 and f64."""
+    from admm_library_torch.ops import pallas_cg as pcg
+    _, smem_bytes, _, _ = pcg._entry()
+    for n in (24, 60, 67, 81, 450, 451, 2000):
+        for isz in (4, 8):
+            for t in pcg.RESIDENT_TILES:
+                assert smem_bytes(0, t, n, isz) == \
+                    pcg.stream_smem_bytes(t, n, isz)
+                for C in pcg.CLUSTERS:
+                    assert smem_bytes(C, t, n, isz) == \
+                        pcg.resident_smem_bytes(C, t, n, isz)
+    for B, n in ((1, 60), (1, 450), (128, 450), (1024, 100)):
+        for isz in (4, 8):
+            design, C, LT = pcg.device_plan(B, n, isz, 0)
+            assert design == "resident", (B, n, isz)
+            assert pcg._max_clusters(0, C, LT, n, isz) >= 1
 
 
 def test_pcg_wrapper_rejects_bad_inputs(dev):
