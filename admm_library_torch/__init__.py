@@ -3,8 +3,9 @@ astrodynamics QPs and SOCPs, ported to PyTorch and CUDA for an NVIDIA
 H100.
 
 It keeps the JAX package's module layout, public names and batch layout
-(x (B, n), z and y (B, m)). Entry points: `solve` for one problem and
-`solve_batch_shared` for a batch that shares (P, A). The fused ADMM
+(x (B, n), z and y (B, m)). Entry points: `solve` for one problem,
+`solve_batch_shared` for a batch that shares (P, A), and `solve_batch`
+for a batch of independent problems. The fused ADMM
 iteration (ops/fused.py) and the batched Jacobi-PCG solve of the
 'pallas_cg' backend (ops/pallas_cg.py) are hand-written CUDA kernels
 (csrc/), built with nvcc on first use; on CPU tensors their plain
@@ -15,7 +16,7 @@ from . import precision as _precision
 
 _precision.exact_f32()
 
-from .api import resolve_backend, solve  # noqa: E402
+from .api import resolve_backend, solve, solve_batch  # noqa: E402
 from .parallel.batch import solve_batch_shared  # noqa: E402
 from .problem import (  # noqa: E402
     ConeSpec, QPData, make_qp, objective, qp_from_numpy)
@@ -23,7 +24,7 @@ from .settings import Settings  # noqa: E402
 from .solution import Solution, Status  # noqa: E402
 
 __all__ = [
-    "resolve_backend", "solve", "solve_batch_shared",
+    "resolve_backend", "solve", "solve_batch", "solve_batch_shared",
     "ConeSpec", "QPData", "make_qp", "objective", "qp_from_numpy",
     "Settings", "Solution", "Status",
 ]

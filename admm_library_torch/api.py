@@ -1,4 +1,5 @@
-"""Public solver API: `solve` for one problem, and the backend choice.
+"""Public solver API: `solve` for one problem, `solve_batch` for a batch
+of independent problems, and the backend choice.
 
 `solve` runs 'single' and 'double' precision as one phase of
 `core.admm.run_admm`. The default 'hybrid' precision takes one of two
@@ -12,6 +13,10 @@ pipelines:
 - L1 problems, and any problem with recenter_rounds=0, take the staged
   path: f32 phase, polish, re-centred f32 rounds (each followed by a
   polish attempt), then an f64 phase and polish.
+
+`solve_batch` runs `_solve_core` (single, double, or the two-phase
+hybrid; no polish, no re-centred rounds) over a leading lane axis in one
+lockstep loop (core.admm.run_admm_lanes).
 
 Every stage runs on the problem's device; the f64 stages use the
 device's native f64.
@@ -36,16 +41,26 @@ _INFEASIBLE = (int(Status.PRIMAL_INFEASIBLE), int(Status.DUAL_INFEASIBLE))
 _SOLVED = int(Status.SOLVED)
 
 
-def resolve_backend(settings: Settings, device) -> str:
-    """Map backend='auto' to a concrete backend for `device`.
+def resolve_backend(settings: Settings, device,
+                    qp_n: int | None = None) -> str:
+    """Map backend='auto' to a concrete backend for `device` and a
+    problem of qp_n variables.
 
-    On a CUDA device 'inv' (each KKT solve is one product, and the fused
-    kernel takes M⁻¹); elsewhere dense Cholesky — the JAX package's
-    choice off the TPU.
+    With declared block structure (band_block > 0): on a CUDA device
+    'inv' up to n = 2048 (each KKT solve is one product, and the fused
+    kernel takes M⁻¹) and 'banded' above; elsewhere 'banded'. Without
+    it: 'inv' on a CUDA device, dense Cholesky elsewhere. The JAX
+    package makes the same choice with the TPU in the CUDA device's
+    place.
     """
     if settings.backend != "auto":
         return settings.backend
-    return "inv" if torch.device(device).type == "cuda" else "chol"
+    on_cuda = torch.device(device).type == "cuda"
+    if settings.band_block > 0:
+        if on_cuda and (qp_n is None or qp_n <= 2048):
+            return "inv"
+        return "banded"
+    return "inv" if on_cuda else "chol"
 
 
 def _int32(v, device):
@@ -68,14 +83,16 @@ def _solve_one_phase(qp: QPData, x0, z0, y0, settings: Settings,
         xs, zs, ys = x0, z0, y0
     if z_off is not None:
         z_off = scaling.scale_z(z_off)      # offsets live in z-space
-    carry = admm.run_admm(qps, scaling, settings, xs, zs, ys, backend,
-                          z_off=z_off, rho0=rho0)
+    lanes = qp.P.dim() == 3
+    run = admm.run_admm_lanes if lanes else admm.run_admm
+    carry = run(qps, scaling, settings, xs, zs, ys, backend, z_off=z_off,
+                rho0=rho0)
     x = scaling.unscale_x(carry.x)
     z = scaling.unscale_z(carry.z)
     y = scaling.unscale_y(carry.y)
     return Solution(
         x=x, z=z, y=y, status=carry.status,
-        iters=_int32(carry.it, qp.device),
+        iters=carry.it if lanes else _int32(carry.it, qp.device),
         r_prim=carry.r_prim, r_dual=carry.r_dual, obj=objective(qp, x, z),
         rho=carry.rho_bar, history=carry.hist)
 
@@ -116,9 +133,10 @@ def _finish(sol: Solution, sol32: Solution, out_dtype) -> Solution:
 
 def _solve_core(qp: QPData, x0, z0, y0, settings: Settings,
                 backend: str) -> Solution:
-    """One problem by precision strategy: 'single' in qp's dtype,
-    'double' in f64, 'hybrid' as an f32 phase to hybrid_eps and a
-    warm-started f64 phase to the target."""
+    """One problem, or a lockstep batch of independent ones (every leaf
+    with a leading lane axis), by precision strategy: 'single' in qp's
+    dtype, 'double' in f64, 'hybrid' as an f32 phase to hybrid_eps and
+    a warm-started f64 phase to the target."""
     f32, f64 = torch.float32, torch.float64
     if settings.precision == "single":
         return _solve_one_phase(qp, x0, z0, y0, settings, backend)
@@ -378,7 +396,7 @@ def solve(qp: QPData, settings: Settings = Settings(),
         z0 = torch.zeros(qp.m, dtype=dtype, device=dev)
     if y0 is None:
         y0 = torch.zeros_like(z0)
-    backend = resolve_backend(settings, dev)
+    backend = resolve_backend(settings, dev, qp.n)
 
     if warm_given and settings.warm_start:
         f64 = torch.float64
@@ -419,3 +437,42 @@ def solve(qp: QPData, settings: Settings = Settings(),
     if not cone.m_soc or int(sol.status) in (_SOLVED, *_INFEASIBLE):
         return sol
     return _f64_continuation(qp, sol, settings, backend)
+
+
+def solve_batch(qp_batch: QPData, settings: Settings = Settings(),
+                x0=None, z0=None, y0=None) -> Solution:
+    """Solve a batch of independent problems: every leaf of `qp_batch`
+    carries a leading lane axis (P (B, n, n), A (B, m, n), q (B, n),
+    l and u (B, m), lam (B, m_l1)); x0, z0, y0 likewise when given.
+
+    One lockstep loop over the lanes (core.admm.run_admm_lanes) runs
+    `_solve_core`'s pipeline, each lane with its own scaling, rho,
+    factor and status; a lane that exits freezes with its own honest
+    iteration count, and the loop runs to the slowest lane. There is no
+    polish and no re-centred rounds, unlike `solve`. Lanes that share
+    (P, A) are solved faster by `solve_batch_shared` (one shared factor).
+    """
+    if qp_batch.P.dim() != 3 or qp_batch.A.dim() != 3:
+        raise ValueError(
+            "solve_batch takes a batch of problems (P (B, n, n), A (B, m, "
+            "n), q (B, n), l and u (B, m)); for one problem use solve")
+    B, n, m = qp_batch.P.shape[0], qp_batch.n, qp_batch.m
+    dtype, dev = qp_batch.dtype, qp_batch.device
+    for name, shape in (("A", (B, m, n)), ("q", (B, n)), ("l", (B, m)),
+                        ("u", (B, m)), ("lam", (B, qp_batch.cone.m_l1))):
+        if tuple(getattr(qp_batch, name).shape) != shape:
+            raise ValueError(f"solve_batch: {name} has shape "
+                             f"{tuple(getattr(qp_batch, name).shape)}, "
+                             f"expected {shape}")
+    backend = resolve_backend(settings, dev, n)
+    if backend == "pallas_cg":
+        raise ValueError(
+            "backend 'pallas_cg' takes one shared M per launch; solve "
+            "lanes that share (P, A) with solve_batch_shared")
+    if x0 is None:
+        x0 = torch.zeros((B, n), dtype=dtype, device=dev)
+    if z0 is None:
+        z0 = torch.zeros((B, m), dtype=dtype, device=dev)
+    if y0 is None:
+        y0 = torch.zeros_like(z0)
+    return _solve_core(qp_batch, x0, z0, y0, settings, backend)

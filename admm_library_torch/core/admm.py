@@ -13,9 +13,11 @@ with g the product-cone indicator/penalty (ops/prox). One iteration
     z⁺  = Π_g(w + y/R)
     y⁺  = y + R (w − z⁺)
 
-Iterates are lane-batched rows: x (B, n), z and y (B, m). Everything
-here works on the Ruiz-scaled problem; residuals and termination use
-unscaled quantities through the Scaling vectors.
+Iterates are lane-batched rows: x (B, n), z and y (B, m), against one
+shared (P, A) or, for a batch of independent problems, against one
+(P, A) per lane (problem.mv / vm take both). Everything here works on
+the Ruiz-scaled problem; residuals and termination use unscaled
+quantities through the Scaling vectors.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from ..ops import kkt
 from ..ops.prox import project_cone
-from ..problem import QPData, is_equality_row
+from ..problem import QPData, is_equality_row, mv, vm
 from ..settings import Settings
 from ..solution import Status
 from .scaling import Scaling
@@ -63,12 +65,12 @@ def admm_iteration(qp: QPData, fac, x, z, y, rho_vec, settings: Settings,
     z_off: optional shifted-prox offset for L1/SOC rows (re-centred
     refinement; see ops/prox.project_cone).
     """
-    rhs = settings.sigma * x - qp.q + (rho_vec * z - y) @ qp.A
+    rhs = settings.sigma * x - qp.q + vm(rho_vec * z - y, qp.A)
     xt = kkt.solve_condensed(fac, rhs, backend,
                              refine_steps=settings.refine_steps,
                              cg_tol=settings.cg_tol,
                              cg_max_iter=settings.cg_max_iter)
-    zt = xt @ qp.A.mT
+    zt = mv(qp.A, xt)
     a = settings.alpha
     x_new = a * xt + (1.0 - a) * x
     w = a * zt + (1.0 - a) * z
@@ -136,9 +138,9 @@ def residuals(qp: QPData, scaling: Scaling, x, z, y, nlam=None):
     norm_q includes the L1 gradient scale. Inputs are SCALED iterates."""
     einv = 1.0 / scaling.e
     cd_inv = 1.0 / (scaling.c * scaling.d)
-    Ax = x @ qp.A.mT
-    Px = x @ qp.P.mT
-    Aty = y @ qp.A
+    Ax = mv(qp.A, x)
+    Px = mv(qp.P, x)
+    Aty = vm(y, qp.A)
     r_prim = linf(einv * (Ax - z))
     r_dual = linf(cd_inv * (Px + qp.q + Aty))
     if nlam is None:
@@ -201,7 +203,7 @@ def infeasibility(qp: QPData, scaling: Scaling, dx_s, dy_s, settings):
     dy = scaling.unscale_y(dy_s)
     ndy = linf(dy)
     dyn = dy / torch.clamp(ndy, min=tiny)[..., None]
-    Aty = (scaling.scale_y(dyn) @ qp.A) / (scaling.c * scaling.d)
+    Aty = vm(scaling.scale_y(dyn), qp.A) / (scaling.c * scaling.d)
     cond_A = linf(Aty) <= eps_p
     mbl = mb + ml
     lu_l = qp.l[..., :mbl] / scaling.e[..., :mbl]
@@ -217,8 +219,8 @@ def infeasibility(qp: QPData, scaling: Scaling, dx_s, dy_s, settings):
     dx = scaling.unscale_x(dx_s)
     ndx = linf(dx)
     dxn = dx / torch.clamp(ndx, min=tiny)[..., None]
-    Pdx = ((dxn / scaling.d) @ qp.P.mT) / (scaling.c * scaling.d)
-    Adx = ((dxn / scaling.d) @ qp.A.mT) / scaling.e
+    Pdx = mv(qp.P, dxn / scaling.d) / (scaling.c * scaling.d)
+    Adx = mv(qp.A, dxn / scaling.d) / scaling.e
     cond_P = linf(Pdx) <= eps_d
     qdx = ((qp.q / (scaling.c * scaling.d)) * dxn).sum(-1)
     if ml:
@@ -314,7 +316,9 @@ def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
 
     def factor(rho_bar):
         rv = rho_vec_of(rho_bar, eq_mask, settings, qp.cone)
-        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend)
+        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend,
+                                    settings.band_block,
+                                    settings.spike_parts)
 
     fac = factor(rho_bar)
     slots = max(settings.history, 0)
@@ -410,4 +414,149 @@ def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
 
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER), status)
     return AdmmCarry(x=x, z=z, y=y, rho_bar=rho_bar, fac=fac, it=it,
+                     status=status, r_prim=r_prim, r_dual=r_dual, hist=hist)
+
+
+def _select(mask, new, old):
+    """Per-lane select between two tensors that lead with the lane axis."""
+    return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)),
+                       new, old)
+
+
+def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
+                   x0, z0, y0, backend: str, z_off=None,
+                   rho0=None) -> AdmmCarry:
+    """`run_admm` over B independent scaled problems in lockstep: every
+    leaf of `qp` leads with the lane axis (P (B, n, n), A (B, m, n)),
+    and so do the iterates.
+
+    Each lane has its own rho-bar, KKT factor, restart averaging, stall
+    counter, adaptive-rho decision, status and residual history. A lane
+    runs while its status is UNSOLVED and freezes once it leaves it: its
+    state stays as it was from then on, and its `it` counts only the
+    iterations it ran. The host loop runs while any lane is live and
+    reads one small tensor per check. When any live lane changes rho,
+    every lane is refactored and each takes the new factor only if its
+    own rho changed (the matrix-free 'cg' factor just takes the new rho
+    vectors). Returns an AdmmCarry whose rho_bar, it, status, r_prim and
+    r_dual are (B,) and hist (B, slots, 3).
+    """
+    dtype, dev = qp.dtype, qp.device
+    cone = qp.cone
+    B = qp.P.shape[0]
+    eq_mask = is_equality_row(qp)
+    rho_bar = torch.as_tensor(settings.rho if rho0 is None else rho0,
+                              dtype=dtype, device=dev).expand(B).clone()
+
+    def rho_vec(rho_bar):
+        return rho_vec_of(rho_bar[:, None], eq_mask, settings, cone)
+
+    def factor(rho_bar):
+        return kkt.factor_condensed(qp.P, qp.A, settings.sigma,
+                                    rho_vec(rho_bar), backend,
+                                    settings.band_block,
+                                    settings.spike_parts)
+
+    fac = factor(rho_bar)
+    slots = max(settings.history, 0)
+    hist = torch.full((B, slots, 3), -1.0, dtype=dtype, device=dev)
+    big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    x, z, y = x0, z0, y0
+    it = 0
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    status = torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev)
+    r_prim, r_dual = big, big
+    x_chk, y_chk = x0, y0
+    x_sum, z_sum, y_sum = (torch.zeros_like(t) for t in (x0, z0, y0))
+    avg_cnt = 0
+    best_ratio = big
+    since_best = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    k = settings.check_every
+    interval_checks = max(1, settings.adaptive_rho_interval // k)
+    restart_checks = restart_cadence_checks(settings)
+    alive = True
+
+    while alive and it < settings.max_iter:
+        check = it // k
+        active = status == _UNSOLVED
+        xn, zn, yn = iterate_block(qp, fac, x, z, y, rho_vec(rho_bar),
+                                   settings, backend, k, z_off=z_off)
+        it += k
+        res = residuals(qp, scaling, xn, zn, yn)
+
+        # Restarted averaging, each lane against its own average (live
+        # lanes all share the check count, hence the boundary).
+        x_sum, z_sum, y_sum = x_sum + xn, z_sum + zn, y_sum + yn
+        avg_cnt += 1
+        if restart_checks and check % restart_checks == restart_checks - 1:
+            denom = float(max(avg_cnt, 1))
+            xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
+            res_a = residuals(qp, scaling, xa, za, ya)
+            take = (scaled_resid_ratio(res_a, settings)
+                    < scaled_resid_ratio(res, settings))
+            xn, zn, yn = (_select(take, a, b)
+                          for a, b in ((xa, xn), (za, zn), (ya, yn)))
+            res = tuple(torch.where(take, ra, rc)
+                        for ra, rc in zip(res_a, res))
+            x_sum, z_sum, y_sum = (torch.zeros_like(t)
+                                   for t in (x_sum, z_sum, y_sum))
+            avg_cnt = 0
+
+        rp_now, rd_now = res[0], res[1]
+        eps_p, eps_d = eps_thresholds(res, settings)
+        solved = (rp_now <= eps_p) & (rd_now <= eps_d)
+        pinf, dinf = infeasibility(qp, scaling, xn - x_chk, yn - y_chk,
+                                   settings)
+        numerr = ~(torch.isfinite(rp_now) & torch.isfinite(rd_now))
+        new_status = status_of(numerr, solved, pinf, dinf, status)
+
+        ratio_now = scaled_resid_ratio(res, settings)
+        improved = ratio_now < best_ratio
+        best_ratio = torch.where(active, torch.minimum(ratio_now,
+                                                       best_ratio),
+                                 best_ratio)
+        since_best = torch.where(
+            active, torch.where(improved, 0, since_best + 1), since_best)
+        if settings.stall_checks > 0:
+            stalled = since_best >= settings.stall_checks
+            new_status = torch.where((new_status == _UNSOLVED) & stalled,
+                                     int(Status.STALLED), new_status)
+
+        do_t = torch.zeros(B, dtype=torch.bool, device=dev)
+        if settings.adaptive_rho and check % interval_checks == (
+                interval_checks - 1):
+            new_rho, changed = adapt_rho(rho_bar, res, settings)
+            do_t = active & changed & (new_status == _UNSOLVED)
+
+        if slots > 0:
+            row = torch.stack([torch.full_like(rp_now, float(it)), rp_now,
+                               rd_now], dim=-1)
+            slot = hist[:, (check % slots)]
+            hist[:, check % slots] = _select(active, row, slot)
+
+        # Frozen lanes keep their state.
+        x, z, y = (_select(active, a, b)
+                   for a, b in ((xn, x), (zn, z), (yn, y)))
+        status = torch.where(active, new_status, status)
+        r_prim = torch.where(active, rp_now, r_prim)
+        r_dual = torch.where(active, rd_now, r_dual)
+        iters = iters + active.to(torch.int32) * k
+        x_chk, y_chk = x, y
+
+        # The one device-to-host read of this check.
+        alive, do = torch.stack([(status == _UNSOLVED).any(),
+                                 do_t.any()]).tolist()
+        if do:
+            rho_bar = torch.where(do_t, new_rho, rho_bar)
+            if backend == "cg":
+                # Matrix-free: rho enters the operator, no refactorisation.
+                fac = dict(fac, rho=rho_vec(rho_bar))
+            else:
+                new_fac = factor(rho_bar)
+                fac = {key: _select(do_t, new_fac[key], fac[key])
+                       for key in fac}
+
+    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER), status)
+    return AdmmCarry(x=x, z=z, y=y, rho_bar=rho_bar, fac=fac, it=iters,
                      status=status, r_prim=r_prim, r_dual=r_dual, hist=hist)

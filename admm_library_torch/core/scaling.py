@@ -6,6 +6,10 @@ L1 weights λ̄ = c·λ/E. Recovery: x = D x̄, z = E⁻¹ z̄, y = c⁻¹ E ȳ.
 A second-order cone is invariant only under uniform positive scaling,
 so E is forced constant within each SOC block (the geometric mean of
 the block's Ruiz factors).
+
+A batch of independent problems (P (B, n, n), A (B, m, n)) is
+equilibrated lane by lane: d (B, n), e (B, m) and c (B, 1), so that
+c broadcasts against the lanes' rows.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from ..problem import ConeSpec, QPData
 
 @dataclasses.dataclass(frozen=True)
 class Scaling:
-    """Diagonal scaling state: d (n,), e (m,), cost scalar c."""
+    """Diagonal scaling state: d (n,), e (m,), cost scalar c; with a
+    leading lane dimension d (B, n), e (B, m), c (B, 1)."""
 
     d: torch.Tensor
     e: torch.Tensor
@@ -60,28 +65,30 @@ def _soc_block_uniform(e_step, cone: ConeSpec):
     if not cone.soc_dims:
         return e_step
     mb = cone.m_box + cone.m_l1
-    head = e_step[:mb]
-    tail = e_step[mb:]
+    head = e_step[..., :mb]
+    tail = e_step[..., mb:]
     parts = [head]
     if cone.soc_uniform:
         d = cone.soc_dims[0]
-        blk = tail.reshape(cone.n_soc, d)
-        g = torch.exp(torch.mean(torch.log(blk), dim=1, keepdim=True))
-        parts.append(g.expand(blk.shape).reshape(-1))
+        blk = tail.reshape(tail.shape[:-1] + (cone.n_soc, d))
+        g = torch.exp(torch.mean(torch.log(blk), dim=-1, keepdim=True))
+        parts.append(g.expand(blk.shape).reshape(tail.shape))
     else:
         off = 0
         for d in cone.soc_dims:
-            g = torch.exp(torch.mean(torch.log(tail[off:off + d])))
-            parts.append(g.expand(d))
+            seg = torch.log(tail[..., off:off + d])
+            g = torch.exp(torch.mean(seg, dim=-1, keepdim=True)
+                          if seg.dim() > 1 else torch.mean(seg))
+            parts.append(g.expand(seg.shape))
             off += d
-    return torch.cat(parts)
+    return torch.cat(parts, dim=-1)
 
 
 def _bounds_and_lam(qp: QPData, e, c):
     l = torch.where(torch.isfinite(qp.l), e * qp.l, qp.l)
     u = torch.where(torch.isfinite(qp.u), e * qp.u, qp.u)
     mb, ml = qp.cone.m_box, qp.cone.m_l1
-    lam = c * qp.lam / e[mb:mb + ml] if ml else qp.lam
+    lam = c * qp.lam / e[..., mb:mb + ml] if ml else qp.lam
     return l, u, lam
 
 
@@ -99,10 +106,14 @@ def scale_qp(qp: QPData, scaling: Scaling) -> QPData:
 
 
 def ruiz_equilibrate(qp: QPData, iters: int):
-    """Return (scaled QPData, Scaling). iters=0 -> identity scaling."""
+    """Return (scaled QPData, Scaling). iters=0 -> identity scaling.
+
+    P (B, n, n) and A (B, m, n) equilibrate each lane on its own.
+    """
     n, m = qp.n, qp.m
     dtype, device = qp.dtype, qp.device
-    if iters <= 0:
+    lanes = qp.P.dim() == 3
+    if iters <= 0 and not lanes:
         return qp, Scaling.identity(n, m, dtype, device)
 
     def norm_cols(M):
@@ -118,28 +129,35 @@ def ruiz_equilibrate(qp: QPData, iters: int):
 
     mb, ml = qp.cone.m_box, qp.cone.m_l1
     P, q, A = qp.P, qp.q, qp.A
-    d = torch.ones(n, dtype=dtype, device=device)
-    e = torch.ones(m, dtype=dtype, device=device)
-    c = torch.ones((), dtype=dtype, device=device)
+    lead = P.shape[:-2]
+    d = torch.ones(lead + (n,), dtype=dtype, device=device)
+    e = torch.ones(lead + (m,), dtype=dtype, device=device)
+    c = torch.ones(lead + (1,) if lanes else (), dtype=dtype, device=device)
     for _ in range(iters):
         # Column norms of the symmetric KKT block for the x variables.
         dx = safe_inv_sqrt(torch.maximum(norm_cols(P), norm_cols(A)))
         de = _soc_block_uniform(safe_inv_sqrt(norm_rows(A)), qp.cone)
-        P = dx[:, None] * P * dx[None, :]
+        P = dx[..., :, None] * P * dx[..., None, :]
         q = dx * q
-        A = de[:, None] * A * dx[None, :]
+        A = de[..., :, None] * A * dx[..., None, :]
         d = d * dx
         e = e * de
         # Cost normalisation (OSQP Alg. 2) with the L1 term: the scaled
         # per-column L1 gradient scale max_i λ̄ᵢ|Āᵢⱼ| belongs in the
         # normaliser, or c explodes on min-fuel LPs (P ≈ 0, q = 0).
-        cost_scale = torch.maximum(norm_cols(P).mean(), q.abs().max())
+        if lanes:
+            cost_scale = torch.maximum(norm_cols(P).mean(-1),
+                                       q.abs().amax(-1))[:, None]
+        else:
+            cost_scale = torch.maximum(norm_cols(P).mean(), q.abs().max())
         if ml:
-            lam_bar = c * qp.lam / e[mb:mb + ml]
-            cost_scale = torch.maximum(cost_scale, norm_cols(
-                lam_bar[:, None] * A[mb:mb + ml, :]).max())
+            lam_bar = c * qp.lam / e[..., mb:mb + ml]
+            lam_cols = norm_cols(lam_bar[..., :, None] * A[..., mb:mb + ml, :])
+            cost_scale = torch.maximum(
+                cost_scale,
+                lam_cols.amax(-1, keepdim=True) if lanes else lam_cols.max())
         gamma = 1.0 / torch.clamp(cost_scale, min=1e-10)
-        P = gamma * P
+        P = (gamma[..., None] if lanes else gamma) * P
         q = gamma * q
         c = c * gamma
 

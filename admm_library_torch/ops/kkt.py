@@ -7,20 +7,30 @@ M is symmetric positive definite. Backends:
   'chol'      — dense Cholesky, triangular solves per iteration.
   'inv'       — explicit M⁻¹; each iteration's solve is one product, and
                 the fused kernel (ops/fused.py) consumes M⁻¹ and M.
+  'banded'    — block-tridiagonal Cholesky for MPC structure
+                (band_block = b): O(N b³) factor, two block sweeps per
+                solve (ops/banded.py).
+  'spike'     — the banded system partitioned into spike_parts pieces:
+                interior inverses and a separator solve (ops/spike.py).
   'cg'        — matrix-free lockstep conjugate gradient on P, A, rho and
                 sigma (adaptive rho needs no refactorisation).
   'pallas_cg' — M assembled once; each solve is one launch of the
                 Jacobi-PCG kernel (ops/pallas_cg.py).
 
 Right-hand sides keep the lane layout (B, n) against one shared factor.
-A Cholesky that fails (M not positive definite in the working
-precision) yields a NaN factor, so the solver's NaN tripwire sets
-NUMERICAL_ERROR instead of raising.
+Every backend but 'pallas_cg' also takes one factor per lane: P
+(B, n, n), A (B, m, n) and rho (B, m) give factor leaves that lead with
+B, solved against rhs (B, n) (`api.solve_batch`). A Cholesky that fails
+(M not positive definite in the working precision) yields a NaN factor,
+so the solver's NaN tripwire sets NUMERICAL_ERROR instead of raising.
 """
 from __future__ import annotations
 
 import torch
 
+from ..problem import mv, vm
+from . import banded as banded_ops
+from . import spike as spike_ops
 from .pallas_cg import pallas_cg_solve
 
 # Lockstep CG reads its loop condition from the device every this many
@@ -43,10 +53,12 @@ def cholesky_or_nan(M):
     return torch.where(bad, torch.full_like(L, float("nan")), L)
 
 
-def factor_condensed(P, A, sigma, rho_vec, backend: str):
+def factor_condensed(P, A, sigma, rho_vec, backend: str, band_block: int = 0,
+                     spike_parts: int = 0):
     """Build the cached factor for `backend`: a dict holding 'M' and
-    'L' ('chol') or 'Minv' ('inv'); M alone ('pallas_cg'); or the
-    operator pieces P, A, rho, sigma ('cg')."""
+    'L' ('chol'), 'Minv' ('inv'), the block factors 'Ld', 'Ll'
+    ('banded') or the spike_factor leaves ('spike'); M alone
+    ('pallas_cg'); or the operator pieces P, A, rho, sigma ('cg')."""
     if backend == "cg":
         return {"P": P, "A": A, "rho": rho_vec,
                 "sigma": torch.tensor(sigma, dtype=P.dtype, device=P.device)}
@@ -59,14 +71,31 @@ def factor_condensed(P, A, sigma, rho_vec, backend: str):
         return {"M": M, "L": cholesky_or_nan(M)}
     if backend == "inv":
         L = cholesky_or_nan(M)
-        eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+        eye = torch.eye(M.shape[-1], dtype=M.dtype,
+                        device=M.device).expand(L.shape)
         Linv = torch.linalg.solve_triangular(L, eye, upper=False)
         return {"M": M, "Minv": Linv.transpose(-1, -2) @ Linv}
-    raise ValueError(f"unknown or unported backend {backend!r}")
+    if backend == "banded":
+        if band_block <= 0:
+            raise ValueError("banded backend requires band_block > 0")
+        diag, low = banded_ops.dense_to_block_tridiag(M, band_block)
+        Ld, Ll = banded_ops.block_tridiag_cholesky(diag, low)
+        return {"M": M, "Ld": Ld, "Ll": Ll}
+    if backend == "spike":
+        if band_block <= 0 or spike_parts <= 0:
+            raise ValueError(
+                "spike backend requires band_block > 0 and spike_parts > 0")
+        return {"M": M, **spike_ops.spike_factor(M, band_block, spike_parts)}
+    raise ValueError(f"unknown backend {backend!r}")
 
 
 def _chol_solve(L, rhs):
-    """Solve (L Lᵀ) x = rhs for rhs (..., n) against a shared L (n, n)."""
+    """Solve (L Lᵀ) x = rhs: rhs (..., n) against a shared L (n, n), or
+    rhs (B, n) against one factor per lane, L (B, n, n)."""
+    if L.dim() > 2:
+        y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+        x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+        return x[..., 0]
     n = L.shape[-1]
     flat = rhs.reshape(-1, n).T                  # (n, K)
     y = torch.linalg.solve_triangular(L, flat, upper=False)
@@ -75,11 +104,12 @@ def _chol_solve(L, rhs):
 
 
 def _matvec_M(fac, v):
-    """M v for lane-batched v (..., n); matrix-free for the 'cg' factor."""
+    """M v for lane-batched v (..., n), against a shared or a per-lane
+    factor; matrix-free for the 'cg' factor."""
     if "M" in fac:
-        return v @ fac["M"].mT
-    Av = v @ fac["A"].mT
-    return v @ fac["P"].mT + fac["sigma"] * v + (fac["rho"] * Av) @ fac["A"]
+        return mv(fac["M"], v)
+    Av = mv(fac["A"], v)
+    return mv(fac["P"], v) + fac["sigma"] * v + vm(fac["rho"] * Av, fac["A"])
 
 
 def cg_solve(fac, rhs, x0=None, tol: float = 1e-9, max_iter: int = 200):
@@ -125,9 +155,15 @@ def solve_condensed(fac, rhs, backend: str, refine_steps: int = 0,
             return _chol_solve(fac["L"], r)
     elif backend == "inv":
         def apply(r):
-            return r @ fac["Minv"].mT
+            return mv(fac["Minv"], r)
+    elif backend == "banded":
+        def apply(r):
+            return banded_ops.block_tridiag_solve(fac["Ld"], fac["Ll"], r)
+    elif backend == "spike":
+        def apply(r):
+            return spike_ops.spike_solve(fac, r)
     else:
-        raise ValueError(f"unknown or unported backend {backend!r}")
+        raise ValueError(f"unknown backend {backend!r}")
     x = apply(rhs)
     for _ in range(refine_steps):
         x = x + apply(rhs - _matvec_M(fac, x))

@@ -84,7 +84,9 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
 
     def factor(rho_bar):
         rv = admm.rho_vec_of(rho_bar, eq_mask, settings, cone)
-        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend)
+        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend,
+                                    settings.band_block,
+                                    settings.spike_parts)
 
     # The only place where the plain iteration body is chosen over the
     # fused kernel: f32, explicit inverse, shared q/lam, no shifted prox,
@@ -525,5 +527,5 @@ def solve_batch_shared(qp: QPData, settings: Settings = Settings(),
         z0 = torch.zeros((B, qp.m), dtype=dtype, device=dev)
     if y0 is None:
         y0 = torch.zeros_like(z0)
-    backend = resolve_backend(settings, dev)
+    backend = resolve_backend(settings, dev, qp.n)
     return _solve_shared_core(qp, x0, z0, y0, settings, backend)

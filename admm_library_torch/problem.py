@@ -8,6 +8,9 @@ Rows of A are ordered [box | L1 | SOC blocks] (a static `ConeSpec`), so
 the z-update is a fixed composition of vectorised projections.
 Tensors keep the JAX package's layout: P (n, n), q (n,), A (m, n),
 l/u (m,), lam (m_l1,); l/u (and q) may carry a leading lane dimension.
+A batch of independent problems (`api.solve_batch`) gives every tensor a
+leading lane dimension: P (B, n, n), A (B, m, n), q (B, n), l/u (B, m),
+lam (B, m_l1).
 """
 from __future__ import annotations
 
@@ -141,12 +144,28 @@ def is_equality_row(qp: QPData) -> torch.Tensor:
     return eq & (idx < qp.cone.m_box)
 
 
+def mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M v for each row of v (..., c): one shared M (r, c), or one M per
+    lane, (B, r, c) against v (B, c)."""
+    if M.dim() == 2:
+        return v @ M.mT
+    return (M @ v[..., None])[..., 0]
+
+
+def vm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """vᵀ M for each row of v (..., r): one shared M (r, c), or one M per
+    lane, (B, r, c) against v (B, r)."""
+    if M.dim() == 2:
+        return v @ M
+    return (v[..., None, :] @ M)[..., 0, :]
+
+
 def objective(qp: QPData, x: torch.Tensor, z: torch.Tensor | None = None):
     """Objective ½xᵀPx + qᵀx + Σ λ|z_l1| (z supplies the L1 term)."""
-    quad = 0.5 * ((x @ qp.P) * x).sum(-1)
+    quad = 0.5 * (vm(x, qp.P) * x).sum(-1)
     lin = (qp.q * x).sum(-1)
     if qp.cone.m_l1 > 0:
-        w = z if z is not None else x @ qp.A.transpose(-1, -2)
+        w = z if z is not None else mv(qp.A, x)
         sl = w[..., qp.cone.m_box:qp.cone.m_box + qp.cone.m_l1]
         return quad + lin + (qp.lam * sl.abs()).sum(-1)
     return quad + lin

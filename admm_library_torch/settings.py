@@ -60,8 +60,8 @@ class Settings:
 
     # --- linear system backend ---
     # 'auto' | 'chol' | 'inv' | 'banded' | 'cg' | 'pallas_cg' | 'spike'
-    # (this package implements 'chol', 'inv', 'cg' and 'pallas_cg' so
-    # far). cg_tol / cg_max_iter drive both CG backends.
+    # ('banded' and 'spike' need band_block; 'spike' also spike_parts).
+    # cg_tol / cg_max_iter drive both CG backends.
     backend: str = "auto"
     spike_parts: int = 0
     cg_tol: float = 1e-9

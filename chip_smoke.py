@@ -57,6 +57,28 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                held to the model test's 1e-4 m. Then the f64 continuation
                alone from the reference's own entry point: SOLVED, and
                iterations within one chunk of the reference's.
+9. banded   — config 2 through solve(..., backend='banded'): SOLVED,
+               f64 KKT within the mixed criterion, 750 ± 25 iterations
+               (the JAX reference on the CPU), the rollout bar, x within
+               X_AGREE of the 'inv' solve, a rerun bitwise identical;
+               resolve_backend on the card: 'inv' for configs 2 and 4 at
+               their n, 'banded' at n = 4096; and the time of one KKT
+               solve of config 2's f64 matrix on 'banded' and 'inv';
+10. horizon_spike — the reference's horizon_spike_1024 cell: the config-5
+               batch at 1024 through solve_batch_shared with
+               backend='spike', 10 parts: every lane SOLVED, f64 KKT
+               <= 1e-6, 350 ± 25 lockstep iterations, x within X_AGREE
+               of phase 4's 'inv' solution, a rerun bitwise identical;
+11. solve_batch — 128 independent config-1 problems (n=100, m=200, each
+               with its own P and A from one seeded generator) through
+               solve_batch at the reference test's tolerance (1e-8):
+               every lane SOLVED within its f64 mixed criterion, 8 lanes
+               held to _solve_core on the lane alone (status, iterations
+               ± 25, x within 1e-6) and to solve (x within 1e-6), a
+               rerun bitwise identical.
+
+Phases 9-11 run no hand-written kernel: their backends are plain
+PyTorch, the forms the JAX package's lax.scan and vmap map to.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Its last line is {"ok": true, "device": {...}}.
@@ -66,6 +88,7 @@ import os
 # Deterministic cuBLAS needs this before the first cuBLAS call.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -140,6 +163,14 @@ PEAK_HBM_BYTES = 3.35e12
 # Two solved points of the same problem: each meets the 1e-6 residual
 # criterion; the MPC states carry only a 1e-8 regularisation.
 X_AGREE = 5e-4
+# The JAX reference on the CPU: config 2 through solve on 'banded' (its
+# 'auto' there), and horizon_spike (spike, 10 parts) at batch 128 and 1024.
+BANDED_REFERENCE_ITERS = 750
+SPIKE_REFERENCE_ITERS = 350
+# solve_batch on independent config-1 problems, at the tolerance of the
+# reference's test against solve (tests/test_solver.py, TOL).
+BATCH_LANES, BATCH_EPS, BATCH_CHECKED = 128, 1e-8, 8
+BATCH_X_AGREE = 1e-6
 # Terminal-state error of the simulated controls: dynamics rows hold to
 # r_prim <= 1e-6 each, and over N=50 unit steps a velocity error
 # integrates into position, so errors of up to ~N^2/2 * 1e-6 are
@@ -563,7 +594,7 @@ def phase_slice(batch, dev):
     check(launches > 0, f"batch {batch}: the fused kernel never launched")
     check(bitwise, f"batch {batch}: rerun not bitwise identical")
     check(term <= ROLLOUT_TOL, f"batch {batch}: rollout misses the target")
-    return rec
+    return rec, sol
 
 
 def _pcg_flagship(dev):
@@ -1119,6 +1150,193 @@ def phase_solve_l1_soc(dev):
     return out
 
 
+def _kkt_solve_ms(qp, settings, reps=10):
+    """Host milliseconds of one KKT solve (no refinement) of the f64
+    condensed matrix of `qp` at rho-bar 0.1, one rhs, on 'banded' and on
+    'inv'; each call ends in a synchronise."""
+    import torch
+    from admm_library_torch.core import admm
+    from admm_library_torch.ops import kkt
+    from admm_library_torch.problem import is_equality_row
+    rho = admm.rho_vec_of(torch.tensor(0.1, dtype=qp.dtype, device=qp.device),
+                          is_equality_row(qp), settings)
+    rhs = torch.ones((1, qp.n), dtype=qp.dtype, device=qp.device)
+    out = {}
+    for backend in ("banded", "inv"):
+        fac = kkt.factor_condensed(qp.P, qp.A, settings.sigma, rho, backend,
+                                   settings.band_block)
+        kkt.solve_condensed(fac, rhs, backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kkt.solve_condensed(fac, rhs, backend)
+        torch.cuda.synchronize()
+        out[backend] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def phase_banded(dev):
+    """Config 2 through solve on 'banded', and resolve_backend on the
+    card."""
+    import torch
+    from admm_library_torch import Settings, Status, resolve_backend, solve
+    from admm_library_torch.models.double_integrator import rollout
+
+    qp32, spec, s0 = _config2(dev)
+    qp = qp32.astype(torch.float64)      # f32 data, f64 outputs
+    s = Settings(eps_abs=EPS, eps_rel=EPS, band_block=spec.block,
+                 backend="banded")
+    sol, wall, launches = _timed_run(solve, qp, s)
+    sol2, wall2, _ = _timed_run(solve, qp, s)
+    inv = solve(qp, s.replace(backend="inv"))
+    r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
+    iters = int(sol.iters)
+    kkt_ms = _kkt_solve_ms(qp, s)
+    s4 = _config4(dev)[2].replace(backend="auto")
+    picked = {"config2": resolve_backend(s.replace(backend="auto"), dev,
+                                         qp.n),
+              "config4": resolve_backend(s4, dev, 2000),
+              "n4096": resolve_backend(s.replace(backend="auto"), dev,
+                                       4096)}
+    rec = dict(config="config2", backend="banded", n=qp.n, m=qp.m,
+               status=sol.status_name(), iters=iters,
+               reference_iters=BANDED_REFERENCE_ITERS, kkt_r_prim=r_p,
+               kkt_r_dual=r_d, eps_prim=eps_p, eps_dual=eps_d, wall_s=wall,
+               wall_rerun_s=wall2, launches=launches,
+               rerun_bitwise_identical=_bitwise(sol, sol2),
+               inv_iters=int(inv.iters),
+               inv_x_max_abs_diff=float((sol.x - inv.x).abs().max()),
+               rollout_terminal_err=float(
+                   rollout(spec, s0, sol.x)[-1].abs().max()),
+               resolve_backend_auto=picked, kkt_solve_ms=kkt_ms)
+    emit("banded", **rec)
+    check(int(sol.status) == int(Status.SOLVED), "banded: not SOLVED")
+    check(r_p <= eps_p and r_d <= eps_d,
+          "banded: f64 KKT residuals above the mixed criterion")
+    check(abs(iters - BANDED_REFERENCE_ITERS) <= ITER_SLACK,
+          f"banded: {iters} iterations, reference {BANDED_REFERENCE_ITERS}")
+    check(rec["rollout_terminal_err"] <= ROLLOUT_TOL,
+          "banded: rollout misses the target")
+    check(rec["inv_x_max_abs_diff"] <= X_AGREE,
+          "banded: 'banded' and 'inv' solutions disagree")
+    check(rec["rerun_bitwise_identical"], "banded: rerun not bitwise "
+          "identical")
+    check(picked == {"config2": "inv", "config4": "inv", "n4096": "banded"},
+          f"banded: resolve_backend on the card picked {picked}")
+    return rec
+
+
+def phase_horizon_spike(dev, x_inv):
+    """The reference's horizon_spike_1024 cell; x_inv is phase 4's 'inv'
+    solution of the same batch."""
+    import torch
+    from admm_library_torch import Settings, Status, solve_batch_shared
+    from admm_library_torch.models import monte_carlo as mc
+    from admm_library_torch.utils.oracle import kkt_residuals
+
+    batch = 1024
+    qp32, spec, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(batch),
+                                               device=dev)
+    qp = qp32.astype(torch.float64)
+    s = Settings(eps_abs=EPS, eps_rel=EPS, band_block=spec.block,
+                 backend="spike", spike_parts=10)
+    sol, wall, launches = _timed_run(solve_batch_shared, qp, s)
+    sol2, wall2, _ = _timed_run(solve_batch_shared, qp, s)
+    r_p, r_d, _ = kkt_residuals(qp, sol.x, sol.z, sol.y)
+    lockstep = int(sol.iters.max())
+    solved = int((sol.status == int(Status.SOLVED)).sum())
+    rec = dict(cell="horizon_spike_1024", batch=batch, n=qp.n, m=qp.m,
+               spike_parts=10, solved=solved, lockstep_iters=lockstep,
+               reference_iters=SPIKE_REFERENCE_ITERS,
+               iters_lane_mean=float(sol.iters.float().mean()),
+               kkt_r_prim_max=float(r_p.max()),
+               kkt_r_dual_max=float(r_d.max()), wall_s=wall,
+               wall_rerun_s=wall2, launches=launches,
+               rerun_bitwise_identical=_bitwise(sol, sol2),
+               inv_x_max_abs_diff=float((sol.x - x_inv).abs().max()))
+    emit("horizon_spike", **rec)
+    check(solved == batch, f"horizon_spike: {batch - solved} lanes not "
+          "SOLVED")
+    check(rec["kkt_r_prim_max"] <= EPS and rec["kkt_r_dual_max"] <= EPS,
+          f"horizon_spike: f64 KKT residuals above {EPS}")
+    check(abs(lockstep - SPIKE_REFERENCE_ITERS) <= ITER_SLACK,
+          f"horizon_spike: {lockstep} lockstep iterations, reference "
+          f"{SPIKE_REFERENCE_ITERS}")
+    check(rec["inv_x_max_abs_diff"] <= X_AGREE,
+          "horizon_spike: 'spike' and 'inv' solutions disagree")
+    check(rec["rerun_bitwise_identical"], "horizon_spike: rerun not "
+          "bitwise identical")
+    return rec
+
+
+def phase_solve_batch(dev):
+    """BATCH_LANES independent config-1 problems through solve_batch."""
+    import torch
+    from admm_library_torch import (QPData, Settings, Status, resolve_backend,
+                                    solve, solve_batch)
+    from admm_library_torch import api
+    from admm_library_torch.models.random_qp import random_box_qp
+
+    gen = torch.Generator().manual_seed(0)
+    lanes = [random_box_qp(gen, device=dev).astype(torch.float64)
+             for _ in range(BATCH_LANES)]
+    qp = QPData(**{f: torch.stack([getattr(q, f) for q in lanes])
+                   for f in ("P", "q", "A", "l", "u", "lam")},
+                cone=lanes[0].cone)
+    s = Settings(eps_abs=BATCH_EPS, eps_rel=BATCH_EPS, max_iter=20000)
+    backend = resolve_backend(s, dev, qp.n)
+    sol, wall, launches = _timed_run(solve_batch, qp, s)
+    sol2, wall2, _ = _timed_run(solve_batch, qp, s)
+    kkt_ok = []
+    for i, lane in enumerate(lanes):
+        one = dataclasses.replace(
+            sol, **{f: getattr(sol, f)[i] for f in ("x", "z", "y")})
+        r_p, r_d, eps_p, eps_d = _mixed_kkt(lane, one, BATCH_EPS, BATCH_EPS)
+        kkt_ok.append(r_p <= eps_p and r_d <= eps_d)
+    held = []
+    for i in range(BATCH_CHECKED):
+        lane = lanes[i]
+        zeros = [torch.zeros(w, dtype=lane.dtype, device=dev)
+                 for w in (lane.n, lane.m, lane.m)]
+        core = api._solve_core(lane, *zeros, s, backend)
+        one = solve(lane, s)
+        held.append(dict(
+            lane=i, iters=int(sol.iters[i]), core_iters=int(core.iters),
+            status_equal=int(core.status) == int(sol.status[i]),
+            core_x_max_abs_diff=float((core.x - sol.x[i]).abs().max()),
+            solve_status=one.status_name(), solve_iters=int(one.iters),
+            solve_x_max_abs_diff=float((one.x - sol.x[i]).abs().max())))
+    it = sol.iters.double()
+    solved = int((sol.status == int(Status.SOLVED)).sum())
+    rec = dict(config="config1", lanes=BATCH_LANES, n=qp.n, m=qp.m,
+               backend=backend, eps=BATCH_EPS, solved=solved,
+               kkt_within_criterion=sum(kkt_ok),
+               iters_min=int(it.min()), iters_median=float(it.median()),
+               iters_max=int(it.max()), lockstep_iters=int(it.max()),
+               wall_s=wall, wall_rerun_s=wall2, launches=launches,
+               rerun_bitwise_identical=_bitwise(sol, sol2),
+               lanes_held=held)
+    emit("solve_batch", **rec)
+    check(solved == BATCH_LANES,
+          f"solve_batch: {BATCH_LANES - solved} lanes not SOLVED")
+    check(all(kkt_ok), "solve_batch: f64 KKT residuals of "
+          f"{BATCH_LANES - sum(kkt_ok)} lanes above the mixed criterion")
+    for h in held:
+        name = f"solve_batch lane {h['lane']}"
+        check(h["status_equal"], f"{name}: status differs from _solve_core")
+        check(abs(h["iters"] - h["core_iters"]) <= ITER_SLACK,
+              f"{name}: {h['iters']} iterations, _solve_core "
+              f"{h['core_iters']}")
+        check(h["core_x_max_abs_diff"] <= BATCH_X_AGREE,
+              f"{name}: x differs from _solve_core's")
+        check(h["solve_status"] == "SOLVED", f"{name}: solve not SOLVED")
+        check(h["solve_x_max_abs_diff"] <= BATCH_X_AGREE,
+              f"{name}: x differs from solve's")
+    check(rec["rerun_bitwise_identical"], "solve_batch: rerun not bitwise "
+          "identical")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1130,12 +1348,16 @@ def main():
     smi = phase_device()
     phase_build()
     kern = phase_kernel(dev)
-    slice128 = phase_slice(128, dev)
-    slice1024 = phase_slice(1024, dev)
+    slice128, _ = phase_slice(128, dev)
+    slice1024, sol1024 = phase_slice(1024, dev)
     cg = phase_cg_kernel(dev)
     phase_solve(dev)
     phase_slice_pcg(dev)
     l1_soc = phase_solve_l1_soc(dev)
+    phase_banded(dev)
+    phase_horizon_spike(dev, sol1024.x)
+    del sol1024
+    phase_solve_batch(dev)
     # Each kernel with its launches on this slice's paths and its check
     # and times at the shape of the path that launches it most.
     lt_case = kern["low_thrust_soc_b1"]

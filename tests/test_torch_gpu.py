@@ -613,3 +613,108 @@ def test_f64_continuation_runs_one_chunk_on_cuda(dev, monkeypatch):
     assert out.x.device.type == "cuda" and out.x.dtype == torch.float32
     assert out.history.dtype == torch.float32
     assert bool(torch.isfinite(out.x).all())
+
+
+def _mpc_condensed(B=None, N=10, dim=2):
+    """The condensed matrix of a Monte-Carlo MPC problem (f64) on the
+    CPU, optionally one per lane with its own rho, and its block size."""
+    from admm_library_torch.ops.kkt import condensed_matrix
+    qp, spec, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(3),
+                                     batch=2, N=N, dim=dim,
+                                     dtype=torch.float64, device="cpu")
+    if B is None:
+        rho = torch.full((qp.m,), 0.3, dtype=torch.float64)
+        return qp.P, qp.A, rho, spec.block
+    rho = 0.1 + torch.rand(B, qp.m, dtype=torch.float64,
+                           generator=torch.Generator().manual_seed(4))
+    return qp.P.expand(B, -1, -1), qp.A.expand(B, -1, -1), rho, spec.block
+
+
+@pytest.mark.parametrize("lanes", [None, 3], ids=["shared", "per_lane"])
+@pytest.mark.parametrize("backend", ["banded", "spike", "chol", "inv"])
+def test_kkt_backends_on_cuda_match_cpu(backend, lanes, dev):
+    """Every leaf of the factor lies on the card, and the CUDA solve
+    (refinement included) equals the CPU one to 1e-9 of the solution's
+    scale: the same recursions in two f64 libraries on a system with
+    cond(M) ~ 1e6."""
+    P, A, rho, b = _mpc_condensed(lanes)
+    kw = dict(band_block=b, spike_parts=5)
+    cpu = kkt.factor_condensed(P, A, 1e-6, rho, backend, **kw)
+    gpu = kkt.factor_condensed(P.to(dev), A.to(dev), 1e-6, rho.to(dev),
+                               backend, **kw)
+    assert set(gpu) == set(cpu)
+    assert all(t.device.type == "cuda" for t in gpu.values())
+    g = torch.Generator().manual_seed(5)
+    rhs = torch.randn((lanes or 4, P.shape[-1]), dtype=torch.float64,
+                      generator=g)
+    x = kkt.solve_condensed(cpu, rhs, backend, refine_steps=1)
+    xg = kkt.solve_condensed(gpu, rhs.to(dev), backend, refine_steps=1)
+    assert xg.device.type == "cuda"
+    torch.testing.assert_close(xg.cpu(), x, rtol=0.0,
+                               atol=1e-9 * float(x.abs().max()))
+
+
+@pytest.mark.parametrize("backend", ["banded", "spike"])
+def test_solve_on_banded_backends_on_cuda(backend, dev):
+    """Config 2's MPC at horizon 10 through solve on 'banded' and
+    'spike' on the card: SOLVED at the CPU's status, iterations within
+    one check interval (25), x within 1e-5 (f32 phases on two
+    libraries)."""
+    from admm_library_torch import solve
+    from admm_library_torch.models.double_integrator import build_mpc_qp
+    rng = np.random.default_rng(0)
+    s0 = np.concatenate([rng.uniform(-2, 2, 3), rng.uniform(-0.2, 0.2, 3)])
+    qp, spec = build_mpc_qp(s0, np.zeros(6), N=10, dim=3, device="cpu")
+    s = Settings(backend=backend, band_block=spec.block, spike_parts=5)
+    cpu = solve(qp.astype(torch.float64), s)
+    gpu = solve(qp.to(dev).astype(torch.float64), s)
+    assert gpu.x.device.type == "cuda"
+    assert int(gpu.status) == int(cpu.status) == int(Status.SOLVED)
+    assert abs(int(gpu.iters) - int(cpu.iters)) <= 25
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-5)
+
+
+def _random_lanes():
+    from admm_library_torch.models.random_qp import random_box_qp
+    g = torch.Generator().manual_seed(0)
+    return [random_box_qp(g, n=16, m=24, dtype=torch.float64, device="cpu")
+            for _ in range(6)], 0
+
+
+def _mpc_lanes():
+    from admm_library_torch.models.double_integrator import build_mpc_qp
+    rng = np.random.default_rng(1)
+    lanes = []
+    for _ in range(3):
+        s0 = np.concatenate([rng.uniform(-2, 2, 3),
+                             rng.uniform(-0.2, 0.2, 3)])
+        qp, spec = build_mpc_qp(s0, np.zeros(6), N=10, dim=3,
+                                dtype=torch.float64, device="cpu")
+        lanes.append(qp)
+    return lanes, spec.block
+
+
+@pytest.mark.parametrize("backend,make", [
+    ("auto", _random_lanes), ("banded", _mpc_lanes), ("spike", _mpc_lanes)],
+    ids=["auto", "banded", "spike"])
+def test_solve_batch_on_cuda_matches_cpu(backend, make, dev):
+    """solve_batch on independent problems (6 random box QPs, n=16, m=24,
+    each with its own P and A; or 3 horizon-10 MPC problems) on the card
+    against the CPU: the same statuses, iterations within 25, x within
+    1e-5 ('auto' is 'inv' on the card and 'chol' on the CPU)."""
+    from admm_library_torch import solve_batch
+    lanes, block = make()
+    qp = QPData(**{f: torch.stack([getattr(q, f) for q in lanes])
+                   for f in ("P", "q", "A", "l", "u", "lam")},
+                cone=lanes[0].cone)
+    s = Settings(backend=backend, band_block=block, spike_parts=5)
+    cpu = solve_batch(qp, s)
+    gpu = solve_batch(qp.to(dev), s)
+    assert gpu.x.device.type == "cuda"
+    assert gpu.iters.shape == (len(lanes),)
+    assert torch.equal(gpu.status.cpu(), cpu.status)
+    assert bool((cpu.status == int(Status.SOLVED)).all())
+    assert int((gpu.iters.cpu() - cpu.iters).abs().max()) <= 25
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-5)
+    with pytest.raises(ValueError, match="solve_batch_shared"):
+        solve_batch(qp.to(dev), s.replace(backend="pallas_cg"))
