@@ -5,7 +5,9 @@ H100.
 It keeps the JAX package's module layout, public names and batch layout
 (x (B, n), z and y (B, m)). Entry points: `solve` for one problem,
 `solve_batch_shared` for a batch that shares (P, A), and `solve_batch`
-for a batch of independent problems. The fused ADMM
+for a batch of independent problems; `parallel.consensus_solve` and
+`parallel.consensus_solve_mc` split a horizon into blocks over a
+`torch.distributed` mesh (`parallel/runtime.py`). The fused ADMM
 iteration (ops/fused.py) and the batched Jacobi-PCG solve of the
 'pallas_cg' backend (ops/pallas_cg.py) are hand-written CUDA kernels
 (csrc/), built with nvcc on first use; on CPU tensors their plain

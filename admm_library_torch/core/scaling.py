@@ -9,7 +9,9 @@ the block's Ruiz factors).
 
 A batch of independent problems (P (B, n, n), A (B, m, n)) is
 equilibrated lane by lane: d (B, n), e (B, m) and c (B, 1), so that
-c broadcasts against the lanes' rows.
+c broadcasts against the lanes' rows. A block-partitioned consensus
+problem gets ONE scaling shared by all its blocks
+(`ruiz_equilibrate_blocks`).
 """
 from __future__ import annotations
 
@@ -103,6 +105,93 @@ def scale_qp(qp: QPData, scaling: Scaling) -> QPData:
     A = e[:, None] * qp.A * d[None, :]
     l, u, lam = _bounds_and_lam(qp, e, c)
     return QPData(P=P, q=q, A=A, l=l, u=u, lam=lam, cone=qp.cone)
+
+
+def scale_qp_blocks(qp_blk: QPData, scaling: Scaling, spec) -> QPData:
+    """Apply one block-shared Scaling to block-stacked data: P (S, nb,
+    nb), A (S, mb, nb), q/l/u/lam with a leading block axis (l, u and q
+    may also lead with a scenario axis); the blocks' cone is the local
+    cone of `spec`. The consensus re-centred rounds use it: their
+    correction problems keep the original (P, A). The formulas are
+    scale_qp's, broadcast over the leading axes."""
+    if qp_blk.cone != spec.cone:
+        raise ValueError("block data must carry the spec's local cone")
+    return scale_qp(qp_blk, scaling)
+
+
+def ruiz_equilibrate_blocks(qp_blk: QPData, spec, iters: int,
+                            reduce_max=None):
+    """Block-shared Ruiz equilibration for consensus problems.
+
+    One diagonal scaling (d (nb,), e (mb,), c) computed jointly over the
+    stacked per-block data (P (S, nb, nb), A (S, mb, nb)): the max norms
+    reduce over the block axis too, and `reduce_max` (the horizon axis's
+    pmax where the blocks are split over ranks) carries each max across
+    ranks. A max is exact, so the scaling is bitwise the same however
+    the blocks are split. A single shared scaling keeps the consensus
+    averaging valid: per-block scalings would scale the two copies of a
+    boundary state differently.
+
+    Two invariances are enforced on e: SOC blocks of the local cone stay
+    uniformly scaled, and the left- and right-edge row groups get the
+    same factors (their geometric mean), so the duplicated boundary
+    copies of neighbouring blocks live on identical scales and their
+    pairwise average stays the exact subspace projection.
+
+    `spec` is a parallel.consensus.ConsensusSpec. Returns (scaled
+    QPData, Scaling); iters=0 gives the identity.
+    """
+    nb, mb = spec.nb, spec.mb
+    ml, ns = spec.m_local, spec.ns
+    dtype, device = qp_blk.dtype, qp_blk.device
+    if iters <= 0:
+        return qp_blk, Scaling.identity(nb, mb, dtype, device)
+    if reduce_max is None:
+        def reduce_max(t):
+            return t
+
+    def safe_inv_sqrt(v):
+        v = torch.where((v < 1e-10) | ~torch.isfinite(v),
+                        torch.ones_like(v), v)
+        return 1.0 / torch.sqrt(v)
+
+    def tie_edges(e_step):
+        local = _soc_block_uniform(e_step[:ml], spec.cone)
+        g = torch.sqrt(e_step[ml:ml + ns] * e_step[ml + ns:])
+        return torch.cat([local, g, g])
+
+    mb_box, ml1 = spec.cone.m_box, spec.cone.m_l1
+    P, q, A = qp_blk.P, qp_blk.q, qp_blk.A
+    d = torch.ones(nb, dtype=dtype, device=device)
+    e = torch.ones(mb, dtype=dtype, device=device)
+    c = torch.ones((), dtype=dtype, device=device)
+    for _ in range(iters):
+        # Joint column norms over (block, row).
+        nx = reduce_max(torch.maximum(P.abs().amax(dim=(0, 1)),
+                                      A.abs().amax(dim=(0, 1))))
+        dx = safe_inv_sqrt(nx)
+        de = tie_edges(safe_inv_sqrt(reduce_max(A.abs().amax(dim=(0, 2)))))
+        P = dx[None, :, None] * P * dx[None, None, :]
+        q = dx * q
+        A = de[None, :, None] * A * dx[None, None, :]
+        d = d * dx
+        e = e * de
+        # Cost normalisation incl. the L1 term (see ruiz_equilibrate).
+        cost_scale = torch.maximum(
+            reduce_max(P.abs().amax(dim=(0, 1))).mean(),
+            reduce_max(q.abs().amax()))
+        if ml1:
+            lam_bar = c * qp_blk.lam / e[mb_box:mb_box + ml1]
+            cost_scale = torch.maximum(cost_scale, reduce_max((
+                lam_bar[..., :, None] * A[:, mb_box:mb_box + ml1, :]
+            ).abs().amax()))
+        gamma = 1.0 / torch.clamp(cost_scale, min=1e-10)
+        P = gamma * P
+        q = gamma * q
+        c = c * gamma
+    l, u, lam = _bounds_and_lam(qp_blk, e, c)
+    return (QPData(P=P, q=q, A=A, l=l, u=u, lam=lam, cone=qp_blk.cone),
+            Scaling(d=d, e=e, c=c))
 
 
 def ruiz_equilibrate(qp: QPData, iters: int):

@@ -20,7 +20,9 @@ M is symmetric positive definite. Backends:
 Right-hand sides keep the lane layout (B, n) against one shared factor.
 Every backend but 'pallas_cg' also takes one factor per lane: P
 (B, n, n), A (B, m, n) and rho (B, m) give factor leaves that lead with
-B, solved against rhs (B, n) (`api.solve_batch`). A Cholesky that fails
+B, solved against rhs (B, n) (`api.solve_batch`), or one factor per
+horizon block shared by scenario lanes, leaves (S, ·) against rhs (B, S,
+n) (the consensus drivers). A Cholesky that fails
 (M not positive definite in the working precision) yields a NaN factor,
 so the solver's NaN tripwire sets NUMERICAL_ERROR instead of raising.
 """
@@ -90,8 +92,16 @@ def factor_condensed(P, A, sigma, rho_vec, backend: str, band_block: int = 0,
 
 
 def _chol_solve(L, rhs):
-    """Solve (L Lᵀ) x = rhs: rhs (..., n) against a shared L (n, n), or
-    rhs (B, n) against one factor per lane, L (B, n, n)."""
+    """Solve (L Lᵀ) x = rhs: rhs (..., n) against a shared L (n, n),
+    rhs (B, n) against one factor per lane, L (B, n, n), or rhs (...,
+    S, n) against one factor per block, L (S, n, n), with the scenario
+    dimensions folded into each block's right-hand-side columns."""
+    if L.dim() > 2 and rhs.dim() > L.dim() - 1:
+        S, n = rhs.shape[-2:]
+        cols = rhs.reshape(-1, S, n).permute(1, 2, 0)      # (S, n, K)
+        y = torch.linalg.solve_triangular(L, cols, upper=False)
+        x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+        return x.permute(2, 0, 1).reshape(rhs.shape)
     if L.dim() > 2:
         y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
         x = torch.linalg.solve_triangular(L.mT, y, upper=True)

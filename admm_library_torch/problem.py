@@ -99,8 +99,13 @@ def make_qp(P, q, A, l, u, cone: ConeSpec | None = None, lam=None,
     """Build a QPData, defaulting to an all-box cone layout.
 
     Symmetrises P. The dtype is P's unless given; `lam` defaults to
-    zeros(m_l1).
+    zeros(m_l1). With device=None a tensor P keeps its device, and
+    other inputs (numpy arrays, lists) go to the CUDA card, as the
+    model builders do: with no card that raises. Pass device="cpu" to
+    build on the CPU.
     """
+    if device is None and not isinstance(P, torch.Tensor):
+        device = torch.device("cuda")
     P = torch.as_tensor(P, dtype=dtype, device=device)
     dtype, device = P.dtype, P.device
     q, A, l, u = (torch.as_tensor(t, dtype=dtype, device=device)
@@ -145,19 +150,34 @@ def is_equality_row(qp: QPData) -> torch.Tensor:
 
 
 def mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """M v for each row of v (..., c): one shared M (r, c), or one M per
-    lane, (B, r, c) against v (B, c)."""
+    """M v for each row of v (..., c): one shared M (r, c), one M per
+    lane, (B, r, c) against v (B, c), or one M per block shared by
+    leading scenario dimensions, (S, r, c) against v (..., S, c)."""
     if M.dim() == 2:
         return v @ M.mT
+    if v.dim() > M.dim() - 1:
+        return _per_block(lambda Mb, vb: vb @ Mb.mT, M, v)
     return (M @ v[..., None])[..., 0]
 
 
 def vm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-    """vᵀ M for each row of v (..., r): one shared M (r, c), or one M per
-    lane, (B, r, c) against v (B, r)."""
+    """vᵀ M for each row of v (..., r), with M shaped as in `mv`."""
     if M.dim() == 2:
         return v @ M
+    if v.dim() > M.dim() - 1:
+        return _per_block(lambda Mb, vb: vb @ Mb, M, v)
     return (v[..., None, :] @ M)[..., 0, :]
+
+
+def _per_block(prod, M, v):
+    """prod per block, each block's rows of every scenario at once: v
+    (..., S, k) folds to (S, K, k) against M (S, ·, ·), one batched
+    product instead of M broadcast over the scenarios."""
+    lead = v.shape[:-2]
+    S, k = v.shape[-2:]
+    vb = v.reshape(-1, S, k).transpose(0, 1)
+    out = prod(M, vb)
+    return out.transpose(0, 1).reshape(lead + (S, out.shape[-1]))
 
 
 def objective(qp: QPData, x: torch.Tensor, z: torch.Tensor | None = None):

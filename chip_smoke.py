@@ -77,8 +77,28 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                ± 25, x within 1e-6) and to solve (x within 1e-6), a
                rerun bitwise identical.
 
-Phases 9-11 run no hand-written kernel: their backends are plain
-PyTorch, the forms the JAX package's lax.scan and vmap map to.
+12. consensus — consensus_solve (parallel/consensus.py) on config 2's
+               problem (seed 0) split into 10 horizon blocks, on a 1x1
+               mesh on the card with no process group, at the bench's
+               settings (eps 1e-6, rho_edge_scale 30): SOLVED at 1475 ±
+               25 iterations (the JAX reference on the CPU), controls
+               within X_AGREE of the monolithic f64 solve at eps 1e-9,
+               the f32 phase's boundary copies of z bitwise equal, a
+               rerun bitwise identical; wall-clock of both runs, and
+               kernels launched per iteration, device busy time and idle
+               share from one run under torch.profiler;
+13. consensus_mc — the reference's consensus_mc_1024 cell at full width
+               (1024 scenarios, the JAX draw of the dispersions in
+               models/consensus_mc_s0_seed0.npz): every lane SOLVED at
+               1525 ± 25 lockstep iterations, per-lane min / median /
+               max beside the reference's 1375 and 1525, controls of 8
+               lanes within X_AGREE of their monolithic f64 solves, the
+               copies and the rerun as in phase 12. Both print, for
+               scale, phase 4's b1024 and phase 10's wall-clock.
+
+Phases 9-13 run no hand-written kernel: their backends are plain
+PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
+to.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Its last line is {"ok": true, "device": {...}}.
@@ -171,6 +191,21 @@ SPIKE_REFERENCE_ITERS = 350
 # reference's test against solve (tests/test_solver.py, TOL).
 BATCH_LANES, BATCH_EPS, BATCH_CHECKED = 128, 1e-8, 8
 BATCH_X_AGREE = 1e-6
+# Consensus ADMM over horizon blocks (the JAX reference on the CPU, the
+# bench's settings: seed 0, N=50 in 10 blocks, eps 1e-6,
+# rho_edge_scale=30): consensus_solve of config 2's problem SOLVED at
+# 1475; consensus_mc_1024 every lane SOLVED at 1525 lockstep, per lane
+# 1375 to 1525. Controls are held to the port's monolithic f64 solve at
+# eps 1e-9 within X_AGREE, on CONSENSUS_LANES_HELD lanes of the batch.
+CONSENSUS_REFERENCE_ITERS = 1475
+CONSENSUS_MC_REFERENCE_ITERS = 1525
+CONSENSUS_MC_REFERENCE_LANE_MIN = 1375
+CONSENSUS_N, CONSENSUS_BLOCKS, CONSENSUS_EDGE_SCALE = 50, 10, 30.0
+CONSENSUS_LANES_HELD = 8
+MONO_EPS = 1e-9
+# The duplicated boundary copies of x in a solution: each copy's edge
+# rows meet the primal residual criterion (1e-6).
+COPY_X_AGREE = 1e-5
 # Terminal-state error of the simulated controls: dynamics rows hold to
 # r_prim <= 1e-6 each, and over N=50 unit steps a velocity error
 # integrates into position, so errors of up to ~N^2/2 * 1e-6 are
@@ -1337,6 +1372,251 @@ def phase_solve_batch(dev):
     return rec
 
 
+class _PhaseOutputs:
+    """Records what each call of a consensus phase function returns
+    (`module.name`), with whether it ran with a re-centring offset."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls = []
+
+    def __enter__(self):
+        fn = getattr(self.module, self.name)
+        self.orig = fn
+
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            self.calls.append((kw.get("z_off") is not None, out))
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def first_plain(self):
+        """The first phase without an offset: the f32 phase."""
+        return next(out for has_off, out in self.calls if not has_off)
+
+
+def _copies_bitwise(z, ml, ns):
+    """Left-edge rows of block b against the right-edge rows of block
+    b-1 in z (..., blocks, mb)."""
+    import torch
+    return torch.equal(z[..., 1:, ml:ml + ns], z[..., :-1, ml + ns:])
+
+
+def _copies_x_gap(x, ns):
+    return float((x[..., 1:, :ns] - x[..., :-1, -ns:]).abs().max())
+
+
+def _profiled(fn, *args):
+    """fn(*args) once under torch.profiler, device activity only: a dict
+    of the kernels launched, the device operations (kernels, copies and
+    memsets), the device busy ms over all of them, and the profiled
+    run's wall-clock. Reads the raw events: building the profiler's event
+    tree for ~80k kernels takes longer than the run. Copies and memsets
+    are told from kernels by the names CUPTI gives them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in p.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    kernels = sum(not e.name().startswith(("Memcpy", "Memset"))
+                  for e in ops)
+    check(kernels > 0, "profiler: no kernel activity recorded")
+    return dict(kernels=kernels, device_ops=len(ops),
+                busy_ms=sum(e.duration_ns() for e in ops) / 1e6,
+                profiled_wall_s=wall)
+
+
+def _profile_fields(prof, iters, wall):
+    """The profile's record fields; the idle share is taken against the
+    unprofiled run's wall-clock `wall`."""
+    return dict(kernels_launched=prof["kernels"],
+                kernels_per_iteration=prof["kernels"] / iters,
+                device_ops=prof["device_ops"],
+                device_busy_ms=prof["busy_ms"],
+                idle_share=1.0 - prof["busy_ms"] / 1e3 / wall,
+                profiled_wall_s=prof["profiled_wall_s"])
+
+
+def _mono_controls(s0s, dev):
+    """Controls (K, N, nu) of the monolithic config-2 MPC (N=50, dim 3)
+    from each initial state of s0s (K, 6), built in f64 and solved at
+    MONO_EPS by solve (K=1) or solve_batch_shared."""
+    import numpy as np
+    import torch
+    from admm_library_torch import (QPData, Settings, Status, solve,
+                                    solve_batch_shared)
+    from admm_library_torch.models.double_integrator import (
+        build_mpc_qp, mpc_bounds_for_s0)
+    f64 = torch.float64
+    qp, spec = build_mpc_qp(s0s[0], np.zeros(6), N=CONSENSUS_N, dim=3,
+                            dtype=f64, device=dev)
+    s = Settings(eps_abs=MONO_EPS, eps_rel=MONO_EPS)
+    if s0s.shape[0] == 1:
+        sol = solve(qp, s)
+        x, status = sol.x[None], sol.status[None]
+    else:
+        l, u = mpc_bounds_for_s0(qp, spec, s0s.to(device=dev, dtype=f64))
+        sol = solve_batch_shared(QPData(P=qp.P, q=qp.q, A=qp.A, l=l, u=u,
+                                        lam=qp.lam, cone=qp.cone), s)
+        x, status = sol.x, sol.status
+    check(bool((status == int(Status.SOLVED)).all()),
+          "consensus: a monolithic reference solve is not SOLVED")
+    b, nu = spec.block, spec.nu
+    return torch.stack([x[:, k * b:k * b + nu]
+                        for k in range(CONSENSUS_N)], dim=1)
+
+
+def _controls(spec, mpc, x_blocks):
+    import torch
+    from admm_library_torch.models.partitioned import assemble_trajectory
+    us, _ = assemble_trajectory(spec, mpc, x_blocks)
+    return torch.from_numpy(us)
+
+
+def phase_consensus(dev, scale):
+    """consensus_solve of config 2's problem split into 10 blocks, on a
+    1x1 mesh on the card (no process group)."""
+    import numpy as np
+    import torch
+    from admm_library_torch import Settings, Status
+    from admm_library_torch.models.partitioned import partition_mpc
+    from admm_library_torch.parallel import consensus, runtime
+
+    _, _, s0 = _config2(dev)
+    qp, spec, mpc = partition_mpc(s0, np.zeros(6), N=CONSENSUS_N,
+                                  n_blocks=CONSENSUS_BLOCKS, dim=3,
+                                  device=dev)
+    mesh = runtime.make_mesh()
+    check(mesh.device == dev and mesh.groups == {"data": None,
+                                                 "horizon": None},
+          "consensus: the 1x1 mesh is not on the card or has a group")
+    s = Settings(eps_abs=EPS, eps_rel=EPS,
+                 rho_edge_scale=CONSENSUS_EDGE_SCALE)
+    with _PhaseOutputs(consensus, "_consensus_phase") as cap:
+        sol, wall, launches = _timed_run(consensus.consensus_solve, qp,
+                                         spec, mesh, s)
+    sol2, wall2, _ = _timed_run(consensus.consensus_solve, qp, spec, mesh, s)
+    prof = _profiled(consensus.consensus_solve, qp, spec, mesh, s)
+    iters = int(sol.iters)
+    ml, ns = spec.m_local, spec.ns
+    f32_phase = cap.first_plain()
+    t0 = time.perf_counter()
+    mono = _mono_controls(s0[None].cpu(), dev)
+    mono_s = time.perf_counter() - t0
+    ctrl_diff = float((_controls(spec, mpc, sol.x) - mono[0].cpu()).abs()
+                      .max())
+    rec = dict(n_blocks=spec.n_blocks, nb=spec.nb, mb=spec.mb,
+               status=Status(int(sol.status)).name, iters=iters,
+               reference_iters=CONSENSUS_REFERENCE_ITERS,
+               f32_phase_iters=int(f32_phase.iters),
+               r_prim=float(sol.r_prim), r_dual=float(sol.r_dual),
+               wall_s=wall, wall_rerun_s=wall2,
+               **_profile_fields(prof, iters, wall2),
+               mono_reference_s=mono_s, hand_written_launches=launches,
+               controls_max_abs_diff_mono=ctrl_diff,
+               f32_phase_z_copies_bitwise=_copies_bitwise(f32_phase.z, ml,
+                                                          ns),
+               x_copies_max_gap=_copies_x_gap(sol.x, ns),
+               rerun_bitwise_identical=_bitwise(sol, sol2), **scale)
+    emit("consensus", **rec)
+    check(int(sol.status) == int(Status.SOLVED), "consensus: not SOLVED")
+    check(abs(iters - CONSENSUS_REFERENCE_ITERS) <= ITER_SLACK,
+          f"consensus: {iters} iterations, reference "
+          f"{CONSENSUS_REFERENCE_ITERS}")
+    check(ctrl_diff <= X_AGREE,
+          "consensus: controls differ from the monolithic solve")
+    check(rec["f32_phase_z_copies_bitwise"],
+          "consensus: boundary copies of z not bitwise equal")
+    check(rec["x_copies_max_gap"] <= COPY_X_AGREE,
+          "consensus: boundary copies of x disagree")
+    check(rec["rerun_bitwise_identical"], "consensus: rerun not bitwise "
+          "identical")
+    return rec
+
+
+def phase_consensus_mc(dev, scale):
+    """The reference's consensus_mc_1024 cell at full width: 1024
+    dispersed scenarios (the JAX draw) of config 2's problem in 10
+    blocks, consensus_solve_mc on a 1x1 mesh on the card."""
+    import numpy as np
+    import torch
+    from admm_library_torch import Settings, Status
+    from admm_library_torch.models.partitioned import (
+        partition_mpc_from_s0, reference_s0)
+    from admm_library_torch.parallel import consensus_mc, runtime
+
+    _, _, s0 = _config2(dev)
+    qp, spec, mpc, s0s = partition_mpc_from_s0(
+        reference_s0(), s0, np.zeros(6), N=CONSENSUS_N,
+        n_blocks=CONSENSUS_BLOCKS, dim=3, device=dev)
+    batch = s0s.shape[0]
+    mesh = runtime.make_mesh()
+    s = Settings(eps_abs=EPS, eps_rel=EPS,
+                 rho_edge_scale=CONSENSUS_EDGE_SCALE)
+    with _PhaseOutputs(consensus_mc, "_mc_phase") as cap:
+        sol, wall, launches = _timed_run(consensus_mc.consensus_solve_mc,
+                                         qp, spec, mesh, s)
+    sol2, wall2, _ = _timed_run(consensus_mc.consensus_solve_mc, qp, spec,
+                                mesh, s)
+    prof = _profiled(consensus_mc.consensus_solve_mc, qp, spec, mesh, s)
+    it = sol.iters.double()
+    lockstep = int(it.max())
+    solved = int((sol.status == int(Status.SOLVED)).sum())
+    ml, ns = spec.m_local, spec.ns
+    f32_phase = cap.first_plain()
+    held = CONSENSUS_LANES_HELD
+    t0 = time.perf_counter()
+    mono = _mono_controls(s0s[:held].cpu().double(), dev).cpu()
+    mono_s = time.perf_counter() - t0
+    ctrl_diff = max(float((_controls(spec, mpc, sol.x[i]) - mono[i]).abs()
+                          .max()) for i in range(held))
+    rec = dict(cell="consensus_mc_1024", batch=batch,
+               n_blocks=spec.n_blocks, nb=spec.nb, mb=spec.mb,
+               solved=solved, lockstep_iters=lockstep,
+               reference_iters=CONSENSUS_MC_REFERENCE_ITERS,
+               iters_lane_min=int(it.min()),
+               iters_lane_median=float(it.median()),
+               iters_lane_max=lockstep,
+               reference_lane_min=CONSENSUS_MC_REFERENCE_LANE_MIN,
+               reference_lane_max=CONSENSUS_MC_REFERENCE_ITERS,
+               f32_phase_lockstep_iters=int(f32_phase.iters.max()),
+               r_prim_max=float(sol.r_prim.max()),
+               r_dual_max=float(sol.r_dual.max()),
+               wall_s=wall, wall_rerun_s=wall2,
+               **_profile_fields(prof, lockstep, wall2),
+               mono_reference_s=mono_s, hand_written_launches=launches,
+               lanes_held=held,
+               controls_max_abs_diff_mono=ctrl_diff,
+               f32_phase_z_copies_bitwise=_copies_bitwise(f32_phase.z, ml,
+                                                          ns),
+               x_copies_max_gap=_copies_x_gap(sol.x, ns),
+               rerun_bitwise_identical=_bitwise(sol, sol2), **scale)
+    emit("consensus_mc", **rec)
+    check(solved == batch, f"consensus_mc: {batch - solved} lanes not "
+          "SOLVED")
+    check(abs(lockstep - CONSENSUS_MC_REFERENCE_ITERS) <= ITER_SLACK,
+          f"consensus_mc: {lockstep} lockstep iterations, reference "
+          f"{CONSENSUS_MC_REFERENCE_ITERS}")
+    check(ctrl_diff <= X_AGREE,
+          "consensus_mc: controls differ from the monolithic solves")
+    check(rec["f32_phase_z_copies_bitwise"],
+          "consensus_mc: boundary copies of z not bitwise equal")
+    check(rec["x_copies_max_gap"] <= COPY_X_AGREE,
+          "consensus_mc: boundary copies of x disagree")
+    check(rec["rerun_bitwise_identical"], "consensus_mc: rerun not bitwise "
+          "identical")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1355,9 +1635,15 @@ def main():
     phase_slice_pcg(dev)
     l1_soc = phase_solve_l1_soc(dev)
     phase_banded(dev)
-    phase_horizon_spike(dev, sol1024.x)
+    spike = phase_horizon_spike(dev, sol1024.x)
     del sol1024
     phase_solve_batch(dev)
+    # For scale, times from this call: the config-5 batch at 1024 on
+    # 'inv' (kernel 1) and on 'spike'.
+    scale = {"slice_b1024_inv_wall_s": slice1024["wall_s"],
+             "horizon_spike_wall_s": spike["wall_s"]}
+    phase_consensus(dev, scale)
+    phase_consensus_mc(dev, scale)
     # Each kernel with its launches on this slice's paths and its check
     # and times at the shape of the path that launches it most.
     lt_case = kern["low_thrust_soc_b1"]

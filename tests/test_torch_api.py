@@ -225,7 +225,7 @@ def _equality_qp():
     rng = np.random.default_rng(1)
     A = rng.standard_normal((2, 3))
     b = np.array([1.0, -0.5])
-    return T.make_qp(np.eye(3), np.zeros(3), A, b, b)
+    return T.make_qp(np.eye(3), np.zeros(3), A, b, b, device="cpu")
 
 
 def test_warm_start_outside_the_constraints_is_not_solved():
@@ -294,3 +294,18 @@ def test_unsolved_soc_problem_continues_in_f64(monkeypatch):
     tsol = T.solve(_to_torch(qpj), ts)
     _compare(jsol, tsol)
     assert int(tsol.status) == int(T.Status.SOLVED)
+
+
+def test_make_qp_device_default():
+    """Numpy input builds on the CUDA card, as the model builders do (with
+    no card that raises) unless device='cpu'; tensor input keeps its
+    device."""
+    arrays = (np.eye(2), np.zeros(2), np.eye(2), -np.ones(2), np.ones(2))
+    if torch.cuda.is_available():
+        assert T.make_qp(*arrays).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            T.make_qp(*arrays)
+    assert T.make_qp(*arrays, device="cpu").device.type == "cpu"
+    tensors = [torch.as_tensor(a) for a in arrays]
+    assert T.make_qp(*tensors).device == tensors[0].device

@@ -718,3 +718,57 @@ def test_solve_batch_on_cuda_matches_cpu(backend, make, dev):
     torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-5)
     with pytest.raises(ValueError, match="solve_batch_shared"):
         solve_batch(qp.to(dev), s.replace(backend="pallas_cg"))
+
+
+def test_consensus_solve_mc_on_cuda_matches_cpu(dev):
+    """consensus_solve_mc (4 scenarios, 4 horizon blocks) on a 1x1 mesh
+    on the card ('auto' = 'inv') against the CPU ('chol'): the same
+    statuses, iterations within 25, x within 1e-5, and the solution on
+    the card."""
+    from admm_library_torch.models.partitioned import partition_mpc_mc
+    from admm_library_torch.parallel import consensus_solve_mc, runtime
+    qp, spec, _, _ = partition_mpc_mc(
+        torch.Generator().manual_seed(0), 4, [1.0, -2.0, 0.3, -0.1],
+        np.zeros(4), N=8, n_blocks=4, dim=2, u_max=2.0, dtype=torch.float64,
+        device="cpu")
+    s = Settings(eps_abs=1e-7, eps_rel=1e-7)
+    cpu = consensus_solve_mc(qp, spec, runtime.make_mesh(device="cpu"), s)
+    mesh = runtime.make_mesh()
+    assert mesh.device == dev
+    gpu = consensus_solve_mc(qp.to(dev), spec, mesh, s)
+    assert gpu.x.device.type == "cuda"
+    assert torch.equal(gpu.status.cpu(), cpu.status)
+    assert bool((cpu.status == int(Status.SOLVED)).all())
+    assert int((gpu.iters.cpu() - cpu.iters).abs().max()) <= 25
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-5)
+
+
+def test_runtime_collectives_on_a_world1_nccl_group(dev, tmp_path):
+    """The runtime's collectives through NCCL on the card: a world-1
+    process group (file:// store) whose group stands in for both axes.
+    A 1x1 mesh from make_mesh has no group and makes no call."""
+    import torch.distributed as dist
+    from admm_library_torch.parallel import runtime
+    runtime.initialize()                 # one process: a no-op
+    assert not dist.is_initialized()
+    runtime.initialize(init_method=f"file://{tmp_path / 'store'}",
+                       world_size=1, rank=0, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl"
+        world = dist.group.WORLD
+        mesh = runtime.Mesh(shape={"data": 1, "horizon": 1},
+                            coords={"data": 0, "horizon": 0},
+                            groups={"data": world, "horizon": world},
+                            ranks={"data": (0,), "horizon": (0,)}, world=1,
+                            device=dev)
+        v = torch.arange(6, dtype=torch.float64, device=dev).reshape(2, 3)
+        for axis in ("data", "horizon"):
+            assert torch.equal(runtime.pmax(v, mesh, axis), v)
+            assert torch.equal(runtime.psum(v, mesh, axis), v)
+            assert torch.equal(runtime.all_gather(v, mesh, axis, dim=1), v)
+            assert torch.equal(runtime.ring_shift(v, mesh, axis, 1), v)
+        torch.cuda.synchronize()
+        assert runtime.describe(mesh)["backend"] == "nccl"
+    finally:
+        runtime.shutdown()
+    assert not dist.is_initialized()
