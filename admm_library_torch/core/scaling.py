@@ -194,10 +194,13 @@ def ruiz_equilibrate_blocks(qp_blk: QPData, spec, iters: int,
             Scaling(d=d, e=e, c=c))
 
 
-def ruiz_equilibrate(qp: QPData, iters: int):
+def ruiz_equilibrate(qp: QPData, iters: int, reduce_max=None):
     """Return (scaled QPData, Scaling). iters=0 -> identity scaling.
 
-    P (B, n, n) and A (B, m, n) equilibrate each lane on its own.
+    P (B, n, n) and A (B, m, n) equilibrate each lane on its own. With
+    shared P and A a per-lane q (B, n) enters the one cost scale c
+    through its max over every lane; `reduce_max` carries that max
+    across the ranks that hold the other lanes (the data axis's pmax).
     """
     n, m = qp.n, qp.m
     dtype, device = qp.dtype, qp.device
@@ -238,7 +241,10 @@ def ruiz_equilibrate(qp: QPData, iters: int):
             cost_scale = torch.maximum(norm_cols(P).mean(-1),
                                        q.abs().amax(-1))[:, None]
         else:
-            cost_scale = torch.maximum(norm_cols(P).mean(), q.abs().max())
+            q_max = q.abs().max()
+            if reduce_max is not None:
+                q_max = reduce_max(q_max)
+            cost_scale = torch.maximum(norm_cols(P).mean(), q_max)
         if ml:
             lam_bar = c * qp.lam / e[..., mb:mb + ml]
             lam_cols = norm_cols(lam_bar[..., :, None] * A[..., mb:mb + ml, :])

@@ -13,6 +13,15 @@ The solve runs as a host loop over residual checks. Each check reads one
 small tensor from the device (loop liveness and the refactor flag);
 the restart boundary and the adaptive-rho cadence follow from the
 lockstep count, which the host keeps.
+
+Data parallelism: `shard_batch` gives each rank of a `make_data_mesh`
+its slice of the lanes, and `solve_batch_shared(..., mesh=)` runs the
+same driver on it. P, A and the factor are whole on every rank; only the
+batch-global quantities cross the 'data' axis: the loop liveness and the
+refactor flag (one agreed read per check), the shared rho's geometric
+mean (a sum of logs and a count), the history's max residuals, and the
+Ruiz cost scale of a per-lane q. On a 1-rank mesh every collective is
+the identity, so the result is bitwise the solve without a mesh.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from ..precision import clean64
 from ..problem import QPData, objective
 from ..settings import Settings
 from ..solution import Solution, Status
+from . import runtime
+from .runtime import DATA_AXIS, Mesh
 
 _UNSOLVED = int(Status.UNSOLVED)
 _SOLVED = int(Status.SOLVED)
@@ -51,11 +62,35 @@ class BatchCarry(NamedTuple):
     hist: torch.Tensor         # (slots, 3) residual ring buffer
 
 
-def _geomean_masked(v, mask):
-    """Geometric mean of v over lanes where mask, 1.0 if none."""
+def _data_sum(v, mesh: Mesh | None):
+    return v if mesh is None else runtime.psum(v, mesh, DATA_AXIS)
+
+
+def _data_max(v, mesh: Mesh | None):
+    return v if mesh is None else runtime.pmax(v, mesh, DATA_AXIS)
+
+
+def _geomean_masked(v, mask, mesh: Mesh | None = None):
+    """Geometric mean of v over the lanes where mask, on every rank of
+    the mesh's data axis (a float sum across ranks: its rounding may
+    differ from one rank's); 1.0 if there are none."""
     logv = torch.where(mask, torch.log(torch.clamp(v, min=1e-30)), 0.0)
-    cnt = torch.clamp(mask.sum(), min=1)
-    return torch.exp(logv.sum() / cnt)
+    tot = _data_sum(logv.sum(), mesh)
+    cnt = _data_sum(mask.sum(), mesh)
+    return torch.exp(tot / torch.clamp(cnt, min=1))
+
+
+def _agreed(flags, mesh: Mesh | None):
+    """The host's read of a check's flags, the same on every rank."""
+    flags = flags.to(torch.int32)
+    if mesh is not None:
+        flags = runtime.agree(flags, mesh)
+    return [bool(f) for f in flags.tolist()]
+
+
+def _all_lanes(mask, mesh: Mesh | None) -> bool:
+    """True when mask holds on every lane of every rank."""
+    return not _agreed((~mask).any()[None], mesh)[0]
 
 
 def _pick(mask, a, b):
@@ -65,13 +100,16 @@ def _pick(mask, a, b):
 
 def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
                           x0, z0, y0, backend: str, rho0=None,
-                          z_off=None) -> BatchCarry:
+                          z_off=None, mesh: Mesh | None = None
+                          ) -> BatchCarry:
     """Lockstep batched ADMM with one shared KKT factor.
 
     `qp` carries unbatched P and A with (B, m) l, u (q may be (B, n));
     iterates are (B, ·). The shared scalar rho_bar adapts on the
     geometric-mean residual ratio of the still-active lanes, so one
-    refactorisation serves all lanes.
+    refactorisation serves all lanes. With a `mesh` the lanes are this
+    rank's share of the batch: liveness, the rho statistics and the
+    history's maxima are taken over the data axis.
     """
     dtype, dev = qp.dtype, qp.device
     cone = qp.cone
@@ -213,8 +251,8 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
             sd = res[1] / torch.clamp(
                 torch.maximum(torch.maximum(nPx, nAty), nq), min=tiny)
             ratio = torch.sqrt(
-                _geomean_masked(sp, still)
-                / torch.clamp(_geomean_masked(sd, still), min=tiny))
+                _geomean_masked(sp, still, mesh)
+                / torch.clamp(_geomean_masked(sd, still, mesh), min=tiny))
             new_rho = torch.clamp(rho_bar * ratio, settings.rho_min,
                                   settings.rho_max)
             tol = settings.adaptive_rho_tol
@@ -223,14 +261,15 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         if slots > 0:
             row = hist[hist_ptr % slots]
             row[0] = float(it)
-            row[1] = r_prim.max()
-            row[2] = r_dual.max()
+            row[1] = _data_max(r_prim.amax(), mesh)
+            row[2] = _data_max(r_dual.amax(), mesh)
             hist_ptr += 1
         x, z, y = xn, zn, yn
         x_chk, y_chk = xn, yn
 
-        # The one device-to-host read of this check.
-        alive, do = torch.stack([alive_t, do_t]).tolist()
+        # The one device-to-host read of this check, agreed over the
+        # mesh: liveness of any lane anywhere, and the rho decision.
+        alive, do = _agreed(torch.stack([alive_t, do_t]), mesh)
         if do:
             rho_bar = new_rho
             if backend == "cg":
@@ -251,15 +290,26 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         r_dual=torch.where(unsolved, rd_best, r_dual), hist=hist)
 
 
+def _ruiz(qp, settings, mesh):
+    """Ruiz scaling of this rank's lanes equal to the one of the whole
+    batch: a per-lane q enters the cost scale through a max over every
+    lane, so that max is taken over the data axis too."""
+    reduce_max = None
+    if mesh is not None and qp.q.dim() > 1:
+        def reduce_max(t):
+            return _data_max(t, mesh)
+    return ruiz_equilibrate(qp, settings.scaling_iters, reduce_max)
+
+
 def _phase(qp, x0, z0, y0, settings, backend, scaling=None, rho0=None,
-           z_off=None):
+           z_off=None, mesh=None):
     if scaling is not None:
         # Precomputed scaling (re-centred rounds keep phase 1's P/A, so
         # the Ruiz loop would recompute identical factors).
         scaling = scaling.astype(qp.dtype)
         qps = scale_qp(qp, scaling)
     else:
-        qps, scaling = ruiz_equilibrate(qp, settings.scaling_iters)
+        qps, scaling = _ruiz(qp, settings, mesh)
     if settings.warm_start:
         xs = scaling.scale_x(x0)
         zs = scaling.scale_z(z0)
@@ -271,7 +321,8 @@ def _phase(qp, x0, z0, y0, settings, backend, scaling=None, rho0=None,
         # (f64) dtype — ops/prox upcasts there.
         z_off = scaling.e.to(z_off.dtype) * z_off
     carry = run_admm_batch_shared(
-        qps, scaling, settings, xs, zs, ys, backend, rho0=rho0, z_off=z_off)
+        qps, scaling, settings, xs, zs, ys, backend, rho0=rho0, z_off=z_off,
+        mesh=mesh)
     x = scaling.unscale_x(carry.x)
     z = scaling.unscale_z(carry.z)
     y = scaling.unscale_y(carry.y)
@@ -295,7 +346,7 @@ def _s32_of_shared(settings: Settings) -> Settings:
 
 
 def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
-                             backend: str) -> Solution:
+                             backend: str, mesh=None) -> Solution:
     """Hybrid precision via f32 re-centring (all cone types).
 
     Round 0 solves in f32 to the f32 residual plateau. Each refinement
@@ -305,14 +356,16 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     prox with an f64 offset = Ax. The correction lives at the residual
     scale, so f32 iterations reach the 1e-6 target. A capped,
     warm-started f64 phase runs only for lanes the rounds left unsolved.
+    Its host branches (skip the later rounds, skip the f64 phase) are
+    agreed over the mesh.
     """
     f32, f64 = torch.float32, torch.float64
     s1 = _s32_of_shared(settings)
     qp64 = qp.astype(f64)
     # One Ruiz pass serves phase 1 and every correction round.
-    _, scaling1 = ruiz_equilibrate(qp.astype(f32), s1.scaling_iters)
+    _, scaling1 = _ruiz(qp.astype(f32), s1, mesh)
     sol = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32), s1,
-                 backend, scaling=scaling1)
+                 backend, scaling=scaling1, mesh=mesh)
     p1_inf = (sol.status == _PINF) | (sol.status == _DINF)
     x_t = clean64(sol.x)
     y_t = clean64(sol.y)
@@ -423,7 +476,7 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
         solc = _phase(qp_c, torch.zeros((B, qp.n), dtype=f32,
                                         device=x_t.device),
                       zc0, y_warm, s_c, backend, scaling=scaling1,
-                      rho0=rho.to(f32), z_off=z_off)
+                      rho0=rho.to(f32), z_off=z_off, mesh=mesh)
         x_n = x_t + clean64(solc.x)
         y_n = (y_base + clean64(solc.y)) if mixed else clean64(solc.y)
         z_n = Ax + clean64(solc.z)
@@ -443,7 +496,7 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
         # Later rounds are skipped once every lane met the round
         # criterion or froze: a round costs a factorisation and
         # check_every iterations even when it converges at once.
-        if r > 0 and bool(((round_status == _SOLVED) | carry[5]).all()):
+        if r > 0 and _all_lanes((round_status == _SOLVED) | carry[5], mesh):
             break
         carry, round_status = round_fn(*carry)
     x_t, y_t, z_t, iters, rho, _frozen = carry
@@ -456,7 +509,7 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
                                      int(Status.MAX_ITER)).to(torch.int32))
     d = qp.dtype
 
-    if not bool((~solved & ~p1_inf).any()):
+    if _all_lanes(solved | p1_inf, mesh):
         return Solution(
             x=x_t.to(d), z=z_t.to(d), y=y_t.to(d), status=status,
             iters=iters, r_prim=r_p.to(d), r_dual=r_d.to(d),
@@ -470,7 +523,7 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
                            recenter_rounds=0,
                            stall_checks=max(settings.stall_checks, 16),
                            max_iter=min(settings.max_iter, _F64_MAX_ITER))
-    sol64 = _phase(qp64, x_t, z_t, y_t, s64, backend)
+    sol64 = _phase(qp64, x_t, z_t, y_t, s64, backend, mesh=mesh)
     return Solution(
         x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
         status=torch.where(p1_inf, sol.status, sol64.status),
@@ -481,24 +534,25 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
 
 
 def _solve_shared_core(qp, x0, z0, y0, settings: Settings,
-                       backend: str) -> Solution:
+                       backend: str, mesh=None) -> Solution:
     precision = settings.precision
     if precision == "single":
-        return _phase(qp, x0, z0, y0, settings, backend)
+        return _phase(qp, x0, z0, y0, settings, backend, mesh=mesh)
     f64 = torch.float64
     if precision == "double":
         return _phase(qp.astype(f64), x0.to(f64), z0.to(f64), y0.to(f64),
-                      settings, backend)
+                      settings, backend, mesh=mesh)
     if settings.recenter_rounds > 0:
-        return _solve_shared_recentered(qp, x0, z0, y0, settings, backend)
+        return _solve_shared_recentered(qp, x0, z0, y0, settings, backend,
+                                        mesh)
     # recenter_rounds=0: the classic f32 -> f64 two-phase.
     f32 = torch.float32
     sol32 = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32),
-                   _s32_of_shared(settings), backend)
+                   _s32_of_shared(settings), backend, mesh=mesh)
     sol64 = _phase(qp.astype(f64), clean64(sol32.x), clean64(sol32.z),
                    clean64(sol32.y),
                    settings.replace(precision="single", warm_start=True),
-                   backend)
+                   backend, mesh=mesh)
     p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)
     d = qp.dtype
     return Solution(
@@ -510,12 +564,19 @@ def _solve_shared_core(qp, x0, z0, y0, settings: Settings,
 
 
 def solve_batch_shared(qp: QPData, settings: Settings = Settings(),
-                       x0=None, z0=None, y0=None) -> Solution:
+                       x0=None, z0=None, y0=None,
+                       mesh: Mesh | None = None) -> Solution:
     """Solve B problems sharing (P, A) and differing in (l, u) and/or q.
 
     `qp` holds unbatched P (n, n) and A (m, n) with (B, m) l, u (q may
     be (n,) or (B, n)). One factorisation serves the whole batch; the
     solve runs on qp's device.
+
+    mesh: a data mesh (`make_data_mesh`) when `qp` and the warm start
+    hold this rank's lanes (`shard_batch`); the solution is then this
+    rank's lanes, and every rank of the mesh must call with the same
+    settings. Tensors carry no placement, so the mesh is passed here
+    where the reference reads it from the batch's sharding.
     """
     if qp.l.dim() < 2:
         raise ValueError("solve_batch_shared expects batched l/u (B, m)")
@@ -528,4 +589,43 @@ def solve_batch_shared(qp: QPData, settings: Settings = Settings(),
     if y0 is None:
         y0 = torch.zeros_like(z0)
     backend = resolve_backend(settings, dev, qp.n)
-    return _solve_shared_core(qp, x0, z0, y0, settings, backend)
+    return _solve_shared_core(qp, x0, z0, y0, settings, backend, mesh)
+
+
+def make_data_mesh(n_devices: int | None = None, device=None,
+                   axis: str = DATA_AXIS) -> Mesh:
+    """1-D mesh over the data-parallel axis: every rank of the process
+    group (one rank when none is initialised) along 'data'.
+    `n_devices`, where given, must equal the world size; the device
+    defaults to this rank's card."""
+    if axis != DATA_AXIS:
+        raise ValueError(f"the data mesh's axis is {DATA_AXIS!r}, not "
+                         f"{axis!r}")
+    return runtime.make_mesh(data=n_devices, horizon=1, device=device)
+
+
+def shard_batch(qp: QPData, mesh: Mesh, x0=None, z0=None, y0=None):
+    """This rank's share of a shared-matrix batch, on the mesh's device.
+
+    Batched leaves (l, u, a per-lane q, the warm start) are sliced to
+    the rank's contiguous block of lanes along 'data'; unbatched P, A,
+    lam and a shared q stay whole. Returns (qp, x0, z0, y0) for
+    `solve_batch_shared(..., mesh=mesh)`; absent warm starts stay None.
+    """
+    nd, d = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    B = qp.l.shape[0]
+    if B % nd:
+        raise ValueError(f"batch {B} not divisible by the data axis "
+                         f"({nd} ranks)")
+    lanes = slice(d * (B // nd), (d + 1) * (B // nd))
+
+    def put(t, batched):
+        t = torch.as_tensor(t)
+        return (t[lanes] if batched else t).to(mesh.device)
+
+    qp2 = QPData(P=put(qp.P, qp.P.dim() > 2), q=put(qp.q, qp.q.dim() > 1),
+                 A=put(qp.A, qp.A.dim() > 2), l=put(qp.l, True),
+                 u=put(qp.u, True), lam=put(qp.lam, qp.lam.dim() > 1),
+                 cone=qp.cone)
+    return (qp2,) + tuple(None if t is None else put(t, True)
+                          for t in (x0, z0, y0))

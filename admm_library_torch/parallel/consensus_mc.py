@@ -26,6 +26,7 @@ from ..problem import QPData, mv, vm
 from ..settings import Settings
 from ..solution import Status
 from . import runtime
+from .batch import _geomean_masked
 from .consensus import (ConsensusSolution, ConsensusSpec, Local,
                         PhaseResult, _backend, _balance, _l1_scale,
                         _linf_scen, _pmax, _ratio, _record, _Rho,
@@ -35,16 +36,6 @@ from .consensus import (ConsensusSolution, ConsensusSpec, Local,
 from .runtime import DATA_AXIS, HORIZON_AXIS, Mesh
 
 _UNSOLVED = int(Status.UNSOLVED)
-
-
-def _geomean_masked_sharded(v, mask, mesh: Mesh):
-    """Geometric mean of v over the scenarios where mask, on every rank
-    of the data axis (a float sum across ranks: its rounding may differ
-    from a single rank's)."""
-    logv = torch.where(mask, torch.log(torch.clamp(v, min=1e-30)), 0.0)
-    tot = runtime.psum(logv.sum(), mesh, DATA_AXIS)
-    cnt = runtime.psum(mask.sum(), mesh, DATA_AXIS)
-    return torch.exp(tot / torch.clamp(cnt, min=1))
 
 
 def run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
@@ -98,7 +89,7 @@ def run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
                 nq)
 
     def geomean(v):
-        return _geomean_masked_sharded(v, still, mesh)
+        return _geomean_masked(v, still, mesh)
 
     def pick(mask, a, b):
         return torch.where(mask[:, None, None], a, b)

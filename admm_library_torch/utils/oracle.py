@@ -4,7 +4,9 @@
 primal-dual pair (pick x*, an active set and dual signs, then derive q
 so that the KKT conditions hold exactly). `kkt_residuals` computes the
 raw unscaled KKT residuals of any point, independently of the solver's
-own scaled residuals.
+own scaled residuals. `solve_box_qp_activeset` solves a small box QP by
+a dense active-set method, a ground truth that shares no code with the
+solver.
 """
 from __future__ import annotations
 
@@ -68,3 +70,53 @@ def kkt_residuals(qp: QPData, x, z, y):
     dl = torch.where(torch.isfinite(qp.l), z - qp.l, 0.0)
     comp = ((yp * du).abs() + (ym * dl).abs()).amax(-1)
     return r_p, r_d, comp
+
+
+def solve_box_qp_activeset(qp: QPData, max_iter: int = 200):
+    """Small dense primal active-set solver (host numpy, f64): an
+    independent ground truth for small box QPs.
+
+    Starts from the unconstrained minimiser and solves the equality-
+    constrained KKT system on the current active set until the point is
+    primal and dual feasible. Returns (x, y) as f64 tensors on qp's
+    device. For tests only (small n, m).
+    """
+    def host(t):
+        return t.detach().cpu().double().numpy()
+
+    P, q, A, l, u = (host(t) for t in (qp.P, qp.q, qp.A, qp.l, qp.u))
+    m, n = A.shape
+    x = np.linalg.solve(P, -q)
+    y = np.zeros(m)
+    active_u = np.zeros(m, bool)
+    active_l = np.zeros(m, bool)
+    for _ in range(max_iter):
+        z = A @ x
+        active_u |= z > u + 1e-10
+        active_l |= z < l - 1e-10
+        active_l &= ~active_u
+        act = active_u | active_l
+        k = int(act.sum())
+        if k == 0:
+            x = np.linalg.solve(P, -q)
+            y = np.zeros(m)
+        else:
+            Aa = A[act]
+            b = np.where(active_u, u, l)[act]
+            K = np.block([[P, Aa.T], [Aa, np.zeros((k, k))]])
+            sol = np.linalg.lstsq(K, np.concatenate([-q, b]), rcond=None)[0]
+            x = sol[:n]
+            y = np.zeros(m)
+            y[act] = sol[n:]
+            # Drop constraints with wrong-sign multipliers.
+            drop_u = active_u & (y < -1e-10)
+            drop_l = active_l & (y > 1e-10)
+            if drop_u.any() or drop_l.any():
+                active_u &= ~drop_u
+                active_l &= ~drop_l
+                continue
+        z = A @ x
+        if (z <= u + 1e-8).all() and (z >= l - 1e-8).all():
+            break
+    return (torch.as_tensor(x, device=qp.device),
+            torch.as_tensor(y, device=qp.device))

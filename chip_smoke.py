@@ -96,9 +96,30 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                copies and the rerun as in phase 12. Both print, for
                scale, phase 4's b1024 and phase 10's wall-clock.
 
-Phases 9-13 run no hand-written kernel: their backends are plain
+14. data_axis — config 5 at 1024 through the data axis at one rank:
+               shard_batch on make_data_mesh(1), solve_batch_shared(...,
+               mesh=): bitwise phase 4's solve, the kernel launched;
+15. rowshard — the reference's rowshard_qp4096 cell (n=4096, m=8192, f32
+               data, eps 1e-6) on the port's own seeded draw, through
+               solve_rowsharded_hybrid on a 1-rank data mesh: SOLVED,
+               f64 KKT within the mixed criterion (r/eps reported), z
+               within 1e-5 of A x, a rerun bitwise identical; CG steps
+               per iteration, iterations beside the TPU's on JAX's draw,
+               and one profiled run;
+16. horizon_sharded — config 5 at 1024 (the JAX dispersions) in 10 time
+               parts through solve_horizon_sharded on a 1x1 mesh: in f64
+               under the reference test's plain settings every lane
+               SOLVED at solve_batch_shared's iterations (backend
+               'chol'), x within 1e-8 relative; in f32 under the
+               reference gate's settings every lane SOLVED at 125 ± 25
+               lockstep iterations (JAX on the CPU); reruns bitwise, one
+               profiled run each;
+17. checkpoint — phase 4's b128 solution saved (utils/checkpoint), loaded
+               back onto the card and resumed: SOLVED within one check.
+
+Phases 9-17 run no kernel of their own: their backends are plain
 PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
-to.
+to (phase 14 runs the fused kernel on its lanes).
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Its last line is {"ok": true, "device": {...}}.
@@ -206,6 +227,30 @@ MONO_EPS = 1e-9
 # The duplicated boundary copies of x in a solution: each copy's edge
 # rows meet the primal residual criterion (1e-6).
 COPY_X_AGREE = 1e-5
+# rowshard_qp4096 (the reference bench's bench_rowshard: n=4096, m=8192,
+# f32, eps 1e-6, through solve_rowsharded_hybrid on a 1-rank data mesh).
+# The port draws its own problem from the same distribution (JAX's draw
+# would be ~200 MB to store). The TPU's count on JAX's draw is shown
+# beside the port's, not held: another draw.
+ROWSHARD_N, ROWSHARD_M = 4096, 8192
+ROWSHARD_TPU_ITERS = 225
+ROWSHARD_Z_AGREE = 1e-5
+# The horizon-sharded SPIKE driver on config 5 at 1024 (the JAX draw of
+# the dispersions), 10 parts. In f64 under the reference test's plain
+# settings (no Ruiz scaling, restart or stall exit) it is held lane by
+# lane to the port's solve_batch_shared with the same settings on
+# 'chol'. In f32 under the settings the reference's dry-run gate gives
+# it (eps 1e-5, at most 2000 iterations, no restart or stall exit), JAX
+# on the CPU solves every lane at 125 lockstep iterations.
+HORIZON_PARTS = 10
+HORIZON_PLAIN = dict(eps_abs=EPS, eps_rel=EPS, precision="double",
+                     scaling_iters=0, restart_every=0, stall_checks=0,
+                     polish=False, eps_pinf=0.0, eps_dinf=0.0)
+HORIZON_GATE = dict(max_iter=2000, precision="single", eps_abs=1e-5,
+                    eps_rel=1e-5, restart_every=0, stall_checks=0,
+                    polish=False)
+HORIZON_F32_REFERENCE_ITERS = 125
+HORIZON_X_RTOL = 1e-8
 # Terminal-state error of the simulated controls: dynamics rows hold to
 # r_prim <= 1e-6 each, and over N=50 unit steps a velocity error
 # integrates into position, so errors of up to ~N^2/2 * 1e-6 are
@@ -1617,6 +1662,197 @@ def phase_consensus_mc(dev, scale):
     return rec
 
 
+def phase_data_axis(dev, sol1024):
+    """Config 5 at 1024 through the data axis at one rank: shard_batch
+    on make_data_mesh(1) and solve_batch_shared(..., mesh=), bitwise the
+    phase-4 solve without a mesh, through kernel 1."""
+    import torch
+    from admm_library_torch import (Settings, make_data_mesh, shard_batch,
+                                    solve_batch_shared)
+    from admm_library_torch.models import monte_carlo as mc
+
+    qp32, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(1024),
+                                            device=dev)
+    mesh = make_data_mesh(1)
+    check(mesh.device == dev and mesh.groups == {"data": None,
+                                                 "horizon": None},
+          "data_axis: the 1-rank mesh is not on the card or has a group")
+    qs, *_ = shard_batch(qp32.astype(torch.float64), mesh)
+    s = Settings(eps_abs=EPS, eps_rel=EPS)
+    sol, wall, launches = _timed_run(
+        lambda: solve_batch_shared(qs, s, mesh=mesh))
+    rec = dict(batch=1024, mesh=dict(mesh.shape), wall_s=wall,
+               lockstep_iters=int(sol.iters.max()),
+               kernel_launches=launches["fused_iterate_shared"],
+               bitwise_equal_to_slice=_bitwise(sol, sol1024))
+    emit("data_axis", **rec)
+    check(rec["kernel_launches"] > 0, "data_axis: kernel 1 never launched")
+    check(rec["bitwise_equal_to_slice"],
+          "data_axis: not bitwise the solve without a mesh")
+    return rec
+
+
+def phase_rowshard(dev, scale):
+    """rowshard_qp4096: one n=4096, m=8192 box QP through
+    solve_rowsharded_hybrid on a 1-rank data mesh on the card."""
+    import torch
+    from admm_library_torch import Settings, Status
+    from admm_library_torch.models.random_qp import random_box_qp
+    from admm_library_torch.parallel import make_data_mesh
+    from admm_library_torch.parallel.rowshard import solve_rowsharded_hybrid
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qp32 = random_box_qp(gen, n=ROWSHARD_N, m=ROWSHARD_M, device=dev)
+    qp = qp32.astype(torch.float64)      # f32 data, f64 outputs
+    mesh = make_data_mesh(1)
+    s = Settings(eps_abs=EPS, eps_rel=EPS, backend="cg")
+    sol, wall, launches = _timed_run(solve_rowsharded_hybrid, qp, mesh, s)
+    sol2, wall2, _ = _timed_run(solve_rowsharded_hybrid, qp, mesh, s)
+    prof = _profiled(solve_rowsharded_hybrid, qp, mesh, s)
+    r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
+    iters = int(sol.iters)
+    rec = dict(cell="rowshard_qp4096", n=qp.n, m=qp.m,
+               status=Status(int(sol.status)).name, iters=iters,
+               tpu_iters_on_the_jax_draw=ROWSHARD_TPU_ITERS,
+               kkt_r_prim=r_p, kkt_r_dual=r_d, eps_prim=eps_p,
+               eps_dual=eps_d, r_prim_over_eps=r_p / eps_p,
+               r_dual_over_eps=r_d / eps_d,
+               cg_steps=int(sol.cg_steps),
+               cg_steps_per_iteration=int(sol.cg_steps) / iters,
+               z_minus_Ax_max=float((qp.A @ sol.x - sol.z).abs().max()),
+               wall_s=wall, wall_rerun_s=wall2,
+               **_profile_fields(prof, iters, wall2),
+               hand_written_launches=launches,
+               rerun_bitwise_identical=all(
+                   torch.equal(getattr(sol, f), getattr(sol2, f))
+                   for f in sol._fields), **scale)
+    emit("rowshard", **rec)
+    check(int(sol.status) == int(Status.SOLVED), "rowshard: not SOLVED")
+    check(r_p <= eps_p and r_d <= eps_d,
+          "rowshard: f64 KKT residuals above the mixed criterion")
+    check(rec["z_minus_Ax_max"] <= ROWSHARD_Z_AGREE,
+          "rowshard: z disagrees with A x")
+    check(rec["rerun_bitwise_identical"], "rowshard: rerun not bitwise "
+          "identical")
+    return rec
+
+
+def phase_horizon_sharded(dev, scale):
+    """Config 5 at 1024 (the JAX draw) in 10 time parts through
+    solve_horizon_sharded on a 1x1 mesh on the card: f64 under the plain
+    settings against solve_batch_shared lane by lane, f32 under the
+    reference gate's settings against JAX's count."""
+    import torch
+    from admm_library_torch import Settings, Status, solve_batch_shared
+    from admm_library_torch.models import monte_carlo as mc
+    from admm_library_torch.parallel import runtime
+    from admm_library_torch.parallel.horizon import (
+        mpc_row_time, partition_qp, solve_horizon_sharded)
+
+    batch = 1024
+    qp32, spec, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(batch),
+                                               device=dev)
+    hp, hspec = partition_qp(qp32, spec.block, HORIZON_PARTS,
+                             mpc_row_time(spec.N, spec.ns, spec.nu))
+    mesh = runtime.make_mesh()
+    recs = {}
+    for name, kw in (("double", HORIZON_PLAIN), ("single", HORIZON_GATE)):
+        s = Settings(**kw)
+        sol, wall, launches = _timed_run(solve_horizon_sharded, hp, hspec,
+                                         mesh, s)
+        sol2, wall2, _ = _timed_run(solve_horizon_sharded, hp, hspec, mesh,
+                                    s)
+        lockstep = int(sol.iters.max())
+        prof = _profiled(solve_horizon_sharded, hp, hspec, mesh, s)
+        rec = dict(precision=name, batch=batch, parts=hspec.parts,
+                   npb=hspec.npb, mp=hspec.mp,
+                   solved=int((sol.status == int(Status.SOLVED)).sum()),
+                   lockstep_iters=lockstep,
+                   iters_lane_min=int(sol.iters.min()),
+                   r_prim_max=float(sol.r_prim.max()),
+                   r_dual_max=float(sol.r_dual.max()), wall_s=wall,
+                   wall_rerun_s=wall2,
+                   **_profile_fields(prof, lockstep, wall2),
+                   hand_written_launches=launches,
+                   rerun_bitwise_identical=all(
+                       torch.equal(getattr(sol, f), getattr(sol2, f))
+                       for f in sol._fields), **scale)
+        if name == "double":
+            ref, ref_wall, _ = _timed_run(
+                solve_batch_shared, qp32.astype(torch.float64),
+                s.replace(backend="chol"))
+            x_ref = ref.x
+            rec.update(
+                batch_shared_chol_wall_s=ref_wall,
+                iters_equal_batch_shared=bool(torch.equal(sol.iters,
+                                                          ref.iters)),
+                status_equal_batch_shared=bool(torch.equal(sol.status,
+                                                           ref.status)),
+                x_gap_rel=float((sol.x.reshape(batch, -1) - x_ref).abs()
+                                .max()) / (1.0 + float(x_ref.abs().max())))
+        else:
+            rec["jax_cpu_lockstep_iters"] = HORIZON_F32_REFERENCE_ITERS
+        emit("horizon_sharded", **rec)
+        tag = f"horizon_sharded {name}"
+        check(rec["solved"] == batch,
+              f"{tag}: {batch - rec['solved']} lanes not SOLVED")
+        check(rec["rerun_bitwise_identical"],
+              f"{tag}: rerun not bitwise identical")
+        if name == "double":
+            check(rec["status_equal_batch_shared"]
+                  and rec["iters_equal_batch_shared"],
+                  f"{tag}: iterations differ from solve_batch_shared's")
+            check(rec["x_gap_rel"] <= HORIZON_X_RTOL,
+                  f"{tag}: x differs from solve_batch_shared's")
+        else:
+            check(abs(lockstep - HORIZON_F32_REFERENCE_ITERS) <= ITER_SLACK,
+                  f"{tag}: {lockstep} lockstep iterations, JAX "
+                  f"{HORIZON_F32_REFERENCE_ITERS}")
+        recs[name] = rec
+    return recs
+
+
+def phase_checkpoint(dev, sol128):
+    """Save phase 4's b128 solution, load it back onto the card and
+    resume from it: SOLVED within one check."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from admm_library_torch import Settings, Status, solve_batch_shared
+    from admm_library_torch.models import monte_carlo as mc
+    from admm_library_torch.utils import checkpoint
+
+    qp32, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128),
+                                            device=dev)
+    s = Settings(eps_abs=EPS, eps_rel=EPS, precision="double")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "b128.npz")
+        checkpoint.save_state(path, sol128)
+        st = checkpoint.load_state(path)
+        x0, z0, y0 = checkpoint.resume_warm_start(path)
+    loaded = all(torch.equal(st[f], getattr(sol128, f))
+                 for f in ("x", "z", "y", "rho", "iters"))
+    warm, wall, _ = _timed_run(solve_batch_shared,
+                               qp32.astype(torch.float64), s, x0, z0, y0)
+    rec = dict(batch=128, loaded_on=str(st["x"].device),
+               loaded_bitwise=loaded,
+               warm_status=sorted({Status(int(v)).name
+                                   for v in warm.status.unique()}),
+               warm_lockstep_iters=int(warm.iters.max()),
+               check_every=s.check_every, wall_s=wall,
+               x_max_abs_diff=float((warm.x - sol128.x).abs().max()))
+    emit("checkpoint", **rec)
+    check(st["x"].device == dev and x0.device == dev,
+          "checkpoint: not loaded onto the card")
+    check(loaded, "checkpoint: loaded state differs from the saved one")
+    check(bool((warm.status == int(Status.SOLVED)).all()),
+          "checkpoint: the resumed batch is not SOLVED")
+    check(rec["warm_lockstep_iters"] <= s.check_every,
+          "checkpoint: the resumed batch took more than one check")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1628,7 +1864,7 @@ def main():
     smi = phase_device()
     phase_build()
     kern = phase_kernel(dev)
-    slice128, _ = phase_slice(128, dev)
+    slice128, sol128 = phase_slice(128, dev)
     slice1024, sol1024 = phase_slice(1024, dev)
     cg = phase_cg_kernel(dev)
     phase_solve(dev)
@@ -1636,6 +1872,7 @@ def main():
     l1_soc = phase_solve_l1_soc(dev)
     phase_banded(dev)
     spike = phase_horizon_spike(dev, sol1024.x)
+    data_axis = phase_data_axis(dev, sol1024)
     del sol1024
     phase_solve_batch(dev)
     # For scale, times from this call: the config-5 batch at 1024 on
@@ -1644,6 +1881,9 @@ def main():
              "horizon_spike_wall_s": spike["wall_s"]}
     phase_consensus(dev, scale)
     phase_consensus_mc(dev, scale)
+    phase_rowshard(dev, scale)
+    phase_horizon_sharded(dev, scale)
+    phase_checkpoint(dev, sol128)
     # Each kernel with its launches on this slice's paths and its check
     # and times at the shape of the path that launches it most.
     lt_case = kern["low_thrust_soc_b1"]
@@ -1651,6 +1891,7 @@ def main():
     fused_launches = {
         "config5_b128": slice128["kernel_launches"],
         "config5_b1024": slice1024["kernel_launches"],
+        "config5_b1024_data_axis": data_axis["kernel_launches"],
         "config4": l1_soc["config4"]["launches"]["fused_iterate_shared"]}
     print(json.dumps({"kernels": [{
         "name": "fused_iterate_shared", "route": "cuda",

@@ -772,3 +772,87 @@ def test_runtime_collectives_on_a_world1_nccl_group(dev, tmp_path):
     finally:
         runtime.shutdown()
     assert not dist.is_initialized()
+
+
+def test_rowsharded_on_cuda_matches_cpu(dev):
+    """solve_rowsharded (f64, a box and an L1 case) and the hybrid path
+    (f32 data) on a 1-rank data mesh on the card against the CPU: the
+    same status and iterations, x within 1e-8 (f64) and 1e-5 (hybrid)."""
+    from admm_library_torch.models.random_qp import random_box_qp
+    from admm_library_torch.parallel import make_data_mesh
+    from admm_library_torch.parallel.rowshard import (
+        solve_rowsharded, solve_rowsharded_hybrid)
+    qp = random_box_qp(torch.Generator().manual_seed(21), n=32, m=64,
+                       dtype=torch.float64, device="cpu")
+    mesh = make_data_mesh()
+    assert mesh.device == dev
+    cpu_mesh = make_data_mesh(device="cpu")
+    s = Settings(eps_abs=1e-8, eps_rel=1e-8, precision="single")
+    cpu = solve_rowsharded(qp, cpu_mesh, s)
+    gpu = solve_rowsharded(qp, mesh, s)
+    assert gpu.x.device.type == "cuda"
+    assert int(cpu.status) == int(Status.SOLVED)
+    assert int(gpu.status) == int(cpu.status)
+    assert int(gpu.iters) == int(cpu.iters)
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-8)
+    s = Settings(eps_abs=1e-6, eps_rel=1e-6)
+    qp32 = qp.astype(torch.float32).astype(torch.float64)
+    cpu = solve_rowsharded_hybrid(qp32, cpu_mesh, s)
+    gpu = solve_rowsharded_hybrid(qp32, mesh, s)
+    assert int(cpu.status) == int(gpu.status) == int(Status.SOLVED)
+    assert abs(int(gpu.iters) - int(cpu.iters)) <= 25
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-5)
+
+
+def test_horizon_sharded_on_cuda_matches_cpu(dev):
+    """solve_horizon_sharded (4 scenarios, 4 parts, f64 plain settings)
+    on a 1x1 mesh on the card against the CPU: the same statuses and
+    iterations, x within 1e-10."""
+    from admm_library_torch.parallel import runtime
+    from admm_library_torch.parallel.horizon import (
+        mpc_row_time, partition_qp, solve_horizon_sharded)
+    qp, spec, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(0),
+                                     batch=4, N=8, dim=2,
+                                     dtype=torch.float64, device="cpu")
+    hp, hspec = partition_qp(qp, spec.block, 4,
+                             mpc_row_time(8, spec.ns, spec.nu))
+    s = Settings(eps_abs=1e-6, eps_rel=1e-6, precision="double",
+                 scaling_iters=0, restart_every=0, stall_checks=0,
+                 polish=False, eps_pinf=0.0, eps_dinf=0.0)
+    cpu = solve_horizon_sharded(hp, hspec, runtime.make_mesh(device="cpu"),
+                                s)
+    gpu = solve_horizon_sharded(hp, hspec, runtime.make_mesh(), s)
+    assert gpu.x.device.type == "cuda"
+    assert bool((cpu.status == int(Status.SOLVED)).all())
+    assert torch.equal(gpu.status.cpu(), cpu.status)
+    assert torch.equal(gpu.iters.cpu(), cpu.iters)
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=0.0, atol=1e-10)
+
+
+def test_data_axis_on_cuda_is_the_solve_without_a_mesh(dev):
+    """At one rank the data axis changes nothing: solve_batch_shared on
+    shard_batch(make_data_mesh()) is bitwise the solve without a mesh,
+    through the fused kernel (f32 'single')."""
+    from admm_library_torch import make_data_mesh, shard_batch
+    qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(3),
+                                  batch=16, N=8, dim=2, device=dev)
+    s = Settings(eps_abs=1e-5, eps_rel=1e-5, precision="single")
+    mesh = make_data_mesh()
+    qs, *_ = shard_batch(qp, mesh)
+    fused.fused_iterate_shared.launches = 0
+    sol = solve_batch_shared(qs, s, mesh=mesh)
+    assert fused.fused_iterate_shared.launches > 0
+    alone = solve_batch_shared(qp, s)
+    for f in ("x", "z", "y", "status", "iters"):
+        assert torch.equal(getattr(sol, f), getattr(alone, f)), f
+
+
+def test_checkpoint_loads_onto_the_card(dev, tmp_path):
+    from admm_library_torch.utils import checkpoint
+    x = torch.arange(6, dtype=torch.float64, device=dev)
+    path = str(tmp_path / "state.npz")
+    checkpoint.save_state(path, {"x": x, "z": x[:2], "y": x[:2]})
+    st = checkpoint.load_state(path)
+    assert st["x"].device == dev and torch.equal(st["x"], x)
+    x0, _, _ = checkpoint.resume_warm_start(path, device="cpu")
+    assert x0.device.type == "cpu"
