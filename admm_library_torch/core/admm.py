@@ -21,6 +21,7 @@ quantities through the Scaling vectors.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -30,6 +31,7 @@ from ..ops.prox import project_cone
 from ..problem import QPData, is_equality_row, mv, vm
 from ..settings import Settings
 from ..solution import Status
+from . import graph
 from .scaling import Scaling
 
 _UNSOLVED = int(Status.UNSOLVED)
@@ -295,11 +297,145 @@ class AdmmCarry(NamedTuple):
     hist: torch.Tensor          # (slots, 3) residual ring buffer
 
 
+def check_variant(check: int, settings: Settings, restart_checks: int):
+    """(restart, rho_test) of check number `check`: whether it ends a
+    restart window and whether it runs the adaptive-rho test. The host
+    loop picks it; it selects the captured graph (core/graph.py)."""
+    interval_checks = max(1, settings.adaptive_rho_interval
+                          // settings.check_every)
+    restart = bool(restart_checks) and (check % restart_checks
+                                        == restart_checks - 1)
+    rho_test = settings.adaptive_rho and (check % interval_checks
+                                          == interval_checks - 1)
+    return restart, bool(rho_test)
+
+
+def problem_state(qp: QPData, scaling: Scaling, fac, eq_mask, z_off):
+    """The read-only part of a check's state: the scaled problem, its
+    scaling, the KKT factor (rewritten by a refactor), the equality-row
+    mask and, where given, the shifted-prox offset."""
+    state = dict(qp=dict(P=qp.P, q=qp.q, A=qp.A, l=qp.l, u=qp.u,
+                         lam=qp.lam),
+                 scaling=dict(d=scaling.d, e=scaling.e, c=scaling.c),
+                 fac=fac, eq_mask=eq_mask)
+    if z_off is not None:
+        state["z_off"] = z_off
+    return state
+
+
+def problem_of(state, cone):
+    """(QPData, Scaling) of a check's state."""
+    return (QPData(**state["qp"], cone=cone),
+            Scaling(**state["scaling"]))
+
+
+def hist_write(hist, check, row, lanes=None):
+    """hist (…, slots, 3) with `row` (…, 3) in slot check % slots, only
+    on `lanes` where given: a select against a one-hot mask, since the
+    check count is a device counter."""
+    slots = hist.shape[-2]
+    hit = torch.arange(slots, device=hist.device) == check % slots
+    if lanes is None:
+        return torch.where(hit[:, None], row, hist)
+    return torch.where(hit[None, :, None] & lanes[:, None, None],
+                       row[:, None, :], hist)
+
+
+def carry_state(x0, z0, y0, rho_bar, status, big, since_best, hist):
+    """The starting carry every loop shares: iterates, rho and its
+    proposal, the iteration counter, status and residuals (`big`), the
+    last check's iterates, the restart sums, the stall counter, the
+    history and the flags."""
+    dev = x0.device
+    return dict(x=x0, z=z0, y=y0, rho_bar=rho_bar, new_rho=rho_bar,
+                it=torch.zeros((), dtype=torch.int64, device=dev),
+                status=status, r_prim=big, r_dual=big, x_chk=x0, y_chk=y0,
+                x_sum=torch.zeros_like(x0), z_sum=torch.zeros_like(z0),
+                y_sum=torch.zeros_like(y0), best_ratio=big,
+                since_best=since_best, hist=hist,
+                flags=torch.ones(2, dtype=torch.bool, device=dev))
+
+
+def admm_check(state, variant, *, cone, settings: Settings, backend: str,
+               restart_checks: int):
+    """One residual check of `run_admm`: check_every iterations, the
+    restarted averaging, the termination and infeasibility tests, the
+    NaN tripwire, the stall exit and, in the rho-test variant, the
+    adaptive-rho proposal. Returns the state entries it changes; 'flags'
+    holds (status is UNSOLVED, refactor)."""
+    restart, rho_test = variant
+    qp, scaling = problem_of(state, cone)
+    k = settings.check_every
+    rho_bar = state["rho_bar"]
+    rho_vec = rho_vec_of(rho_bar, state["eq_mask"], settings, cone)
+    x, z, y = iterate_block(qp, state["fac"], state["x"], state["z"],
+                            state["y"], rho_vec, settings, backend, k,
+                            z_off=state.get("z_off"))
+    res = residuals(qp, scaling, x, z, y)
+
+    # Restarted averaging: at each restart boundary adopt the running
+    # average of the check-cadence iterates iff its scaled residuals
+    # beat the current iterate's. The window always holds
+    # restart_checks checks: the loop starts at check 0.
+    x_sum, z_sum, y_sum = (state["x_sum"] + x, state["z_sum"] + z,
+                           state["y_sum"] + y)
+    if restart:
+        denom = float(restart_checks)
+        xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
+        res_a = residuals(qp, scaling, xa, za, ya)
+        take = (scaled_resid_ratio(res_a, settings)
+                < scaled_resid_ratio(res, settings))
+        x, z, y = (torch.where(take, a, b)
+                   for a, b in ((xa, x), (za, z), (ya, y)))
+        res = tuple(torch.where(take, ra, rc) for ra, rc in zip(res_a, res))
+        x_sum, z_sum, y_sum = (torch.zeros_like(t)
+                               for t in (x_sum, z_sum, y_sum))
+
+    r_prim, r_dual = res[0], res[1]
+    eps_p, eps_d = eps_thresholds(res, settings)
+    solved = (r_prim <= eps_p) & (r_dual <= eps_d)
+    pinf, dinf = infeasibility(qp, scaling, x - state["x_chk"],
+                               y - state["y_chk"], settings)
+    # NaN tripwire: a failed factorisation or a divergent iterate
+    # poisons the residuals; stop instead of spinning to max_iter.
+    numerr = ~(torch.isfinite(r_prim) & torch.isfinite(r_dual))
+    status = status_of(numerr, solved, pinf, dinf, state["status"])
+
+    # Stall exit: no new best scaled ratio for a whole window.
+    ratio_now = scaled_resid_ratio(res, settings)
+    improved = ratio_now < state["best_ratio"]
+    best_ratio = torch.minimum(ratio_now, state["best_ratio"])
+    since_best = torch.where(improved, 0, state["since_best"] + 1)
+    if settings.stall_checks > 0:
+        stalled = since_best >= settings.stall_checks
+        status = torch.where((status == _UNSOLVED) & stalled,
+                             int(Status.STALLED), status)
+
+    do_t = torch.zeros((), dtype=torch.bool, device=x.device)
+    new_rho = state["new_rho"]
+    if rho_test:
+        new_rho, changed = adapt_rho(rho_bar, res, settings)
+        do_t = changed & (status == _UNSOLVED)
+
+    it = state["it"] + k
+    out = dict(x=x, z=z, y=y, x_sum=x_sum, z_sum=z_sum, y_sum=y_sum,
+               status=status, r_prim=r_prim, r_dual=r_dual,
+               best_ratio=best_ratio, since_best=since_best,
+               new_rho=new_rho, it=it, x_chk=x, y_chk=y,
+               flags=torch.stack([status == _UNSOLVED, do_t]))
+    hist = state["hist"]
+    if hist.shape[-2] > 0:
+        row = torch.stack([it.to(hist.dtype), r_prim, r_dual])
+        out["hist"] = hist_write(hist, state["it"] // k, row)
+    return out
+
+
 def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
              x0, z0, y0, backend: str, z_off=None, rho0=None) -> AdmmCarry:
-    """Solve one scaled problem: a host loop over residual checks, each
-    of which reads one small tensor from the device (liveness and the
-    refactor flag).
+    """Solve one scaled problem: a host loop over residual checks
+    (`admm_check`), each of which reads one small tensor from the device
+    (liveness and the refactor flag). On the card each check is a CUDA
+    graph replay where `graph.capturable` allows (core/graph.py).
 
     Every check runs check_every iterations, then the restarted
     averaging, the termination and infeasibility tests, the NaN
@@ -310,108 +446,52 @@ def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
     rho0: optional initial rho-bar (warm rho).
     """
     dtype, dev = qp.dtype, qp.device
+    cone = qp.cone
     eq_mask = is_equality_row(qp)
     rho_bar = torch.as_tensor(settings.rho if rho0 is None else rho0,
                               dtype=dtype, device=dev)
 
     def factor(rho_bar):
-        rv = rho_vec_of(rho_bar, eq_mask, settings, qp.cone)
+        rv = rho_vec_of(rho_bar, eq_mask, settings, cone)
         return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend,
                                     settings.band_block,
                                     settings.spike_parts)
 
-    fac = factor(rho_bar)
     slots = max(settings.history, 0)
-    hist = torch.full((slots, 3), -1.0, dtype=dtype, device=dev)
-    hist_ptr = 0
     big = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    x, z, y = x0, z0, y0
-    it = 0
-    status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
-    r_prim, r_dual = big, big
-    x_chk, y_chk = x0, y0
-    x_sum, z_sum, y_sum = (torch.zeros_like(t) for t in (x0, z0, y0))
-    avg_cnt = 0
-    best_ratio = big
-    since_best = torch.zeros((), dtype=torch.int32, device=dev)
+    state = problem_state(qp, scaling, factor(rho_bar), eq_mask, z_off)
+    state.update(carry_state(
+        x0, z0, y0, rho_bar,
+        torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev), big,
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.full((slots, 3), -1.0, dtype=dtype, device=dev)))
+    restart_checks = restart_cadence_checks(settings)
+    step = functools.partial(admm_check, cone=cone, settings=settings,
+                             backend=backend, restart_checks=restart_checks)
+    loop = graph.CheckLoop("run_admm", step, state, settings, backend,
+                           cone=cone, restart_checks=restart_checks)
 
     k = settings.check_every
-    interval_checks = max(1, settings.adaptive_rho_interval // k)
-    restart_checks = restart_cadence_checks(settings)
+    it = 0
     alive = True
-
     while alive and it < settings.max_iter:
-        check = it // k
-        rho_vec = rho_vec_of(rho_bar, eq_mask, settings, qp.cone)
-        x, z, y = iterate_block(qp, fac, x, z, y, rho_vec, settings,
-                                backend, k, z_off=z_off)
+        loop(check_variant(it // k, settings, restart_checks))
         it += k
-        res = residuals(qp, scaling, x, z, y)
-
-        # Restarted averaging: at each restart boundary adopt the running
-        # average of the check-cadence iterates iff its scaled residuals
-        # beat the current iterate's.
-        x_sum, z_sum, y_sum = x_sum + x, z_sum + z, y_sum + y
-        avg_cnt += 1
-        if restart_checks and check % restart_checks == restart_checks - 1:
-            denom = float(max(avg_cnt, 1))
-            xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
-            res_a = residuals(qp, scaling, xa, za, ya)
-            take = (scaled_resid_ratio(res_a, settings)
-                    < scaled_resid_ratio(res, settings))
-            x, z, y = (torch.where(take, a, b)
-                       for a, b in ((xa, x), (za, z), (ya, y)))
-            res = tuple(torch.where(take, ra, rc)
-                        for ra, rc in zip(res_a, res))
-            x_sum, z_sum, y_sum = (torch.zeros_like(t)
-                                   for t in (x_sum, z_sum, y_sum))
-            avg_cnt = 0
-
-        r_prim, r_dual = res[0], res[1]
-        eps_p, eps_d = eps_thresholds(res, settings)
-        solved = (r_prim <= eps_p) & (r_dual <= eps_d)
-        pinf, dinf = infeasibility(qp, scaling, x - x_chk, y - y_chk,
-                                   settings)
-        # NaN tripwire: a failed factorisation or a divergent iterate
-        # poisons the residuals; stop instead of spinning to max_iter.
-        numerr = ~(torch.isfinite(r_prim) & torch.isfinite(r_dual))
-        status = status_of(numerr, solved, pinf, dinf, status)
-
-        # Stall exit: no new best scaled ratio for a whole window.
-        ratio_now = scaled_resid_ratio(res, settings)
-        improved = ratio_now < best_ratio
-        best_ratio = torch.minimum(ratio_now, best_ratio)
-        since_best = torch.where(improved, 0, since_best + 1)
-        if settings.stall_checks > 0:
-            stalled = since_best >= settings.stall_checks
-            status = torch.where((status == _UNSOLVED) & stalled,
-                                 int(Status.STALLED), status)
-
-        do_t = torch.zeros((), dtype=torch.bool, device=dev)
-        if settings.adaptive_rho and check % interval_checks == (
-                interval_checks - 1):
-            new_rho, changed = adapt_rho(rho_bar, res, settings)
-            do_t = changed & (status == _UNSOLVED)
-
-        if slots > 0:
-            row = hist[hist_ptr % slots]
-            row[0] = float(it)
-            row[1] = r_prim
-            row[2] = r_dual
-            hist_ptr += 1
-        x_chk, y_chk = x, y
-
         # The one device-to-host read of this check.
-        alive, do = torch.stack([status == _UNSOLVED, do_t]).tolist()
+        alive, do = loop.state["flags"].tolist()
         if do:
-            rho_bar = new_rho
+            rho_bar = loop.state["new_rho"]
             if backend == "cg":
                 # Matrix-free: rho enters the operator, no refactorisation.
-                fac = dict(fac, rho=rho_vec_of(rho_bar, eq_mask, settings,
-                                               qp.cone))
+                fac = dict(loop.state["fac"],
+                           rho=rho_vec_of(rho_bar, eq_mask, settings, cone))
             else:
                 fac = factor(rho_bar)
+            loop.set(dict(rho_bar=rho_bar, fac=fac))
 
+    x, z, y, rho_bar, fac, status, r_prim, r_dual, hist = loop.result(
+        "x", "z", "y", "rho_bar", "fac", "status", "r_prim", "r_dual",
+        "hist")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER), status)
     return AdmmCarry(x=x, z=z, y=y, rho_bar=rho_bar, fac=fac, it=it,
                      status=status, r_prim=r_prim, r_dual=r_dual, hist=hist)
@@ -421,6 +501,87 @@ def _select(mask, new, old):
     """Per-lane select between two tensors that lead with the lane axis."""
     return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)),
                        new, old)
+
+
+def lanes_check(state, variant, *, cone, settings: Settings, backend: str,
+                restart_checks: int):
+    """One residual check of `run_admm_lanes`, each lane against its own
+    state; lanes that left UNSOLVED keep theirs. Returns the state
+    entries it changes; 'do_t' holds the lanes whose rho test fired,
+    'flags' (any lane UNSOLVED, any refactor)."""
+    restart, rho_test = variant
+    qp, scaling = problem_of(state, cone)
+    k = settings.check_every
+    x, z, y = state["x"], state["z"], state["y"]
+    status, rho_bar = state["status"], state["rho_bar"]
+    B = x.shape[0]
+    active = status == _UNSOLVED
+    rho_vec = rho_vec_of(rho_bar[:, None], state["eq_mask"], settings, cone)
+    xn, zn, yn = iterate_block(qp, state["fac"], x, z, y, rho_vec, settings,
+                               backend, k, z_off=state.get("z_off"))
+    res = residuals(qp, scaling, xn, zn, yn)
+
+    # Restarted averaging, each lane against its own average (live
+    # lanes all share the check count, hence the boundary).
+    x_sum, z_sum, y_sum = (state["x_sum"] + xn, state["z_sum"] + zn,
+                           state["y_sum"] + yn)
+    if restart:
+        denom = float(restart_checks)
+        xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
+        res_a = residuals(qp, scaling, xa, za, ya)
+        take = (scaled_resid_ratio(res_a, settings)
+                < scaled_resid_ratio(res, settings))
+        xn, zn, yn = (_select(take, a, b)
+                      for a, b in ((xa, xn), (za, zn), (ya, yn)))
+        res = tuple(torch.where(take, ra, rc) for ra, rc in zip(res_a, res))
+        x_sum, z_sum, y_sum = (torch.zeros_like(t)
+                               for t in (x_sum, z_sum, y_sum))
+
+    rp_now, rd_now = res[0], res[1]
+    eps_p, eps_d = eps_thresholds(res, settings)
+    solved = (rp_now <= eps_p) & (rd_now <= eps_d)
+    pinf, dinf = infeasibility(qp, scaling, xn - state["x_chk"],
+                               yn - state["y_chk"], settings)
+    numerr = ~(torch.isfinite(rp_now) & torch.isfinite(rd_now))
+    new_status = status_of(numerr, solved, pinf, dinf, status)
+
+    ratio_now = scaled_resid_ratio(res, settings)
+    best = state["best_ratio"]
+    improved = ratio_now < best
+    best_ratio = torch.where(active, torch.minimum(ratio_now, best), best)
+    since = state["since_best"]
+    since_best = torch.where(active, torch.where(improved, 0, since + 1),
+                             since)
+    if settings.stall_checks > 0:
+        stalled = since_best >= settings.stall_checks
+        new_status = torch.where((new_status == _UNSOLVED) & stalled,
+                                 int(Status.STALLED), new_status)
+
+    do_t = torch.zeros(B, dtype=torch.bool, device=x.device)
+    new_rho = state["new_rho"]
+    if rho_test:
+        new_rho, changed = adapt_rho(rho_bar, res, settings)
+        do_t = active & changed & (new_status == _UNSOLVED)
+
+    it = state["it"] + k
+    out = dict(x_sum=x_sum, z_sum=z_sum, y_sum=y_sum, best_ratio=best_ratio,
+               since_best=since_best, new_rho=new_rho, do_t=do_t, it=it)
+    hist = state["hist"]
+    if hist.shape[-2] > 0:
+        row = torch.stack([it.to(hist.dtype).expand_as(rp_now), rp_now,
+                           rd_now], dim=-1)
+        out["hist"] = hist_write(hist, state["it"] // k, row, active)
+
+    # Frozen lanes keep their state.
+    x, z, y = (_select(active, a, b) for a, b in ((xn, x), (zn, z), (yn, y)))
+    status = torch.where(active, new_status, status)
+    out.update(x=x, z=z, y=y, x_chk=x, y_chk=y, status=status,
+               r_prim=torch.where(active, rp_now, state["r_prim"]),
+               r_dual=torch.where(active, rd_now, state["r_dual"]),
+               iters=state["iters"] + active.to(torch.int32) * k,
+               flags=torch.stack([(status == _UNSOLVED).any(),
+                                  do_t.any()]))
+    return out
 
 
 def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
@@ -435,11 +596,12 @@ def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
     runs while its status is UNSOLVED and freezes once it leaves it: its
     state stays as it was from then on, and its `it` counts only the
     iterations it ran. The host loop runs while any lane is live and
-    reads one small tensor per check. When any live lane changes rho,
-    every lane is refactored and each takes the new factor only if its
-    own rho changed (the matrix-free 'cg' factor just takes the new rho
-    vectors). Returns an AdmmCarry whose rho_bar, it, status, r_prim and
-    r_dual are (B,) and hist (B, slots, 3).
+    reads one small tensor per check (`lanes_check`, a CUDA graph replay
+    on the card where `graph.capturable` allows). When any live lane
+    changes rho, every lane is refactored and each takes the new factor
+    only if its own rho changed (the matrix-free 'cg' factor just takes
+    the new rho vectors). Returns an AdmmCarry whose rho_bar, it,
+    status, r_prim and r_dual are (B,) and hist (B, slots, 3).
     """
     dtype, dev = qp.dtype, qp.device
     cone = qp.cone
@@ -457,98 +619,35 @@ def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
                                     settings.band_block,
                                     settings.spike_parts)
 
-    fac = factor(rho_bar)
     slots = max(settings.history, 0)
-    hist = torch.full((B, slots, 3), -1.0, dtype=dtype, device=dev)
-    big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    x, z, y = x0, z0, y0
-    it = 0
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    status = torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev)
-    r_prim, r_dual = big, big
-    x_chk, y_chk = x0, y0
-    x_sum, z_sum, y_sum = (torch.zeros_like(t) for t in (x0, z0, y0))
-    avg_cnt = 0
-    best_ratio = big
-    since_best = torch.zeros(B, dtype=torch.int32, device=dev)
+    state = problem_state(qp, scaling, factor(rho_bar), eq_mask, z_off)
+    state.update(carry_state(
+        x0, z0, y0, rho_bar,
+        torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev),
+        torch.full((B,), float("inf"), dtype=dtype, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev),
+        torch.full((B, slots, 3), -1.0, dtype=dtype, device=dev)))
+    state.update(iters=torch.zeros(B, dtype=torch.int32, device=dev),
+                 do_t=torch.zeros(B, dtype=torch.bool, device=dev))
+    restart_checks = restart_cadence_checks(settings)
+    step = functools.partial(lanes_check, cone=cone, settings=settings,
+                             backend=backend, restart_checks=restart_checks)
+    loop = graph.CheckLoop("run_admm_lanes", step, state, settings, backend,
+                           cone=cone, restart_checks=restart_checks)
 
     k = settings.check_every
-    interval_checks = max(1, settings.adaptive_rho_interval // k)
-    restart_checks = restart_cadence_checks(settings)
+    it = 0
     alive = True
-
     while alive and it < settings.max_iter:
-        check = it // k
-        active = status == _UNSOLVED
-        xn, zn, yn = iterate_block(qp, fac, x, z, y, rho_vec(rho_bar),
-                                   settings, backend, k, z_off=z_off)
+        loop(check_variant(it // k, settings, restart_checks))
         it += k
-        res = residuals(qp, scaling, xn, zn, yn)
-
-        # Restarted averaging, each lane against its own average (live
-        # lanes all share the check count, hence the boundary).
-        x_sum, z_sum, y_sum = x_sum + xn, z_sum + zn, y_sum + yn
-        avg_cnt += 1
-        if restart_checks and check % restart_checks == restart_checks - 1:
-            denom = float(max(avg_cnt, 1))
-            xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
-            res_a = residuals(qp, scaling, xa, za, ya)
-            take = (scaled_resid_ratio(res_a, settings)
-                    < scaled_resid_ratio(res, settings))
-            xn, zn, yn = (_select(take, a, b)
-                          for a, b in ((xa, xn), (za, zn), (ya, yn)))
-            res = tuple(torch.where(take, ra, rc)
-                        for ra, rc in zip(res_a, res))
-            x_sum, z_sum, y_sum = (torch.zeros_like(t)
-                                   for t in (x_sum, z_sum, y_sum))
-            avg_cnt = 0
-
-        rp_now, rd_now = res[0], res[1]
-        eps_p, eps_d = eps_thresholds(res, settings)
-        solved = (rp_now <= eps_p) & (rd_now <= eps_d)
-        pinf, dinf = infeasibility(qp, scaling, xn - x_chk, yn - y_chk,
-                                   settings)
-        numerr = ~(torch.isfinite(rp_now) & torch.isfinite(rd_now))
-        new_status = status_of(numerr, solved, pinf, dinf, status)
-
-        ratio_now = scaled_resid_ratio(res, settings)
-        improved = ratio_now < best_ratio
-        best_ratio = torch.where(active, torch.minimum(ratio_now,
-                                                       best_ratio),
-                                 best_ratio)
-        since_best = torch.where(
-            active, torch.where(improved, 0, since_best + 1), since_best)
-        if settings.stall_checks > 0:
-            stalled = since_best >= settings.stall_checks
-            new_status = torch.where((new_status == _UNSOLVED) & stalled,
-                                     int(Status.STALLED), new_status)
-
-        do_t = torch.zeros(B, dtype=torch.bool, device=dev)
-        if settings.adaptive_rho and check % interval_checks == (
-                interval_checks - 1):
-            new_rho, changed = adapt_rho(rho_bar, res, settings)
-            do_t = active & changed & (new_status == _UNSOLVED)
-
-        if slots > 0:
-            row = torch.stack([torch.full_like(rp_now, float(it)), rp_now,
-                               rd_now], dim=-1)
-            slot = hist[:, (check % slots)]
-            hist[:, check % slots] = _select(active, row, slot)
-
-        # Frozen lanes keep their state.
-        x, z, y = (_select(active, a, b)
-                   for a, b in ((xn, x), (zn, z), (yn, y)))
-        status = torch.where(active, new_status, status)
-        r_prim = torch.where(active, rp_now, r_prim)
-        r_dual = torch.where(active, rd_now, r_dual)
-        iters = iters + active.to(torch.int32) * k
-        x_chk, y_chk = x, y
-
         # The one device-to-host read of this check.
-        alive, do = torch.stack([(status == _UNSOLVED).any(),
-                                 do_t.any()]).tolist()
+        alive, do = loop.state["flags"].tolist()
         if do:
-            rho_bar = torch.where(do_t, new_rho, rho_bar)
+            do_t = loop.state["do_t"]
+            rho_bar = torch.where(do_t, loop.state["new_rho"],
+                                  loop.state["rho_bar"])
+            fac = loop.state["fac"]
             if backend == "cg":
                 # Matrix-free: rho enters the operator, no refactorisation.
                 fac = dict(fac, rho=rho_vec(rho_bar))
@@ -556,7 +655,11 @@ def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
                 new_fac = factor(rho_bar)
                 fac = {key: _select(do_t, new_fac[key], fac[key])
                        for key in fac}
+            loop.set(dict(rho_bar=rho_bar, fac=fac))
 
+    x, z, y, rho_bar, fac, iters, status, r_prim, r_dual, hist = loop.result(
+        "x", "z", "y", "rho_bar", "fac", "iters", "status", "r_prim",
+        "r_dual", "hist")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER), status)
     return AdmmCarry(x=x, z=z, y=y, rho_bar=rho_bar, fac=fac, it=iters,
                      status=status, r_prim=r_prim, r_dual=r_dual, hist=hist)

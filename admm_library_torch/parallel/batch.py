@@ -12,7 +12,9 @@ keep honest per-lane iteration counts. On f32 'inv' batches each
 The solve runs as a host loop over residual checks. Each check reads one
 small tensor from the device (loop liveness and the refactor flag);
 the restart boundary and the adaptive-rho cadence follow from the
-lockstep count, which the host keeps.
+lockstep count, which the host keeps. On the card each check's tail
+(and, off the fused path, its iterations) is a captured CUDA graph
+(core/graph.py); the fused kernel stays an eager launch before it.
 
 Data parallelism: `shard_batch` gives each rank of a `make_data_mesh`
 its slice of the lanes, and `solve_batch_shared(..., mesh=)` runs the
@@ -25,12 +27,13 @@ the identity, so the result is bitwise the solve without a mesh.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..api import resolve_backend
-from ..core import admm
+from ..core import admm, graph
 from ..core.scaling import ruiz_equilibrate, scale_qp
 from ..ops import fused as fused_ops
 from ..ops import kkt
@@ -98,6 +101,123 @@ def _pick(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
+def batch_check(state, variant, *, cone, settings: Settings, backend: str,
+                restart_checks: int, fused: bool, mesh: Mesh | None):
+    """One residual check of `run_admm_batch_shared`: check_every
+    iterations (or, with `fused`, the fused kernel's output in
+    state['xn'], 'zn', 'yn'), lane freezing, residuals, restart, status,
+    stall, the shared rho test and the history row. Returns the state
+    entries it changes; 'flags' holds (any lane UNSOLVED, refactor)."""
+    restart, rho_test = variant
+    qp, scaling = admm.problem_of(state, cone)
+    k = settings.check_every
+    x, z, y, status = state["x"], state["z"], state["y"], state["status"]
+    active = status == _UNSOLVED
+    if fused:
+        xn, zn, yn = state["xn"], state["zn"], state["yn"]
+    else:
+        rho_vec = admm.rho_vec_of(state["rho_bar"], state["eq_mask"],
+                                  settings, cone)
+        xn, zn, yn = admm.iterate_block(
+            qp, state["fac"], x, z, y, rho_vec, settings, backend, k,
+            z_off=state.get("z_off"))
+    # Freeze converged/infeasible lanes.
+    xn, zn, yn = (_pick(active, a, b) for a, b in ((xn, x), (zn, z), (yn, y)))
+    iters_lane = state["iters_lane"] + active.to(torch.int32) * k
+
+    res = admm.residuals(qp, scaling, xn, zn, yn)
+
+    # Per-lane restarted averaging (Settings.restart_every): adopt a
+    # lane's running average iff its scaled residuals beat the lane's
+    # current iterate. Frozen lanes never restart. The window always
+    # holds restart_checks checks: the loop starts at check 0.
+    x_sum, z_sum, y_sum = (state["x_sum"] + xn, state["z_sum"] + zn,
+                           state["y_sum"] + yn)
+    if restart:
+        denom = float(restart_checks)
+        xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
+        res_a = admm.residuals(qp, scaling, xa, za, ya)
+        take = active & (admm.scaled_resid_ratio(res_a, settings)
+                         < admm.scaled_resid_ratio(res, settings))
+        # nq (res[6]) is point-independent and may be a scalar.
+        res = tuple(torch.where(take, ra, rc)
+                    for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+        xn, zn, yn = (_pick(take, a, b)
+                      for a, b in ((xa, xn), (za, zn), (ya, yn)))
+        x_sum, z_sum, y_sum = (torch.zeros_like(t)
+                               for t in (x_sum, z_sum, y_sum))
+
+    rp_now, rd_now = res[0], res[1]
+    eps_p, eps_d = admm.eps_thresholds(res, settings)
+    solved = (rp_now <= eps_p) & (rd_now <= eps_d)
+    pinf, dinf = admm.infeasibility(
+        qp, scaling, xn - state["x_chk"], yn - state["y_chk"], settings)
+    numerr = ~(torch.isfinite(rp_now) & torch.isfinite(rd_now))
+    new_status = admm.status_of(numerr, solved, pinf, dinf, status)
+    # Per-lane stall exit (Settings.stall_checks).
+    ratio_now = admm.scaled_resid_ratio(res, settings)
+    improved = active & (ratio_now < state["best_ratio"])
+    best_ratio = torch.where(improved, ratio_now, state["best_ratio"])
+    since = state["since_best"]
+    since_best = torch.where(active, torch.where(improved, 0, since + 1),
+                             since)
+    x_best, z_best, y_best = (
+        _pick(improved, a, state[b])
+        for a, b in ((xn, "x_best"), (zn, "z_best"), (yn, "y_best")))
+    rp_best = torch.where(improved, res[0], state["rp_best"])
+    rd_best = torch.where(improved, res[1], state["rd_best"])
+    if settings.stall_checks > 0:
+        stalled = since_best >= settings.stall_checks
+        new_status = torch.where(
+            (new_status == _UNSOLVED) & stalled, _STALLED, new_status)
+        # A stalling lane freezes at its BEST iterate: stall can
+        # fire mid-excursion.
+        swap = active & stalled & (new_status == _STALLED)
+        xn, zn, yn = (_pick(swap, a, b)
+                      for a, b in ((x_best, xn), (z_best, zn),
+                                   (y_best, yn)))
+        res = (torch.where(swap, rp_best, res[0]),
+               torch.where(swap, rd_best, res[1])) + res[2:]
+    status = torch.where(active, new_status, status)
+    r_prim = torch.where(active, rp_now, state["r_prim"])
+    r_dual = torch.where(active, rd_now, state["r_dual"])
+
+    # Shared adaptive rho from the active lanes' geomean ratio.
+    still = status == _UNSOLVED
+    alive_t = still.any()
+    do_t = torch.zeros((), dtype=torch.bool, device=x.device)
+    new_rho = state["new_rho"]
+    if rho_test:
+        tiny = torch.finfo(qp.dtype).tiny
+        _, _, nAx, nz, nPx, nAty, nq = res
+        sp = res[0] / torch.clamp(torch.maximum(nAx, nz), min=tiny)
+        sd = res[1] / torch.clamp(
+            torch.maximum(torch.maximum(nPx, nAty), nq), min=tiny)
+        ratio = torch.sqrt(
+            _geomean_masked(sp, still, mesh)
+            / torch.clamp(_geomean_masked(sd, still, mesh), min=tiny))
+        new_rho = torch.clamp(state["rho_bar"] * ratio, settings.rho_min,
+                              settings.rho_max)
+        tol = settings.adaptive_rho_tol
+        do_t = ((ratio > tol) | (ratio < 1.0 / tol)) & alive_t
+
+    it = state["it"] + k
+    out = dict(x=xn, z=zn, y=yn, x_chk=xn, y_chk=yn, x_sum=x_sum,
+               z_sum=z_sum, y_sum=y_sum, iters_lane=iters_lane,
+               status=status, r_prim=r_prim, r_dual=r_dual,
+               best_ratio=best_ratio, since_best=since_best, x_best=x_best,
+               z_best=z_best, y_best=y_best, rp_best=rp_best,
+               rd_best=rd_best, new_rho=new_rho, it=it,
+               flags=torch.stack([alive_t, do_t]))
+    hist = state["hist"]
+    if hist.shape[-2] > 0:
+        row = torch.stack([it.to(hist.dtype),
+                           _data_max(r_prim.amax(), mesh),
+                           _data_max(r_dual.amax(), mesh)])
+        out["hist"] = admm.hist_write(hist, state["it"] // k, row)
+    return out
+
+
 def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
                           x0, z0, y0, backend: str, rho0=None,
                           z_off=None, mesh: Mesh | None = None
@@ -109,7 +229,10 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
     geometric-mean residual ratio of the still-active lanes, so one
     refactorisation serves all lanes. With a `mesh` the lanes are this
     rank's share of the batch: liveness, the rho statistics and the
-    history's maxima are taken over the data axis.
+    history's maxima are taken over the data axis. Each check is
+    `batch_check`, on the card a CUDA graph replay where
+    `graph.capturable` allows; the fused kernel stays an eager launch
+    before it.
     """
     dtype, dev = qp.dtype, qp.device
     cone = qp.cone
@@ -139,146 +262,65 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         and z_off is None
         and (cone.m_soc == 0 or cone.soc_uniform))
 
-    fac = factor(rho_bar)
     big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     slots = max(settings.history, 0)
-    x, z, y = x0, z0, y0
-    it = 0
-    iters_lane = torch.zeros(B, dtype=torch.int32, device=dev)
-    status = torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev)
-    r_prim, r_dual = big, big
-    x_chk, y_chk = x0, y0
-    x_sum, z_sum, y_sum = (torch.zeros_like(t) for t in (x0, z0, y0))
-    avg_cnt = 0
-    best_ratio = big
-    since_best = torch.zeros(B, dtype=torch.int32, device=dev)
-    x_best, z_best, y_best = x0, z0, y0
-    rp_best, rd_best = big, big
-    hist = torch.full((slots, 3), -1.0, dtype=dtype, device=dev)
-    hist_ptr = 0
+    state = admm.problem_state(qp, scaling, factor(rho_bar), eq_mask, z_off)
+    state.update(admm.carry_state(
+        x0, z0, y0, rho_bar,
+        torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev), big,
+        torch.zeros(B, dtype=torch.int32, device=dev),
+        torch.full((slots, 3), -1.0, dtype=dtype, device=dev)))
+    state.update(iters_lane=torch.zeros(B, dtype=torch.int32, device=dev),
+                 x_best=x0, z_best=z0, y_best=y0, rp_best=big, rd_best=big)
+    pre = None
+    if use_fused:
+        state.update(xn=x0, zn=z0, yn=y0)
+
+        def pre(state):
+            d = state["qp"]
+            rho_vec = admm.rho_vec_of(state["rho_bar"], state["eq_mask"],
+                                      settings, cone)
+            xn, zn, yn = fused_ops.fused_iterate_shared(
+                d["A"], state["fac"]["Minv"], state["fac"]["M"], d["q"],
+                rho_vec, d["lam"], d["l"], d["u"], state["x"], state["z"],
+                state["y"], cone=cone, sigma=settings.sigma,
+                alpha=settings.alpha, k=settings.check_every,
+                refine_steps=settings.refine_steps)
+            return dict(xn=xn, zn=zn, yn=yn)
+
+    restart_checks = admm.restart_cadence_checks(settings)
+    step = functools.partial(batch_check, cone=cone, settings=settings,
+                             backend=backend, restart_checks=restart_checks,
+                             fused=use_fused, mesh=mesh)
+    loop = graph.CheckLoop("run_admm_batch_shared", step, state, settings,
+                           backend, mesh=mesh, pre=pre, cone=cone,
+                           restart_checks=restart_checks, fused=use_fused)
 
     k = settings.check_every
-    interval_checks = max(1, settings.adaptive_rho_interval // k)
-    restart_checks = admm.restart_cadence_checks(settings)
+    it = 0
     alive = True
-
     while alive and it < settings.max_iter:
-        check = it // k
-        rho_vec = admm.rho_vec_of(rho_bar, eq_mask, settings, cone)
-        active = status == _UNSOLVED
-
-        if use_fused:
-            xn, zn, yn = fused_ops.fused_iterate_shared(
-                qp.A, fac["Minv"], fac["M"], qp.q, rho_vec, qp.lam,
-                qp.l, qp.u, x, z, y, cone=cone, sigma=settings.sigma,
-                alpha=settings.alpha, k=k,
-                refine_steps=settings.refine_steps)
-        else:
-            xn, zn, yn = admm.iterate_block(
-                qp, fac, x, z, y, rho_vec, settings, backend, k,
-                z_off=z_off)
-        # Freeze converged/infeasible lanes.
-        xn, zn, yn = (_pick(active, a, b)
-                      for a, b in ((xn, x), (zn, z), (yn, y)))
+        loop(admm.check_variant(it // k, settings, restart_checks))
         it += k
-        iters_lane = iters_lane + active.to(torch.int32) * k
-
-        res = admm.residuals(qp, scaling, xn, zn, yn)
-
-        # Per-lane restarted averaging (Settings.restart_every): adopt a
-        # lane's running average iff its scaled residuals beat the
-        # lane's current iterate. Frozen lanes never restart.
-        x_sum, z_sum, y_sum = x_sum + xn, z_sum + zn, y_sum + yn
-        avg_cnt += 1
-        if restart_checks and check % restart_checks == restart_checks - 1:
-            denom = float(max(avg_cnt, 1))
-            xa, za, ya = x_sum / denom, z_sum / denom, y_sum / denom
-            res_a = admm.residuals(qp, scaling, xa, za, ya)
-            take = active & (admm.scaled_resid_ratio(res_a, settings)
-                             < admm.scaled_resid_ratio(res, settings))
-            # nq (res[6]) is point-independent and may be a scalar.
-            res = tuple(torch.where(take, ra, rc)
-                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
-            xn, zn, yn = (_pick(take, a, b)
-                          for a, b in ((xa, xn), (za, zn), (ya, yn)))
-            x_sum, z_sum, y_sum = (torch.zeros_like(t)
-                                   for t in (x_sum, z_sum, y_sum))
-            avg_cnt = 0
-
-        rp_now, rd_now = res[0], res[1]
-        eps_p, eps_d = admm.eps_thresholds(res, settings)
-        solved = (rp_now <= eps_p) & (rd_now <= eps_d)
-        pinf, dinf = admm.infeasibility(
-            qp, scaling, xn - x_chk, yn - y_chk, settings)
-        numerr = ~(torch.isfinite(rp_now) & torch.isfinite(rd_now))
-        new_status = admm.status_of(numerr, solved, pinf, dinf, status)
-        # Per-lane stall exit (Settings.stall_checks).
-        ratio_now = admm.scaled_resid_ratio(res, settings)
-        improved = active & (ratio_now < best_ratio)
-        best_ratio = torch.where(improved, ratio_now, best_ratio)
-        since_best = torch.where(
-            active, torch.where(improved, 0, since_best + 1), since_best)
-        x_best, z_best, y_best = (
-            _pick(improved, a, b)
-            for a, b in ((xn, x_best), (zn, z_best), (yn, y_best)))
-        rp_best = torch.where(improved, res[0], rp_best)
-        rd_best = torch.where(improved, res[1], rd_best)
-        if settings.stall_checks > 0:
-            stalled = since_best >= settings.stall_checks
-            new_status = torch.where(
-                (new_status == _UNSOLVED) & stalled, _STALLED, new_status)
-            # A stalling lane freezes at its BEST iterate: stall can
-            # fire mid-excursion.
-            swap = active & stalled & (new_status == _STALLED)
-            xn, zn, yn = (_pick(swap, a, b)
-                          for a, b in ((x_best, xn), (z_best, zn),
-                                       (y_best, yn)))
-            res = (torch.where(swap, rp_best, res[0]),
-                   torch.where(swap, rd_best, res[1])) + res[2:]
-        status = torch.where(active, new_status, status)
-        r_prim = torch.where(active, rp_now, r_prim)
-        r_dual = torch.where(active, rd_now, r_dual)
-
-        # Shared adaptive rho from the active lanes' geomean ratio.
-        still = status == _UNSOLVED
-        alive_t = still.any()
-        do_t = torch.zeros((), dtype=torch.bool, device=dev)
-        if settings.adaptive_rho and check % interval_checks == (
-                interval_checks - 1):
-            tiny = torch.finfo(dtype).tiny
-            _, _, nAx, nz, nPx, nAty, nq = res
-            sp = res[0] / torch.clamp(torch.maximum(nAx, nz), min=tiny)
-            sd = res[1] / torch.clamp(
-                torch.maximum(torch.maximum(nPx, nAty), nq), min=tiny)
-            ratio = torch.sqrt(
-                _geomean_masked(sp, still, mesh)
-                / torch.clamp(_geomean_masked(sd, still, mesh), min=tiny))
-            new_rho = torch.clamp(rho_bar * ratio, settings.rho_min,
-                                  settings.rho_max)
-            tol = settings.adaptive_rho_tol
-            do_t = ((ratio > tol) | (ratio < 1.0 / tol)) & alive_t
-
-        if slots > 0:
-            row = hist[hist_ptr % slots]
-            row[0] = float(it)
-            row[1] = _data_max(r_prim.amax(), mesh)
-            row[2] = _data_max(r_dual.amax(), mesh)
-            hist_ptr += 1
-        x, z, y = xn, zn, yn
-        x_chk, y_chk = xn, yn
-
         # The one device-to-host read of this check, agreed over the
         # mesh: liveness of any lane anywhere, and the rho decision.
-        alive, do = _agreed(torch.stack([alive_t, do_t]), mesh)
+        alive, do = _agreed(loop.state["flags"], mesh)
         if do:
-            rho_bar = new_rho
+            rho_bar = loop.state["new_rho"]
             if backend == "cg":
                 # Matrix-free: rho enters the operator, no refactorisation.
-                fac = dict(fac, rho=admm.rho_vec_of(rho_bar, eq_mask,
-                                                    settings, cone))
+                fac = dict(loop.state["fac"],
+                           rho=admm.rho_vec_of(rho_bar, eq_mask, settings,
+                                               cone))
             else:
                 fac = factor(rho_bar)
+            loop.set(dict(rho_bar=rho_bar, fac=fac))
 
+    (x, z, y, x_best, z_best, y_best, rho_bar, iters_lane, status, r_prim,
+     r_dual, rp_best, rd_best, hist) = loop.result(
+        "x", "z", "y", "x_best", "z_best", "y_best", "rho_bar",
+        "iters_lane", "status", "r_prim", "r_dual", "rp_best", "rd_best",
+        "hist")
     # Lanes that ran out of iterations also return their BEST iterate.
     unsolved = status == _UNSOLVED
     return BatchCarry(

@@ -24,8 +24,10 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 4. slice    — solve_batch_shared on the config-5 Monte-Carlo batch
                (horizon 50, dim 3: n=450, m=456) at batch 128 and 1024,
                using the JAX reference's own dispersions; every lane
-               SOLVED, f64 KKT residuals <= 1e-6, lockstep iterations
-               350 ± 25, the kernel launched, a rerun bitwise identical;
+               SOLVED, f64 KKT residuals <= 1e-6 (each lane's ratio to
+               its own mixed threshold reported beside), lockstep
+               iterations 350 ± 25, the kernel launched, a rerun bitwise
+               identical;
 5. cg_kernel — the Jacobi-PCG kernel against its twin, f32 and f64, on
                the flagship M of a real Ruiz + 'pallas_cg' factor of
                config 5 at batch 128 and 1 (200 steps, tol 1e-9), on
@@ -115,8 +117,19 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                lockstep iterations (JAX on the CPU); reruns bitwise, one
                profiled run each;
 17. checkpoint — phase 4's b128 solution saved (utils/checkpoint), loaded
-               back onto the card and resumed: SOLVED within one check.
+               back onto the card and resumed: SOLVED within one check;
+18. graph    — the captured residual checks (core/graph.py) on configs 3
+               and 4 and the config-5 batch at 128 and 1024, each from an
+               empty cache and on a rerun: captures, replays, warm-ups,
+               capture ms, device operations per graph, and from one
+               profiled run the host's launch calls and the idle share
+               (config 4: under GRAPH_HOST_LAUNCHES_PER_ITER an
+               iteration); a replayed check bitwise the eager check from
+               the same state, every variant, for an f64 chunk of config
+               4 and a b128 re-centred round.
 
+Every solve above runs its checks as captured graphs where the capture
+rule admits its backend ('inv', 'chol') and mesh (none, or 1 rank).
 Phases 9-17 run no kernel of their own: their backends are plain
 PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
 to (phase 14 runs the fused kernel on its lanes).
@@ -200,6 +213,14 @@ F64_ERR_FLOOR = 1e-8
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at
 # 700 W): f32 and f64 outside the tensor cores, and HBM3.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# The host's calls that put work on the card, as CUPTI names them: kernel
+# launches (plain, cooperative, extended) and CUDA graph launches.
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cuGraphLaunch")
+# Config 4's whole solve (f32 pass, rounds, f64 fallback, chunks, their
+# prologues and polish) under the captured checks: host launches an
+# iteration.
+GRAPH_HOST_LAUNCHES_PER_ITER = 2.0
 PEAK_HBM_BYTES = 3.35e12
 # Two solved points of the same problem: each meets the 1e-6 residual
 # criterion; the MPC states carry only a 1e-8 regularisation.
@@ -621,6 +642,7 @@ def _timed_solve(qp, settings):
 def phase_slice(batch, dev):
     import torch
     from admm_library_torch import Settings, Status
+    from admm_library_torch.core import admm
     from admm_library_torch.models import monte_carlo as mc
     from admm_library_torch.models.double_integrator import rollout
     from admm_library_torch.utils.oracle import kkt_residuals
@@ -634,6 +656,12 @@ def phase_slice(batch, dev):
     sol, wall, launches = _timed_solve(qp, settings)
     sol2, wall2, _ = _timed_solve(qp, settings)
     r_p, r_d, _ = kkt_residuals(qp, sol.x, sol.z, sol.y)
+    # What SOLVED means: each lane's residuals against its own mixed
+    # threshold (PERF.md section 2), beside the bare EPS bar held below.
+    *_, eps_p, eps_d, _ = admm.unscaled_criterion(qp, sol.x, sol.z, sol.y,
+                                                 EPS, EPS)
+    ratio = torch.maximum(r_p / eps_p, r_d / eps_d)
+    worst = ratio.argsort(descending=True)[:8].tolist()
     lockstep = int(sol.iters.max())
     solved = int((sol.status == int(Status.SOLVED)).sum())
     bitwise = all(torch.equal(getattr(sol, f), getattr(sol2, f))
@@ -647,6 +675,14 @@ def phase_slice(batch, dev):
                iters_lane_mean=float(sol.iters.float().mean()),
                kkt_r_prim_max=float(r_p.max()),
                kkt_r_dual_max=float(r_d.max()),
+               kkt_r_prim_over_eps_max=float((r_p / eps_p).max()),
+               kkt_r_dual_over_eps_max=float((r_d / eps_d).max()),
+               kkt_over_eps_median=float(ratio.median()),
+               eps_prim_range=[float(eps_p.min()), float(eps_p.max())],
+               eps_dual_range=[float(eps_d.min()), float(eps_d.max())],
+               kkt_over_eps_worst_lanes=[
+                   [i, float(r_p[i] / eps_p[i]), float(r_d[i] / eps_d[i])]
+                   for i in worst],
                wall_s=wall, wall_rerun_s=wall2, kernel_launches=launches,
                rerun_bitwise_identical=bitwise,
                rollout_terminal_err_max=term)
@@ -1470,14 +1506,20 @@ def _profiled(fn, *args):
         fn(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = [e for e in p.profiler.kineto_results.events()
+    events = p.profiler.kineto_results.events()
+    ops = [e for e in events
            if e.device_type() == torch.autograd.DeviceType.CUDA]
     kernels = sum(not e.name().startswith(("Memcpy", "Memset"))
                   for e in ops)
+    launches = [e.name() for e in events
+                if e.device_type() != torch.autograd.DeviceType.CUDA
+                and e.name().startswith(HOST_LAUNCH_CALLS)]
     check(kernels > 0, "profiler: no kernel activity recorded")
+    check(launches, "profiler: no host launch call recorded")
     return dict(kernels=kernels, device_ops=len(ops),
                 busy_ms=sum(e.duration_ns() for e in ops) / 1e6,
-                profiled_wall_s=wall)
+                profiled_wall_s=wall, host_launches=len(launches),
+                graph_launches=sum("Graph" in n for n in launches))
 
 
 def _profile_fields(prof, iters, wall):
@@ -1485,6 +1527,9 @@ def _profile_fields(prof, iters, wall):
     unprofiled run's wall-clock `wall`."""
     return dict(kernels_launched=prof["kernels"],
                 kernels_per_iteration=prof["kernels"] / iters,
+                host_launches=prof["host_launches"],
+                host_launches_per_iteration=prof["host_launches"] / iters,
+                graph_launches=prof["graph_launches"],
                 device_ops=prof["device_ops"],
                 device_busy_ms=prof["busy_ms"],
                 idle_share=1.0 - prof["busy_ms"] / 1e3 / wall,
@@ -1853,6 +1898,161 @@ def phase_checkpoint(dev, sol128):
     return rec
 
 
+class _Loops:
+    """Records (kind, step, initial state) of every graph.CheckLoop built
+    inside the block, the state cloned; the loops run as before."""
+
+    def __enter__(self):
+        import torch
+        from admm_library_torch.core import graph
+        self.graph, self.real, self.loops = graph, graph.CheckLoop, []
+
+        def spy(kind, step, state, *a, **kw):
+            self.loops.append((kind, step, graph._map(torch.clone, state)))
+            return self.real(kind, step, state, *a, **kw)
+        graph.CheckLoop = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.graph.CheckLoop = self.real
+
+
+def _replay_is_eager(step, state):
+    """Every variant of a check from one state: the eager step on the
+    default stream against the warm-up, the captured graph's first
+    replay and a second replay, each from the same state. Returns
+    {variant: whether all agree bitwise on every updated entry}."""
+    import torch
+    from admm_library_torch.core import graph
+    cache = graph.CheckCache()
+    entry = cache.entry("case", step, state)
+    out = {}
+    for variant in ((False, False), (False, True), (True, False),
+                    (True, True)):
+        want = step(graph._map(torch.clone, state), variant)
+        ok = True
+        for _ in range(3):
+            entry.load(state)
+            entry.run(variant)
+            ok &= all(torch.equal(entry.buffers[k], v)
+                      for k, v in want.items())
+        out[str(variant)] = ok
+    cache.clear()
+    return out
+
+
+def _graph_nodes():
+    """Device operations of one replay of every graph in the default
+    cache, by entry (kind, dtype of x, lanes) and variant: each graph is
+    replayed once under torch.profiler and its operations are found by
+    the correlation id of its cudaGraphLaunch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from admm_library_torch.core import graph
+    order = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for key, entry in graph.CACHE.entries.items():
+            x = entry.buffers["x"]
+            label = f"{key[0]} {str(x.dtype)[6:]} {tuple(x.shape)}"
+            for variant, g in entry.graphs.items():
+                g.replay()
+                torch.cuda.synchronize()
+                order.append(f"{label} {variant}")
+    events = p.profiler.kineto_results.events()
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
+                      if e.name().startswith(("cudaGraphLaunch",
+                                              "cuGraphLaunch")))
+    check(len(launches) == len(order), "graph nodes: a replay was not "
+          "recorded")
+    ops = {}
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ops[e.correlation_id()] = ops.get(e.correlation_id(), 0) + 1
+    return {name: ops.get(cid, 0) for name, (_, cid) in zip(order, launches)}
+
+
+def phase_graph(dev):
+    """The captured checks (core/graph.py) on configs 3 and 4 and the
+    config-5 batch at 128 and 1024: captures, replays, warm-ups and
+    capture ms per solve from an empty cache and on a rerun, nodes per
+    graph, host launches and idle share from one profiled run; a replayed
+    check bitwise the eager check from the same state for an f64 chunk of
+    config 4 and a b128 re-centred round."""
+    import torch
+    from admm_library_torch import (Settings, Status, solve,
+                                    solve_batch_shared)
+    from admm_library_torch import api
+    from admm_library_torch.core import graph
+    from admm_library_torch.models import low_thrust as lt
+    from admm_library_torch.models import monte_carlo as mc
+
+    qp3, _, _ = _config3(dev)
+    qp4, _, s4, _ = _config4(dev)
+    qp4 = qp4.astype(torch.float64)
+    b = {B: mc.monte_carlo_mpc_from_s0(mc.reference_s0(B), device=dev)[0]
+         .astype(torch.float64) for B in (128, 1024)}
+    s5 = Settings(eps_abs=EPS, eps_rel=EPS)
+    paths = {
+        "config3": (solve, qp3.astype(torch.float64),
+                    Settings(eps_abs=EPS, eps_rel=EPS, max_iter=50000)),
+        "config4": (solve, qp4, s4),
+        "b128": (solve_batch_shared, b[128], s5),
+        "b1024": (solve_batch_shared, b[1024], s5)}
+    out = {}
+    for name, (fn, qp, s) in paths.items():
+        graph.CACHE.clear()
+        runs = []
+        for _ in range(2):
+            before = dict(graph.CACHE.stats)
+            sol, wall, _ = _timed_run(fn, qp, s)
+            runs.append(dict(wall_s=wall, **{
+                k: graph.CACHE.stats[k] - before[k] for k in before}))
+            if len(runs) == 1:
+                nodes = _graph_nodes()
+        iters = int(sol.iters.max())
+        prof = _profiled(fn, qp, s)
+        rec = dict(path=name, iters=iters,
+                   solved=int((sol.status == int(Status.SOLVED)).sum()),
+                   entries=len(graph.CACHE.entries),
+                   first=runs[0], rerun=runs[1],
+                   nodes_per_graph=nodes,
+                   **_profile_fields(prof, iters, runs[1]["wall_s"]))
+        emit("graph", **rec)
+        check(runs[0]["captures"] > 0 and runs[0]["replays"] > 0,
+              f"graph {name}: no check was captured and replayed")
+        # A variant met once in the first run was only warmed there; its
+        # capture comes at its second check, in the rerun.
+        check(runs[1]["eager_checks"] == 0,
+              f"graph {name}: the rerun warmed a variant up again")
+        check(min(nodes.values()) > 0, f"graph {name}: an empty graph")
+        out[name] = rec
+    check(out["config4"]["host_launches_per_iteration"]
+          < GRAPH_HOST_LAUNCHES_PER_ITER,
+          f"graph config4: {out['config4']['host_launches_per_iteration']:.2f}"
+          " host launches an iteration")
+
+    # A replayed check is the eager check, from the same state.
+    entry = lt.reference_continuation_entry(dev)
+    s_chunk = s4.replace(precision="single", warm_start=True, polish=False,
+                         recenter_rounds=0, max_iter=0, stall_checks=0)
+    with _Loops() as rec4:
+        api._solve_one_phase(qp4, entry.x, entry.z, entry.y, s_chunk,
+                             s4.backend, rho0=float(entry.rho.max()))
+    with _Loops() as rec5:
+        solve_batch_shared(b[128], s5)
+    (_, step4, state4), = rec4.loops
+    step5, state5 = next((step, st) for _, step, st in rec5.loops
+                         if st["qp"]["q"].dim() == 2)
+    same = {"config4_f64_chunk": _replay_is_eager(step4, state4),
+            "b128_round": _replay_is_eager(step5, state5)}
+    emit("graph", replay_is_eager_bitwise=same)
+    for case, variants in same.items():
+        check(all(variants.values()),
+              f"graph {case}: a replayed check differs from the eager one")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1884,6 +2084,7 @@ def main():
     phase_rowshard(dev, scale)
     phase_horizon_sharded(dev, scale)
     phase_checkpoint(dev, sol128)
+    phase_graph(dev)
     # Each kernel with its launches on this slice's paths and its check
     # and times at the shape of the path that launches it most.
     lt_case = kern["low_thrust_soc_b1"]

@@ -1,0 +1,212 @@
+#!/usr/bin/env python3
+"""The port at two commits, in turns, on one CUDA card: config 3 and
+config 4 through `solve`, the config-5 batch at 128 and 1024 lanes
+through `solve_batch_shared`, and `solve_batch` on 128 config-1 draws.
+
+    mkdir -p _scratch/parent
+    git archive <parent commit> | tar -x -C _scratch/parent
+    python3 scripts/compare_parent.py [--parent _scratch/parent]
+                                      [--rounds 2] [--reruns 3]
+
+Each side runs in its own process and imports admm_library_torch from
+its own root (the unpacked parent, or this checkout), in turns: parent,
+tree, tree, parent, ... (`--rounds` pairs). A process solves each path
+once cold (its first run: the kernels, built before it, loaded; on the
+tree's side the checks captured) and `--reruns` times more; in each side's first turn one more
+solve of each path runs under torch.profiler: device busy time, the
+idle share against that turn's median rerun, kernels, and the host's
+launch calls (kernel and CUDA graph launches). Prints one JSON line per
+(side, turn, path), one summary line per path (medians over every turn,
+the tree's median rerun over the parent's), then the card's nvidia-smi
+name and power limit. Needs a CUDA card; no JAX. `_scratch/` is
+git-ignored, and copied to the card with the rest of the checkout.
+"""
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PATHS = ("config3", "config4", "b128", "b1024", "solve_batch")
+# The host's calls that put work on the card, as CUPTI names them.
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cuGraphLaunch")
+
+
+def _path(name, dev):
+    """(solve function, problem, settings) of a path, built from the
+    package on sys.path; the same inputs as chip_smoke.py's phases."""
+    import numpy as np
+    import torch
+    import admm_library_torch as T
+    f64 = torch.float64
+    if name == "config3":
+        from admm_library_torch.models.clohessy_wiltshire import (
+            build_cw_rendezvous)
+        rng = np.random.default_rng(0)
+        s0 = np.array([100.0, -1000.0, 20.0, 0.1, 0.5, -0.05])
+        s0[:3] += rng.uniform(-20, 20, 3)
+        qp, _ = build_cw_rendezvous(s0, N=20, dtype=torch.float32,
+                                    device=dev)
+        return (T.solve, qp.astype(f64),
+                T.Settings(eps_abs=1e-6, eps_rel=1e-6, max_iter=50000))
+    if name == "config4":
+        from admm_library_torch.models.low_thrust import (
+            build_low_thrust_socp)
+        qp, spec = build_low_thrust_socp(
+            np.array([500.0, -2000.0, 100.0, 0.0, 1.0, -0.1]), N=200,
+            device=dev)
+        return (T.solve, qp.astype(f64),
+                T.Settings(eps_abs=1e-6, eps_rel=5e-8, band_block=spec.block,
+                           max_iter=50000, rho_soc_scale=100.0,
+                           stall_checks=16, backend="inv"))
+    if name in ("b128", "b1024"):
+        from admm_library_torch.models import monte_carlo as mc
+        qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(int(name[1:])),
+                                        device=dev)[0]
+        return (T.solve_batch_shared, qp.astype(f64),
+                T.Settings(eps_abs=1e-6, eps_rel=1e-6))
+    if name == "solve_batch":
+        from admm_library_torch.models.random_qp import random_box_qp
+        gen = torch.Generator().manual_seed(0)
+        lanes = [random_box_qp(gen, device=dev).astype(f64)
+                 for _ in range(128)]
+        qp = T.QPData(**{f: torch.stack([getattr(q, f) for q in lanes])
+                         for f in ("P", "q", "A", "l", "u", "lam")},
+                      cone=lanes[0].cone)
+        return (T.solve_batch, qp,
+                T.Settings(eps_abs=1e-8, eps_rel=1e-8, max_iter=20000))
+    raise ValueError(f"unknown path {name}")
+
+
+def _timed(fn, *args):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _profiled(fn, *args):
+    """Device busy ms, kernels and host launch calls of one run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn(*args)
+        torch.cuda.synchronize()
+    events = p.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e for e in events if e.device_type() == cuda]
+    return dict(
+        device_busy_ms=sum(e.duration_ns() for e in ops) / 1e6,
+        kernels=sum(not e.name().startswith(("Memcpy", "Memset"))
+                    for e in ops),
+        host_launches=sum(e.device_type() != cuda
+                          and e.name().startswith(HOST_LAUNCH_CALLS)
+                          for e in events))
+
+
+def worker(root, side, turn, reruns, profiled, paths):
+    """One side's turn: every path cold, then reruns, then (first turn)
+    profiled. One JSON line per path."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, root)
+    import torch
+    import admm_library_torch  # noqa: F401  (turns TF32 off)
+    from admm_library_torch.ops import _build
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    _build.build()          # nvcc at most once a side, before any clock
+    for name in paths:
+        fn, qp, s = _path(name, dev)
+        sol, first = _timed(fn, qp, s)
+        walls = [_timed(fn, qp, s)[1] for _ in range(reruns)]
+        rec = dict(side=side, turn=turn, path=name, first_s=first,
+                   rerun_s=walls, iters=int(sol.iters.max()),
+                   solved=int((sol.status == 1).sum()),
+                   lanes=int(sol.status.numel()))
+        if profiled:
+            prof = _profiled(fn, qp, s)
+            rec.update(prof, idle_share=1.0 - prof["device_busy_ms"] / 1e3
+                       / statistics.median(walls),
+                       host_launches_per_iteration=prof["host_launches"]
+                       / rec["iters"])
+        print(json.dumps(rec), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=os.path.join(ROOT, "_scratch",
+                                                     "parent"))
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reruns", type=int, default=3)
+    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--worker", nargs=3, metavar=("ROOT", "SIDE", "TURN"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--profiled", action="store_true",
+                    help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    paths = a.paths.split(",")
+    if a.worker:
+        root, side, turn = a.worker
+        worker(root, side, int(turn), a.reruns, a.profiled, paths)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_parent: no CUDA device", file=sys.stderr)
+        return 2
+    parent = os.path.abspath(a.parent)
+    if not os.path.isdir(os.path.join(parent, "admm_library_torch")):
+        print(f"compare_parent: no admm_library_torch under {parent}; "
+              "unpack the parent there with git archive", file=sys.stderr)
+        return 2
+    roots = {"parent": parent, "tree": ROOT}
+    order = []
+    for r in range(a.rounds):
+        pair = ("parent", "tree") if r % 2 == 0 else ("tree", "parent")
+        order += [(side, r) for side in pair]
+    records = []
+    for side, turn in order:
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker",
+               roots[side], side, str(turn), "--reruns", str(a.reruns),
+               "--paths", a.paths]
+        if turn == 0:
+            cmd.append("--profiled")
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=1800, cwd=roots[side])
+        if out.returncode != 0:
+            sys.stderr.write(out.stderr[-4000:])
+            return out.returncode
+        for line in out.stdout.splitlines():
+            if line.startswith("{"):
+                print(line, flush=True)
+                records.append(json.loads(line))
+    for name in paths:
+        summary = {"summary": name}
+        for side in roots:
+            recs = [r for r in records if r["side"] == side
+                    and r["path"] == name]
+            summary[side] = dict(
+                first_s=statistics.median(r["first_s"] for r in recs),
+                rerun_s=statistics.median(w for r in recs
+                                          for w in r["rerun_s"]),
+                iters=sorted({r["iters"] for r in recs}),
+                idle_share=[r["idle_share"] for r in recs
+                            if "idle_share" in r])
+        summary["rerun_tree_over_parent"] = (summary["tree"]["rerun_s"]
+                                             / summary["parent"]["rerun_s"])
+        print(json.dumps(summary), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -856,3 +856,216 @@ def test_checkpoint_loads_onto_the_card(dev, tmp_path):
     assert st["x"].device == dev and torch.equal(st["x"], x)
     x0, _, _ = checkpoint.resume_warm_start(path, device="cpu")
     assert x0.device.type == "cpu"
+
+
+# ---- captured checks (core/graph.py) ----
+
+def _recorded_loops(monkeypatch, fn, *args, **kw):
+    """fn(*args, **kw) with every CheckLoop's (kind, step, initial state)
+    recorded; returns (fn's result, the records)."""
+    from admm_library_torch.core import graph
+    loops = []
+    real = graph.CheckLoop
+
+    def spy(kind, step, state, *a, **k):
+        loops.append((kind, step, graph._map(torch.clone, state)))
+        return real(kind, step, state, *a, **k)
+    monkeypatch.setattr(graph, "CheckLoop", spy)
+    out = fn(*args, **kw)
+    monkeypatch.setattr(graph, "CheckLoop", real)
+    return out, loops
+
+
+def _replay_is_eager(step, state):
+    """Every variant of `step` from `state`: the eager step on the
+    default stream, the warm-up on the capture stream, the captured
+    graph's first replay and a second replay, each from the same state,
+    agree bitwise on every entry the step updates."""
+    from admm_library_torch.core import graph
+    cache = graph.CheckCache()
+    entry = cache.entry("case", step, state)
+    for variant in [(False, False), (False, True), (True, False),
+                    (True, True)]:
+        want = step(graph._map(torch.clone, state), variant)
+        runs = []
+        for _ in range(3):
+            entry.load(state)
+            entry.run(variant)
+            runs.append({k: entry.buffers[k].clone() for k in want})
+        for key, value in want.items():
+            for got in runs:
+                assert torch.equal(got[key], value), (variant, key)
+    assert cache.stats["captures"] == 4 and cache.stats["replays"] == 8
+    assert cache.stats["eager_checks"] == 4
+
+
+def test_replayed_check_is_the_eager_check_config4_f64_chunk(
+        dev, monkeypatch):
+    """The state of a config-4 f64 chunk (the reference's continuation
+    entry, the bench settings): replay == eager, bitwise."""
+    from admm_library_torch import api
+    from admm_library_torch.models import low_thrust as lt
+    qp, _ = lt.build_low_thrust_socp(
+        np.array([500.0, -2000.0, 100.0, 0.0, 1.0, -0.1]), N=200,
+        device=dev)
+    qp64 = qp.astype(torch.float64)
+    entry = lt.reference_continuation_entry(dev)
+    s = Settings(eps_abs=1e-6, eps_rel=5e-8, max_iter=0, warm_start=True,
+                 precision="single", polish=False, recenter_rounds=0,
+                 rho_soc_scale=100.0, stall_checks=0, backend="inv")
+    _, loops = _recorded_loops(monkeypatch, api._solve_one_phase, qp64,
+                               entry.x, entry.z, entry.y, s, "inv",
+                               rho0=float(entry.rho.max()))
+    (kind, step, state), = loops
+    assert kind == "run_admm" and state["x"].dtype == torch.float64
+    _replay_is_eager(step, state)
+
+
+def test_replayed_check_is_the_eager_check_b128_round(dev, monkeypatch):
+    """The state of config 5's first re-centred round at batch 128 (the
+    reference's dispersions, f32, per-lane q): replay == eager."""
+    qp32, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128),
+                                            device=dev)
+    _, loops = _recorded_loops(monkeypatch, solve_batch_shared,
+                               qp32.astype(torch.float64),
+                               Settings(eps_abs=1e-6, eps_rel=1e-6))
+    rounds = [(step, st) for kind, step, st in loops
+              if st["qp"]["q"].dim() == 2]
+    step, state = rounds[0]
+    assert state["x"].dtype == torch.float32 and state["x"].shape[0] == 128
+    _replay_is_eager(step, state)
+
+
+def _eager_and_captured(monkeypatch, fn, *args):
+    """fn(*args) with every check eager, then with the capture rule as
+    it is, from an empty cache: (eager result, captured result, the
+    cache's counters)."""
+    from admm_library_torch.core import graph
+    with monkeypatch.context() as m:
+        m.setattr(graph, "capturable", lambda *a, **k: False)
+        eager = fn(*args)
+    graph.CACHE.clear()
+    before = dict(graph.CACHE.stats)
+    captured = fn(*args)
+    stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
+    return eager, captured, stats
+
+
+def _small_l1_soc(dev, dtype=torch.float64):
+    rng = np.random.default_rng(11)
+    n, mb, ml, d, nb = 10, 6, 3, 3, 2
+    m = mb + ml + d * nb
+    R = rng.standard_normal((n, n)) / np.sqrt(n)
+    l = np.full(m, -np.inf)
+    u = np.full(m, np.inf)
+    l[:mb], u[:mb] = -0.4, 0.4
+    l[mb:mb + ml], u[mb:mb + ml] = -0.5, 0.5
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return QPData(P=t(R @ R.T + 0.5 * np.eye(n)),
+                  q=t(rng.standard_normal(n)),
+                  A=t(rng.standard_normal((m, n)) / np.sqrt(n)), l=t(l),
+                  u=t(u), lam=t(np.full(ml, 0.2)),
+                  cone=ConeSpec(m_box=mb, m_l1=ml, soc_dims=(d,) * nb))
+
+
+@pytest.mark.parametrize("backend", ["inv", "chol"])
+@pytest.mark.parametrize("loop", ["run_admm", "run_admm_lanes",
+                                  "run_admm_batch_shared"])
+def test_captured_loop_is_the_eager_loop_through_refactors(
+        loop, backend, dev, monkeypatch):
+    """A whole loop replayed from graphs equals the same loop run
+    eagerly on the card, bitwise, through rho refactors (rho starts 100x
+    off, so the factor changes between replays) and restarts."""
+    from admm_library_torch.parallel import batch
+    s = Settings(check_every=5, adaptive_rho_interval=10, restart_every=15,
+                 history=3, max_iter=300, rho=10.0, eps_abs=1e-8,
+                 eps_rel=1e-8, backend=backend)
+    if loop == "run_admm":
+        qps, sc = ruiz_equilibrate(_small_l1_soc(dev), 10)
+        zeros = [torch.zeros(w, dtype=qps.dtype, device=dev)
+                 for w in (qps.n, qps.m, qps.m)]
+        run = admm.run_admm
+    elif loop == "run_admm_lanes":
+        one = _small_l1_soc(dev)
+        qp = QPData(**{f: torch.stack([getattr(one, f)] * 3)
+                       for f in ("P", "q", "A", "l", "u", "lam")},
+                    cone=one.cone)
+        qp = QPData(P=qp.P, q=qp.q * torch.tensor(
+            [[1.0], [0.5], [2.0]], dtype=qp.dtype, device=dev),
+            A=qp.A, l=qp.l, u=qp.u, lam=qp.lam, cone=qp.cone)
+        qps, sc = ruiz_equilibrate(qp, 10)
+        zeros = [torch.zeros((3, w), dtype=qps.dtype, device=dev)
+                 for w in (qps.n, qps.m, qps.m)]
+        run = admm.run_admm_lanes
+    else:
+        qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(5),
+                                      batch=8, N=8, dim=2,
+                                      dtype=torch.float64, device=dev)
+        qps, sc = batch._ruiz(qp, s, None)
+        zeros = [torch.zeros((8, w), dtype=qps.dtype, device=dev)
+                 for w in (qps.n, qps.m, qps.m)]
+        run = batch.run_admm_batch_shared
+    eager, captured, stats = _eager_and_captured(
+        monkeypatch, run, qps, sc, s, *zeros, backend)
+    for f in eager._fields:
+        a, b = getattr(eager, f), getattr(captured, f)
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in a), f
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f
+        else:
+            assert a == b, f
+    assert not torch.all(captured.rho_bar == s.rho)      # refactored
+    assert stats["captures"] >= 2 and stats["replays"] > stats["captures"]
+
+
+def test_captured_solves_are_the_eager_solves(dev, monkeypatch):
+    """solve (staged L1 path; SOC through the B=1 batch, its rounds, the
+    f64 fallback and continuation) and solve_batch_shared with the fused
+    kernel before the captured tail: bitwise the eager runs."""
+    from admm_library_torch import solve
+    qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(1),
+                                  batch=16, N=10, dim=2, device=dev)
+    cases = [(solve, _small_l1_soc(dev), Settings(backend="inv")),
+             (solve_batch_shared, qp, Settings())]
+    for fn, problem, s in cases:
+        fused.fused_iterate_shared.launches = 0
+        eager, captured, stats = _eager_and_captured(monkeypatch, fn,
+                                                     problem, s)
+        for f in ("x", "z", "y", "status", "iters", "r_prim", "r_dual"):
+            assert torch.equal(getattr(eager, f), getattr(captured, f)), f
+        assert stats["replays"] > 0
+    assert fused.fused_iterate_shared.launches > 0
+
+
+def test_capture_refuses_an_eager_only_backend(dev):
+    """capture=True for a backend outside the rule raises; nothing falls
+    back to an eager check in silence."""
+    from admm_library_torch.core import graph
+    state = {"x": torch.zeros(3, device=dev),
+             "flags": torch.ones(2, dtype=torch.bool, device=dev)}
+    for backend in ("cg", "pallas_cg", "banded", "spike"):
+        with pytest.raises(ValueError, match="not captured"):
+            graph.CheckLoop("run_admm", None, state, Settings(), backend,
+                            capture=True, cache=graph.CheckCache())
+
+
+def test_a_failed_capture_raises(dev):
+    """A step that reads the device inside capture raises at its capture
+    (the second check of its variant), not later and not silently."""
+    from admm_library_torch.core import graph
+
+    def reading(state, variant):
+        x = state["x"] + 1.0
+        return dict(x=x, flags=torch.stack([x.sum() > float(x.sum()),
+                                            x.sum() < 0]))
+    cache = graph.CheckCache()
+    state = {"x": torch.zeros(3, device=dev),
+             "flags": torch.ones(2, dtype=torch.bool, device=dev)}
+    loop = graph.CheckLoop("probe", reading, state, Settings(), "inv",
+                           cache=cache)
+    loop((False, False))                    # the eager warm-up
+    with pytest.raises(RuntimeError):
+        loop((False, False))
+    assert cache.stats["captures"] == 0
+    torch.cuda.synchronize()
