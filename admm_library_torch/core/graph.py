@@ -4,8 +4,10 @@
 The JAX package runs a whole phase as one XLA program, a
 `lax.while_loop` whose body runs `check_every` iterations and the
 residual check. Here the host loop of `core.admm.run_admm`,
-`run_admm_lanes` and `parallel.batch.run_admm_batch_shared` stays, and
-on the card each of its checks is one CUDA graph replay. The host still
+`run_admm_lanes`, `parallel.batch.run_admm_batch_shared` and of the
+partitioned drivers (`parallel.consensus.run_consensus`,
+`consensus_mc.run_consensus_mc`, `horizon._run_horizon`) stays, and on
+the card each of its checks is one CUDA graph replay. The host still
 reads one small flag tensor a check.
 
 A check is `step(state, variant) -> updates`: `state` is a dict of
@@ -13,8 +15,10 @@ tensors (one level of nested dicts allowed: the problem data, the
 scaling, the KKT factor), `updates` the top-level entries the check
 changes, and `variant` the check's static part, the restart boundary
 and the rho test (`(restart, rho_test)`), which selects one of up to
-four graphs. A step makes no host read and keeps no host counter: what
-it counts lives in the state.
+four graphs. A loop's static arguments enter the key as plain hashable
+values (a mesh by its shape and coordinates, never by identity). A step
+makes no host read and keeps no host counter: what it counts lives in
+the state.
 
 `CheckLoop` runs a loop's checks. Where `capturable` says no (CPU
 tensors, an eager-only backend, a mesh axis of size > 1) it applies
@@ -34,11 +38,14 @@ import time
 
 import torch
 
-# Backends whose check has no host read: one product ('inv') or two
-# triangular solves ('chol') per KKT solve. 'cg' reads its loop
-# condition every ops/kkt._CG_CHECK steps, 'pallas_cg' counts kernel 2's
-# launches in Python, 'banded' and 'spike' loop over blocks on the host.
-CAPTURED_BACKENDS = ("inv", "chol")
+# Backends whose check has no host read: one product ('inv'), two
+# triangular solves ('chol'), or block sweeps whose trip counts are
+# static shapes ('banded': two sweeps over the N blocks; 'spike': batched
+# interior products and a sweep over the separator blocks; a check of
+# config 2 on 'banded' is a graph of ~61,000 nodes). 'cg' reads its loop
+# condition every ops/kkt._CG_CHECK steps and 'pallas_cg' counts kernel
+# 2's launches in Python: both stay eager.
+CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike")
 
 # Entries of the default cache; the oldest is dropped beyond this.
 CACHE_SIZE = 16
@@ -133,7 +140,7 @@ class _Entry:
             return
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.cache.keep_graphs)
         t0 = time.perf_counter()
         # capture_begin/end rather than torch.cuda.graph, which would
         # synchronise the card and empty the allocator's cache at every
@@ -145,6 +152,8 @@ class _Entry:
                 self.write(self.step(self.buffers, variant))
             finally:
                 graph.capture_end()
+        if self.cache.keep_graphs:
+            graph.instantiate()
         stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
         stats["captures"] += 1
         self.graphs[variant] = graph
@@ -157,10 +166,13 @@ class CheckCache:
     least recently used goes first), with counters for the measuring
     scripts: captures, replays, eager checks (warm-ups) and the host
     milliseconds spent capturing. One side stream per device serves
-    every capture."""
+    every capture. With `keep_graphs` set, each graph keeps its captured
+    template beside its executable (`raw_cuda_graph()`), so that a
+    measuring script can count its nodes; it costs host memory only."""
 
     def __init__(self, size: int = CACHE_SIZE):
         self.size = size
+        self.keep_graphs = False
         self.entries = collections.OrderedDict()
         self.streams = {}
         self.stats = dict(captures=0, replays=0, eager_checks=0,

@@ -39,10 +39,12 @@ L1 and SOC cones.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
+from ..core import admm, graph
 from ..core.admm import l1_grad_scale_raw
 from ..core.scaling import Scaling, ruiz_equilibrate_blocks, scale_qp_blocks
 from ..ops import kkt
@@ -316,6 +318,20 @@ def consensus_body(qp_blk: QPData, spec: ConsensusSpec, settings: Settings,
     return x_new, z_new, y_new
 
 
+def _edge_scale(settings: Settings) -> float:
+    """The penalty boost of the edge rows (agreement rows are
+    equality-like): rho_edge_scale, else rho_eq_scale."""
+    return (settings.rho_edge_scale if settings.rho_edge_scale > 0
+            else settings.rho_eq_scale)
+
+
+def _rho_vec(rho_bar, box_eq, edge, eq_scale: float, edge_scale: float):
+    """Per-row penalties: rho_bar on local rows, boosted on local
+    equality rows and on every edge row."""
+    return torch.where(box_eq, eq_scale * rho_bar,
+                       torch.where(edge, edge_scale * rho_bar, rho_bar))
+
+
 class _Rho:
     """Per-row penalties and the KKT factor of a consensus phase:
     rho_bar on local rows, boosted on local equality rows
@@ -328,15 +344,11 @@ class _Rho:
         self.box_eq = box_eq
         self.edge = (torch.arange(spec.mb, device=box_eq.device)
                      >= spec.m_local)
-        self.edge_scale = (settings.rho_edge_scale
-                           if settings.rho_edge_scale > 0
-                           else settings.rho_eq_scale)
+        self.edge_scale = _edge_scale(settings)
 
     def vec(self, rho_bar):
-        s = self.settings
-        return torch.where(self.box_eq, s.rho_eq_scale * rho_bar,
-                           torch.where(self.edge, self.edge_scale * rho_bar,
-                                       rho_bar))
+        return _rho_vec(rho_bar, self.box_eq, self.edge,
+                        self.settings.rho_eq_scale, self.edge_scale)
 
     def factor(self, rho_bar):
         s = self.settings
@@ -414,13 +426,6 @@ def _balance(res, rho_bar, settings: Settings, geomean=None):
     return new_rho, (ratio > tol) | (ratio < 1.0 / tol)
 
 
-def _record(hist, ptr, it, r_p, r_d):
-    """One (iteration, r_prim, r_dual) row of the ring buffer."""
-    hist[ptr % hist.shape[0]] = torch.stack(
-        [torch.tensor(float(it), dtype=hist.dtype, device=hist.device),
-         r_p.to(hist.dtype), r_d.to(hist.dtype)])
-
-
 class PhaseResult(NamedTuple):
     x: torch.Tensor          # local, scaled
     z: torch.Tensor
@@ -433,16 +438,155 @@ class PhaseResult(NamedTuple):
     hist: torch.Tensor
 
 
+def phase_state(qp_blk: QPData, rho: _Rho, scaling_vecs, fac, loc: Local,
+                z_off):
+    """The read-only part of a consensus check's state: the scaled block
+    problem, the scaling vectors, the KKT factor (rewritten by a
+    refactor), the penalty masks, this rank's block indices and, where
+    given, the re-centring offset."""
+    d_s, e_s, c_s = scaling_vecs
+    state = dict(qp=dict(P=qp_blk.P, q=qp_blk.q, A=qp_blk.A, l=qp_blk.l,
+                         u=qp_blk.u, lam=qp_blk.lam),
+                 scaling=dict(d=d_s, e=e_s, c=c_s), fac=fac,
+                 box_eq=rho.box_eq, edge=rho.edge, block_ids=loc.block_ids)
+    if z_off is not None:
+        state["z_off"] = z_off
+    return state
+
+
+def phase_carry(x0, z0, y0, rho_bar, status, big, slots: int):
+    """The starting carry of both consensus loops: iterates, the last
+    check's iterates, the restart sums, rho and its proposal, the
+    iteration counter, status and residuals (`big`), the history and the
+    flags."""
+    dtype, dev = x0.dtype, x0.device
+    return dict(x=x0, z=z0, y=y0, x_chk=x0, y_chk=y0,
+                x_sum=torch.zeros_like(x0), z_sum=torch.zeros_like(z0),
+                y_sum=torch.zeros_like(y0), rho_bar=rho_bar, new_rho=rho_bar,
+                it=torch.zeros((), dtype=torch.int64, device=dev),
+                status=status, r_prim=big, r_dual=big,
+                hist=torch.full((slots, 3), -1.0, dtype=dtype, device=dev),
+                flags=torch.ones(2, dtype=torch.int32, device=dev))
+
+
+def loop_static(spec, settings: Settings, loc: Local, restart_checks: int):
+    """(the step's static arguments, the cache key's). The key holds
+    plain values: `Local` holds tensors and `Mesh` compares by identity,
+    so it takes the block indices (one host read, before the loop) and
+    the mesh's shape and coordinates instead."""
+    args = dict(spec=spec, n_blocks=loc.n_blocks,
+                edge_scale=_edge_scale(settings),
+                use_cert=settings.eps_pinf > 0 or settings.eps_dinf > 0,
+                restart_checks=restart_checks)
+    key = dict(args, block_ids=tuple(loc.block_ids.tolist()),
+               mesh_shape=tuple(sorted(loc.mesh.shape.items())),
+               mesh_coords=tuple(sorted(loc.mesh.coords.items())))
+    return args, key
+
+
+def restart_cadence(settings: Settings) -> int:
+    """Restart boundary in residual checks (0 disables)."""
+    return settings.restart_every and max(
+        1, settings.restart_every // settings.check_every)
+
+
+def _global_res(qp_blk: QPData, loc: Local, einv, cd_inv, nlam, x, z, y):
+    """Globally reduced unscaled residual norms (7-tuple)."""
+    Ax = mv(qp_blk.A, x)
+    Px = mv(qp_blk.P, x)
+    Aty = vm(y, qp_blk.A)
+    return (_linf_global(einv * (Ax - z), loc),
+            _linf_global(cd_inv * (Px + qp_blk.q + Aty), loc),
+            _linf_global(einv * Ax, loc), _linf_global(einv * z, loc),
+            _linf_global(cd_inv * Px, loc),
+            _linf_global(cd_inv * Aty, loc),
+            torch.maximum(_linf_global(cd_inv * qp_blk.q, loc), nlam))
+
+
+def consensus_check(state, variant, *, spec: ConsensusSpec,
+                    settings: Settings, backend: str, mesh: Mesh,
+                    n_blocks: int, edge_scale: float, use_cert: bool,
+                    restart_checks: int):
+    """One residual check of `run_consensus`: check_every iterations,
+    the globally reduced residuals, the certificates from the
+    pre-restart deltas, the restarted averaging, the status and, in the
+    rho-test variant, the residual-balancing proposal. Returns the state
+    entries it changes; 'flags' holds (status left UNSOLVED, refactor)
+    as int32, agreed over the ranks by the host."""
+    restart, rho_test = variant
+    loc = Local(mesh=mesh, block_ids=state["block_ids"], n_blocks=n_blocks)
+    qp_blk = QPData(**state["qp"], cone=spec.cone)
+    sc = state["scaling"]
+    vecs = (sc["d"], sc["e"], sc["c"])
+    einv = 1.0 / sc["e"]
+    cd_inv = 1.0 / (sc["c"] * sc["d"])
+    k = settings.check_every
+    rho_bar = state["rho_bar"]
+    rho_vec = _rho_vec(rho_bar, state["box_eq"], state["edge"],
+                       settings.rho_eq_scale, edge_scale)
+    x, z, y = state["x"], state["z"], state["y"]
+    for _ in range(k):
+        x, z, y = consensus_body(qp_blk, spec, settings, loc, state["fac"],
+                                 x, z, y, rho_vec, backend,
+                                 z_off=state.get("z_off"))
+    res = _global_res(qp_blk, loc, einv, cd_inv, state["nlam"], x, z, y)
+    # Certificates use PRE-restart deltas: a restart replaces the
+    # iterate with a window average, which wrecks the delta ray.
+    cert = (infeasibility_blocks(qp_blk, spec, settings, loc, vecs,
+                                 x - state["x_chk"], y - state["y_chk"])
+            if use_cert else None)
+    x_chk, y_chk = x, y
+
+    # Restarted averaging: the comparison uses globally reduced norms,
+    # so every rank takes the same decision, and the average keeps the
+    # agreement-row pairing. The window always holds restart_checks
+    # checks: the loop starts at check 0.
+    sums = [state[n] + t for n, t in (("x_sum", x), ("z_sum", z),
+                                      ("y_sum", y))]
+    if restart:
+        xa, za, ya = (s / float(restart_checks) for s in sums)
+        res_a = _global_res(qp_blk, loc, einv, cd_inv, state["nlam"], xa,
+                            za, ya)
+        take = _ratio(res_a, settings) < _ratio(res, settings)
+        x, z, y = (torch.where(take, a, b)
+                   for a, b in ((xa, x), (za, z), (ya, y)))
+        res = tuple(torch.where(take, ra, rc)
+                    for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+        sums = [torch.zeros_like(s) for s in sums]
+
+    status = _status(res, settings, cert)
+    r_prim, r_dual = res[0], res[1]
+    do = torch.zeros((), dtype=torch.bool, device=x.device)
+    new_rho = state["new_rho"]
+    if rho_test:
+        new_rho, changed = _balance(res, rho_bar, settings)
+        do = changed & (status == _UNSOLVED)
+    it = state["it"] + k
+    out = dict(x=x, z=z, y=y, x_chk=x_chk, y_chk=y_chk, x_sum=sums[0],
+               z_sum=sums[1], y_sum=sums[2], status=status, r_prim=r_prim,
+               r_dual=r_dual, new_rho=new_rho, it=it,
+               flags=torch.stack([(status != _UNSOLVED).to(torch.int32),
+                                  do.to(torch.int32)]))
+    hist = state["hist"]
+    if hist.shape[0]:
+        row = torch.stack([it.to(hist.dtype), r_prim.to(hist.dtype),
+                           r_dual.to(hist.dtype)])
+        out["hist"] = admm.hist_write(hist, state["it"] // k, row)
+    return out
+
+
 def run_consensus(qp_blk: QPData, spec: ConsensusSpec, settings: Settings,
                   loc: Local, x0, z0, y0, backend: str, scaling_vecs,
                   z_off=None, rho0=None) -> PhaseResult:
-    """Rank-local driver: a lockstep host loop over residual checks.
-    Every residual is reduced over the horizon axis, so every rank takes
-    the same decisions. scaling_vecs = (d, e, c) of the block-shared
-    Ruiz scaling; residuals and termination are UNSCALED."""
+    """Rank-local driver: a lockstep host loop over residual checks
+    (`consensus_check`, on the card a CUDA graph replay where
+    `graph.capturable` allows). Every residual is reduced over the
+    horizon axis, so every rank takes the same decisions; the host reads
+    one agreed flag tensor a check. scaling_vecs = (d, e, c) of the
+    block-shared Ruiz scaling; residuals and termination are
+    UNSCALED."""
     dtype, dev = qp_blk.dtype, qp_blk.device
     d_s, e_s, c_s = scaling_vecs
-    einv = 1.0 / e_s
     cd_inv = 1.0 / (c_s * d_s)
     idx = torch.arange(spec.mb, device=dev)
     box_eq = ((qp_blk.l == qp_blk.u) & torch.isfinite(qp_blk.l)
@@ -450,84 +594,37 @@ def run_consensus(qp_blk: QPData, spec: ConsensusSpec, settings: Settings,
     rho = _Rho(qp_blk, spec, settings, backend, box_eq)
     rho_bar = (torch.tensor(settings.rho, dtype=dtype, device=dev)
                if rho0 is None else rho0.to(dtype))
-    fac = rho.factor(rho_bar)
-    nlam = _l1_scale(qp_blk, spec, cd_inv, loc)
-    use_cert = settings.eps_pinf > 0 or settings.eps_dinf > 0
+    state = phase_state(qp_blk, rho, scaling_vecs, rho.factor(rho_bar), loc,
+                        z_off)
+    state["nlam"] = _l1_scale(qp_blk, spec, cd_inv, loc)
+    state.update(phase_carry(
+        x0, z0, y0, rho_bar,
+        torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev),
+        torch.tensor(float("inf"), dtype=dtype, device=dev),
+        max(settings.history, 0)))
+    restart_checks = restart_cadence(settings)
+    args, key = loop_static(spec, settings, loc, restart_checks)
+    step = functools.partial(consensus_check, settings=settings,
+                             backend=backend, mesh=loc.mesh, **args)
+    loop = graph.CheckLoop("run_consensus", step, state, settings, backend,
+                           mesh=loc.mesh, **key)
+
     k = settings.check_every
-    interval_checks = max(1, settings.adaptive_rho_interval // k)
-    restart_checks = settings.restart_every and max(
-        1, settings.restart_every // k)
-    hist = torch.full((max(settings.history, 0), 3), -1.0, dtype=dtype,
-                      device=dev)
-
-    def global_res(x, z, y):
-        """Globally reduced unscaled residual norms (7-tuple)."""
-        Ax = mv(qp_blk.A, x)
-        Px = mv(qp_blk.P, x)
-        Aty = vm(y, qp_blk.A)
-        return (_linf_global(einv * (Ax - z), loc),
-                _linf_global(cd_inv * (Px + qp_blk.q + Aty), loc),
-                _linf_global(einv * Ax, loc), _linf_global(einv * z, loc),
-                _linf_global(cd_inv * Px, loc),
-                _linf_global(cd_inv * Aty, loc),
-                torch.maximum(_linf_global(cd_inv * qp_blk.q, loc), nlam))
-
-    x, z, y = x0, z0, y0
-    x_chk, y_chk = x0, y0
-    sums = [torch.zeros_like(t) for t in (x0, z0, y0)]
-    cnt = 0
     it = 0
-    status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
-    r_prim = r_dual = torch.tensor(float("inf"), dtype=dtype, device=dev)
     done = False
     while not done and it < settings.max_iter:
-        check = it // k
-        rho_vec = rho.vec(rho_bar)
-        for _ in range(k):
-            x, z, y = consensus_body(qp_blk, spec, settings, loc, fac, x, z,
-                                     y, rho_vec, backend, z_off=z_off)
+        loop(admm.check_variant(it // k, settings, restart_checks))
         it += k
-        res = global_res(x, z, y)
-        # Certificates use PRE-restart deltas: a restart replaces the
-        # iterate with a window average, which wrecks the delta ray.
-        cert = (infeasibility_blocks(qp_blk, spec, settings, loc,
-                                     scaling_vecs, x - x_chk, y - y_chk)
-                if use_cert else None)
-        x_chk, y_chk = x, y
-
-        # Restarted averaging: the comparison uses globally reduced
-        # norms, so every rank takes the same decision, and the average
-        # keeps the agreement-row pairing.
-        sums = [s + t for s, t in zip(sums, (x, z, y))]
-        cnt += 1
-        if restart_checks and check % restart_checks == restart_checks - 1:
-            xa, za, ya = (s / float(cnt) for s in sums)
-            res_a = global_res(xa, za, ya)
-            take = _ratio(res_a, settings) < _ratio(res, settings)
-            x, z, y = (torch.where(take, a, b)
-                       for a, b in ((xa, x), (za, z), (ya, y)))
-            res = tuple(torch.where(take, ra, rc)
-                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
-            sums = [torch.zeros_like(s) for s in sums]
-            cnt = 0
-
-        status = _status(res, settings, cert)
-        r_prim, r_dual = res[0], res[1]
-        do = torch.zeros((), dtype=torch.bool, device=dev)
-        if (settings.adaptive_rho
-                and check % interval_checks == interval_checks - 1):
-            new_rho, changed = _balance(res, rho_bar, settings)
-            do = changed & (status == _UNSOLVED)
-        if hist.shape[0]:
-            _record(hist, check, it, r_prim, r_dual)
-        # The one device-to-host read of this check.
-        flags = runtime.agree(
-            torch.stack([(status != _UNSOLVED).to(torch.int32),
-                         do.to(torch.int32)]), loc.mesh)
-        done, do = (bool(f) for f in flags.tolist())
+        # The one device-to-host read of this check, agreed over every
+        # rank.
+        done, do = (bool(f) for f in
+                    runtime.agree(loop.state["flags"], loc.mesh).tolist())
         if do:
-            rho_bar = new_rho
-            fac = rho.refresh(fac, rho_bar)
+            rho_bar = loop.state["new_rho"]
+            loop.set(dict(rho_bar=rho_bar,
+                          fac=rho.refresh(loop.state["fac"], rho_bar)))
+    x, z, y, status, r_prim, r_dual, rho_bar, hist = loop.result(
+        "x", "z", "y", "status", "r_prim", "r_dual", "rho_bar", "hist")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
                          status).to(torch.int32)
     return PhaseResult(x, z, y, status,

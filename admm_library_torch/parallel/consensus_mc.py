@@ -19,8 +19,11 @@ parallel/consensus.py.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..core import admm, graph
 from ..core.scaling import ruiz_equilibrate_blocks
 from ..problem import QPData, mv, vm
 from ..settings import Settings
@@ -29,53 +32,36 @@ from . import runtime
 from .batch import _geomean_masked
 from .consensus import (ConsensusSolution, ConsensusSpec, Local,
                         PhaseResult, _backend, _balance, _l1_scale,
-                        _linf_scen, _pmax, _ratio, _record, _Rho,
+                        _linf_scen, _pmax, _ratio, _rho_vec, _Rho,
                         _scaled_inputs, _status, consensus_body,
-                        infeasibility_blocks, recentered_rounds_blocks,
-                        solve_pipeline)
+                        infeasibility_blocks, loop_static, phase_carry,
+                        phase_state, recentered_rounds_blocks,
+                        restart_cadence, solve_pipeline)
 from .runtime import DATA_AXIS, HORIZON_AXIS, Mesh
 
 _UNSOLVED = int(Status.UNSOLVED)
 
 
-def run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
-                     settings: Settings, loc: Local, x0, z0, y0,
-                     backend: str, scaling_vecs, z_off=None,
-                     rho0=None) -> PhaseResult:
-    """Rank-local driver over both axes.
-
-    qp_blk: block-local data with SCENARIO-BATCHED l/u of shape (B_loc,
-    S, mb); P (S, nb, nb), A (S, mb, nb) and q (S, nb) shared (q may be
-    (B_loc, S, nb) in the re-centred rounds). x0/z0/y0: (B_loc, S, .).
-    scaling_vecs = (d, e, c) of the block-shared Ruiz scaling;
-    residuals and termination are UNSCALED.
-    """
-    dtype, dev = qp_blk.dtype, qp_blk.device
-    mesh = loc.mesh
-    B_loc = x0.shape[0]
-    d_s, e_s, c_s = scaling_vecs
-    einv = 1.0 / e_s
-    cd_inv = 1.0 / (c_s * d_s)
-    # Equality boost from lane 0's bounds (dispersions change values,
-    # not the equality pattern) plus all edge rows.
-    idx = torch.arange(spec.mb, device=dev)
-    l0, u0 = qp_blk.l[0], qp_blk.u[0]
-    box_eq = (l0 == u0) & torch.isfinite(l0) & (idx < spec.cone.m_box)
-    rho = _Rho(qp_blk, spec, settings, backend, box_eq)
-    rho_bar = (torch.tensor(settings.rho, dtype=dtype, device=dev)
-               if rho0 is None else rho0.to(dtype))
-    fac = rho.factor(rho_bar)
-    nlam = _l1_scale(qp_blk, spec, cd_inv, loc)
-    # The q scale is a max over this rank's scenarios and the horizon
-    # axis, as the reference's (per-scenario q in the re-centred rounds).
-    nq = torch.maximum(_pmax((cd_inv * qp_blk.q).abs().amax(), loc), nlam)
-    use_cert = settings.eps_pinf > 0 or settings.eps_dinf > 0
+def consensus_mc_check(state, variant, *, spec: ConsensusSpec,
+                       settings: Settings, backend: str, mesh: Mesh,
+                       n_blocks: int, edge_scale: float, use_cert: bool,
+                       restart_checks: int):
+    """One residual check of `run_consensus_mc`: check_every iterations
+    with finished scenarios frozen, the per-scenario residuals and
+    certificates (pre-restart deltas), the per-scenario restarted
+    averaging, the status and, in the rho-test variant, the shared rho
+    from the still-active scenarios' geometric mean. Returns the state
+    entries it changes; 'flags' holds (any scenario UNSOLVED, refactor)
+    as int32, agreed over the ranks by the host."""
+    restart, rho_test = variant
+    loc = Local(mesh=mesh, block_ids=state["block_ids"], n_blocks=n_blocks)
+    qp_blk = QPData(**state["qp"], cone=spec.cone)
+    sc = state["scaling"]
+    vecs = (sc["d"], sc["e"], sc["c"])
+    einv = 1.0 / sc["e"]
+    cd_inv = 1.0 / (sc["c"] * sc["d"])
+    nq = state["nq"]
     k = settings.check_every
-    interval_checks = max(1, settings.adaptive_rho_interval // k)
-    restart_checks = settings.restart_every and max(
-        1, settings.restart_every // k)
-    hist = torch.full((max(settings.history, 0), 3), -1.0, dtype=dtype,
-                      device=dev)
 
     def scen_res(x, z, y):
         """Per-scenario unscaled residual norms (7-tuple of (B_loc,))."""
@@ -88,81 +74,137 @@ def run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
                 _linf_scen(cd_inv * Px, loc), _linf_scen(cd_inv * Aty, loc),
                 nq)
 
-    def geomean(v):
-        return _geomean_masked(v, still, mesh)
-
     def pick(mask, a, b):
         return torch.where(mask[:, None, None], a, b)
 
-    x, z, y = x0, z0, y0
-    x_chk, y_chk = x0, y0
-    sums = [torch.zeros_like(t) for t in (x0, z0, y0)]
-    cnt = 0
+    rho_bar, status = state["rho_bar"], state["status"]
+    rho_vec = _rho_vec(rho_bar, state["box_eq"], state["edge"],
+                       settings.rho_eq_scale, edge_scale)
+    active = status == _UNSOLVED
+    x, z, y = state["x"], state["z"], state["y"]
+    xn, zn, yn = x, z, y
+    for _ in range(k):
+        xn, zn, yn = consensus_body(qp_blk, spec, settings, loc,
+                                    state["fac"], xn, zn, yn, rho_vec,
+                                    backend, z_off=state.get("z_off"))
+    x, z, y = pick(active, xn, x), pick(active, zn, z), pick(active, yn, y)
+    iters = state["iters"] + active.to(torch.int32) * k
+    res = scen_res(x, z, y)
+    # Per-scenario certificates from PRE-restart deltas.
+    cert = (infeasibility_blocks(qp_blk, spec, settings, loc, vecs,
+                                 x - state["x_chk"], y - state["y_chk"])
+            if use_cert else None)
+    x_chk, y_chk = x, y
+
+    # Per-scenario restarted averaging; the norms are reduced over the
+    # horizon axis, so every horizon rank takes the same per-scenario
+    # decision. The window always holds restart_checks checks.
+    sums = [state[n] + t for n, t in (("x_sum", x), ("z_sum", z),
+                                      ("y_sum", y))]
+    if restart:
+        xa, za, ya = (s / float(restart_checks) for s in sums)
+        res_a = scen_res(xa, za, ya)
+        take = active & (_ratio(res_a, settings) < _ratio(res, settings))
+        x, z, y = pick(take, xa, x), pick(take, za, z), pick(take, ya, y)
+        res = tuple(torch.where(take, ra, rc)
+                    for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+        sums = [torch.zeros_like(s) for s in sums]
+
+    status = torch.where(active, _status(res, settings, cert), status)
+    r_p = torch.where(active, res[0], state["r_prim"])
+    r_d = torch.where(active, res[1], state["r_dual"])
+
+    still = status == _UNSOLVED
+    do = torch.zeros((), dtype=torch.bool, device=x.device)
+    new_rho = state["new_rho"]
+    if rho_test:
+        def geomean(v):
+            return _geomean_masked(v, still, mesh)
+        new_rho, changed = _balance((r_p, r_d) + res[2:], rho_bar, settings,
+                                    geomean=geomean)
+        do = changed & still.any()
+    it = state["it"] + k
+    out = dict(x=x, z=z, y=y, x_chk=x_chk, y_chk=y_chk, x_sum=sums[0],
+               z_sum=sums[1], y_sum=sums[2], iters=iters, status=status,
+               r_prim=r_p, r_dual=r_d, new_rho=new_rho, it=it,
+               flags=torch.stack([still.any(), do]).to(torch.int32))
+    hist = state["hist"]
+    if hist.shape[0]:
+        row = torch.stack([
+            it.to(hist.dtype),
+            runtime.pmax(r_p.amax(), mesh, DATA_AXIS).to(hist.dtype),
+            runtime.pmax(r_d.amax(), mesh, DATA_AXIS).to(hist.dtype)])
+        out["hist"] = admm.hist_write(hist, state["it"] // k, row)
+    return out
+
+
+def run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
+                     settings: Settings, loc: Local, x0, z0, y0,
+                     backend: str, scaling_vecs, z_off=None,
+                     rho0=None) -> PhaseResult:
+    """Rank-local driver over both axes: a lockstep host loop over
+    residual checks (`consensus_mc_check`, on the card a CUDA graph
+    replay where `graph.capturable` allows) that reads one agreed flag
+    tensor a check.
+
+    qp_blk: block-local data with SCENARIO-BATCHED l/u of shape (B_loc,
+    S, mb); P (S, nb, nb), A (S, mb, nb) and q (S, nb) shared (q may be
+    (B_loc, S, nb) in the re-centred rounds). x0/z0/y0: (B_loc, S, .).
+    scaling_vecs = (d, e, c) of the block-shared Ruiz scaling;
+    residuals and termination are UNSCALED.
+    """
+    dtype, dev = qp_blk.dtype, qp_blk.device
+    B_loc = x0.shape[0]
+    d_s, e_s, c_s = scaling_vecs
+    cd_inv = 1.0 / (c_s * d_s)
+    # Equality boost from lane 0's bounds (dispersions change values,
+    # not the equality pattern) plus all edge rows.
+    idx = torch.arange(spec.mb, device=dev)
+    l0, u0 = qp_blk.l[0], qp_blk.u[0]
+    box_eq = (l0 == u0) & torch.isfinite(l0) & (idx < spec.cone.m_box)
+    rho = _Rho(qp_blk, spec, settings, backend, box_eq)
+    rho_bar = (torch.tensor(settings.rho, dtype=dtype, device=dev)
+               if rho0 is None else rho0.to(dtype))
+    state = phase_state(qp_blk, rho, scaling_vecs, rho.factor(rho_bar), loc,
+                        z_off)
+    nlam = _l1_scale(qp_blk, spec, cd_inv, loc)
+    # The q scale is a max over this rank's scenarios and the horizon
+    # axis, as the reference's (per-scenario q in the re-centred rounds).
+    state["nq"] = torch.maximum(
+        _pmax((cd_inv * qp_blk.q).abs().amax(), loc), nlam)
+    state.update(phase_carry(
+        x0, z0, y0, rho_bar,
+        torch.full((B_loc,), _UNSOLVED, dtype=torch.int32, device=dev),
+        torch.full((B_loc,), float("inf"), dtype=dtype, device=dev),
+        max(settings.history, 0)))
+    state["iters"] = torch.zeros(B_loc, dtype=torch.int32, device=dev)
+    restart_checks = restart_cadence(settings)
+    args, key = loop_static(spec, settings, loc, restart_checks)
+    step = functools.partial(consensus_mc_check, settings=settings,
+                             backend=backend, mesh=loc.mesh, **args)
+    loop = graph.CheckLoop("run_consensus_mc", step, state, settings,
+                           backend, mesh=loc.mesh, **key)
+
+    k = settings.check_every
     it = 0
-    iters_sc = torch.zeros(B_loc, dtype=torch.int32, device=dev)
-    status = torch.full((B_loc,), _UNSOLVED, dtype=torch.int32, device=dev)
-    r_p = r_d = torch.full((B_loc,), float("inf"), dtype=dtype, device=dev)
     alive = True
     while alive and it < settings.max_iter:
-        check = it // k
-        rho_vec = rho.vec(rho_bar)
-        active = status == _UNSOLVED
-        xn, zn, yn = x, z, y
-        for _ in range(k):
-            xn, zn, yn = consensus_body(qp_blk, spec, settings, loc, fac,
-                                        xn, zn, yn, rho_vec, backend,
-                                        z_off=z_off)
-        x, z, y = pick(active, xn, x), pick(active, zn, z), pick(active, yn, y)
+        loop(admm.check_variant(it // k, settings, restart_checks))
         it += k
-        iters_sc = iters_sc + active.to(torch.int32) * k
-        res = scen_res(x, z, y)
-        # Per-scenario certificates from PRE-restart deltas.
-        cert = (infeasibility_blocks(qp_blk, spec, settings, loc,
-                                     scaling_vecs, x - x_chk, y - y_chk)
-                if use_cert else None)
-        x_chk, y_chk = x, y
-
-        # Per-scenario restarted averaging; the norms are reduced over
-        # the horizon axis, so every horizon rank takes the same
-        # per-scenario decision.
-        sums = [s + t for s, t in zip(sums, (x, z, y))]
-        cnt += 1
-        if restart_checks and check % restart_checks == restart_checks - 1:
-            xa, za, ya = (s / float(cnt) for s in sums)
-            res_a = scen_res(xa, za, ya)
-            take = active & (_ratio(res_a, settings) < _ratio(res, settings))
-            x, z, y = pick(take, xa, x), pick(take, za, z), pick(take, ya, y)
-            res = tuple(torch.where(take, ra, rc)
-                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
-            sums = [torch.zeros_like(s) for s in sums]
-            cnt = 0
-
-        status = torch.where(active, _status(res, settings, cert), status)
-        r_p = torch.where(active, res[0], r_p)
-        r_d = torch.where(active, res[1], r_d)
-
-        still = status == _UNSOLVED
-        do = torch.zeros((), dtype=torch.bool, device=dev)
-        if (settings.adaptive_rho
-                and check % interval_checks == interval_checks - 1):
-            new_rho, changed = _balance((r_p, r_d) + res[2:], rho_bar,
-                                        settings, geomean=geomean)
-            do = changed & still.any()
-        if hist.shape[0]:
-            _record(hist, check, it,
-                    runtime.pmax(r_p.amax(), mesh, DATA_AXIS),
-                    runtime.pmax(r_d.amax(), mesh, DATA_AXIS))
         # The one device-to-host read of this check: liveness over every
         # scenario of the mesh, and the shared rho decision.
-        flags = runtime.agree(
-            torch.stack([still.any(), do]).to(torch.int32), mesh)
-        alive, do = (bool(f) for f in flags.tolist())
+        alive, do = (bool(f) for f in
+                     runtime.agree(loop.state["flags"], loc.mesh).tolist())
         if do:
-            rho_bar = new_rho
-            fac = rho.refresh(fac, rho_bar)
+            rho_bar = loop.state["new_rho"]
+            loop.set(dict(rho_bar=rho_bar,
+                          fac=rho.refresh(loop.state["fac"], rho_bar)))
+    x, z, y, status, iters, r_p, r_d, rho_bar, hist = loop.result(
+        "x", "z", "y", "status", "iters", "r_prim", "r_dual", "rho_bar",
+        "hist")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
                          status).to(torch.int32)
-    return PhaseResult(x, z, y, status, iters_sc, r_p, r_d, rho_bar, hist)
+    return PhaseResult(x, z, y, status, iters, r_p, r_d, rho_bar, hist)
 
 
 def _mc_phase(qp_blk: QPData, spec: ConsensusSpec, loc: Local,

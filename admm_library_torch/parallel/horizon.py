@@ -31,11 +31,13 @@ solve_batch_shared's iterates with those off.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..core import admm, graph
 from ..ops import banded as banded_ops
 from ..ops.kkt import cholesky_or_nan
 from ..ops.prox import project_cone
@@ -349,24 +351,144 @@ class HorizonSolution(NamedTuple):
     rho: torch.Tensor
 
 
+def _rho_vec(rb, eq, soc_rows, settings: Settings, cone: ConeSpec):
+    """Per-row penalties: boosted on equality rows and, with
+    rho_soc_scale != 1, on SOC rows."""
+    rv = torch.where(eq, settings.rho_eq_scale * rb, rb)
+    if cone.m_soc and settings.rho_soc_scale != 1.0:
+        rv = torch.where(soc_rows, settings.rho_soc_scale * rb, rv)
+    return rv
+
+
+def _spmv_A(hp: HorizonParts, loc: Local, ni: int, x):
+    """A x with the halo term: x (B, S, npb) -> (B, S, mp)."""
+    x_last_prev = _neighbor_prev(x[..., ni:], loc)
+    halo = mv(hp.A_halo, x_last_prev)
+    return mv(hp.A_loc, x) + torch.where(loc.is_first, 0.0, halo)
+
+
+def _spmv_At(hp: HorizonParts, loc: Local, ni: int, v):
+    """Aᵀ v scattered back onto x: v (B, S, mp) -> (B, S, npb)."""
+    mine = vm(v, hp.A_halo)                             # (B, S, b)
+    from_next = _neighbor_next(torch.where(loc.is_first, 0.0, mine), loc)
+    from_next = torch.where(loc.is_last, 0.0, from_next)
+    out = vm(v, hp.A_loc)
+    return torch.cat([out[..., :ni], out[..., ni:] + from_next], dim=-1)
+
+
+def _linf_scen(loc: Local, *vs):
+    """Per-scenario inf-norms of each v over (parts, rows), reduced over
+    'horizon' (one collective)."""
+    return _pmax(torch.stack([v.abs().amax(dim=(-2, -1)) for v in vs]), loc)
+
+
+def horizon_check(state, variant, *, spec: HorizonSpec, settings: Settings,
+                  mesh: Mesh):
+    """One residual check of `_run_horizon`: check_every iterations of
+    the distributed-SPIKE ADMM with finished scenarios frozen, the
+    per-scenario residuals and status and, in the rho-test variant
+    (`variant[1]`; the driver has no restart), the shared rho from the
+    still-active scenarios' geometric mean. Returns the state entries it
+    changes; 'flags' holds (any scenario UNSOLVED, refactor) as int32,
+    agreed over the ranks by the host."""
+    _, rho_test = variant
+    hp = HorizonParts(**state["hp"])
+    loc = Local(mesh=mesh, block_ids=state["block_ids"],
+                n_blocks=spec.parts)
+    fac = state["fac"]
+    ni = spec.ni
+    sigma, alpha = settings.sigma, settings.alpha
+    cone = spec.cone
+    mb_loc, ml_loc = cone.m_box, cone.m_l1
+    tiny = torch.finfo(hp.q.dtype).tiny
+    k = settings.check_every
+
+    def body_iter(x, z, y, rho_vec):
+        rhs = sigma * x - hp.q + _spmv_At(hp, loc, ni, rho_vec * z - y)
+        xt = _spike_solve_sharded(fac, rhs, loc, spec)
+        zt = _spmv_A(hp, loc, ni, xt)
+        x_new = alpha * xt + (1.0 - alpha) * x
+        w = alpha * zt + (1.0 - alpha) * z
+        v = w + y / rho_vec
+        lam_r = (hp.lam / rho_vec[..., mb_loc:mb_loc + ml_loc]
+                 if ml_loc else hp.lam)
+        z_new = project_cone(v, hp.l, hp.u, lam_r, cone)
+        y_new = y + rho_vec * (w - z_new)
+        return x_new, z_new, y_new
+
+    def residuals(x, z, y):
+        Ax = _spmv_A(hp, loc, ni, x)
+        Px = hp.P_diag * x
+        Aty = _spmv_At(hp, loc, ni, y)
+        return tuple(_linf_scen(loc, Ax - z, Px + hp.q + Aty, Ax, z, Px,
+                                Aty)) + (state["nq"],)
+
+    rho_bar, status = state["rho_bar"], state["status"]
+    rho_vec = _rho_vec(rho_bar, state["eq"], state["soc_rows"], settings,
+                       cone)
+    active = status == _UNSOLVED
+    x, z, y = state["x"], state["z"], state["y"]
+    xn, zn, yn = x, z, y
+    for _ in range(k):
+        xn, zn, yn = body_iter(xn, zn, yn, rho_vec)
+    am = active[:, None, None]
+    x, z, y = (torch.where(am, a, o) for a, o in ((xn, x), (zn, z), (yn, y)))
+    iters = state["iters"] + active.to(torch.int32) * k
+
+    rp_n, rd_n, nAx, nz, nPx, nAty, nq_ = residuals(x, z, y)
+    eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(nAx, nz)
+    eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+        torch.maximum(nPx, nAty), nq_)
+    solved = (rp_n <= eps_p) & (rd_n <= eps_d)
+    numerr = ~(torch.isfinite(rp_n) & torch.isfinite(rd_n))
+    status = torch.where(
+        active,
+        torch.where(numerr, int(Status.NUMERICAL_ERROR),
+                    torch.where(solved, _SOLVED, _UNSOLVED)),
+        status).to(torch.int32)
+    r_p = torch.where(active, rp_n, state["r_prim"])
+    r_d = torch.where(active, rd_n, state["r_dual"])
+
+    still = status == _UNSOLVED
+    do = torch.zeros((), dtype=torch.bool, device=x.device)
+    new_rho = state["new_rho"]
+    if rho_test:
+        sp = r_p / torch.clamp(torch.maximum(nAx, nz), min=tiny)
+        sd = r_d / torch.clamp(
+            torch.maximum(torch.maximum(nPx, nAty), nq_), min=tiny)
+        logr = torch.where(still, torch.log(torch.sqrt(
+            torch.clamp(sp, min=tiny) / torch.clamp(sd, min=tiny))), 0.0)
+        tot = runtime.psum(logr.sum(), mesh, DATA_AXIS)
+        cnt = runtime.psum(still.sum(), mesh, DATA_AXIS)
+        ratio = torch.exp(tot / torch.clamp(cnt, min=1))
+        new_rho = torch.clamp(rho_bar * ratio, settings.rho_min,
+                              settings.rho_max)
+        tol = settings.adaptive_rho_tol
+        do = ((ratio > tol) | (ratio < 1.0 / tol)) & (cnt > 0)
+    return dict(x=x, z=z, y=y, iters=iters, status=status, r_prim=r_p,
+                r_dual=r_d, new_rho=new_rho,
+                flags=torch.stack([still.any(), do]).to(torch.int32))
+
+
 def _run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
                  loc: Local, x0, z0, y0):
-    """Rank-local driver: a lockstep host loop over residual checks.
+    """Rank-local driver: a lockstep host loop over residual checks
+    (`horizon_check`, on the card a CUDA graph replay where
+    `graph.capturable` allows for the 'spike' x-update).
 
     hp holds this rank's parts, with l/u (B_loc, S, mp). Plain ADMM as
     parallel.batch.run_admm_batch_shared's core loop (x-solve, relax,
     prox, dual update, per-scenario freezing, shared adaptive rho) with
     the x-solve distributed. Every residual is reduced over 'horizon',
     so the ranks of a data row take the same decisions; the loop and
-    refactor flags are agreed over every rank.
+    refactor flags are agreed over every rank. The refactor (interior
+    Cholesky factors and the separator system) stays on the host and is
+    written into the loop's state.
     """
     dtype, dev = hp.q.dtype, hp.q.device
-    mesh = loc.mesh
     S = hp.q.shape[0]
     ni, b, npb, mp = spec.ni, spec.b, spec.npb, spec.mp
     B_loc = x0.shape[0]
-    sigma = settings.sigma
-    alpha = settings.alpha
     cone = spec.cone
     mb_loc, ml_loc = cone.m_box, cone.m_l1
     is_first, is_last = loc.is_first, loc.is_last          # (S, 1)
@@ -376,16 +498,10 @@ def _run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
     eq = (l0 == u0) & torch.isfinite(l0) & (row_idx < mb_loc)
     is_soc_row = row_idx >= mb_loc + ml_loc
 
-    def rho_vec_of(rb):
-        rv = torch.where(eq, settings.rho_eq_scale * rb, rb)
-        if cone.m_soc and settings.rho_soc_scale != 1.0:
-            rv = torch.where(is_soc_row, settings.rho_soc_scale * rb, rv)
-        return rv
-
     def factor(rb):
-        rv = rho_vec_of(rb)
+        rv = _rho_vec(rb, eq, is_soc_row, settings, cone)
         Mpp = (hp.A_loc.mT @ (rv[..., None] * hp.A_loc)
-               + sigma * torch.eye(npb, dtype=dtype, device=dev)
+               + settings.sigma * torch.eye(npb, dtype=dtype, device=dev)
                + torch.diag_embed(hp.P_diag))
         # The next part's A_haloᵀ ρ A_halo lands on OUR separator block.
         corner = _neighbor_next(
@@ -400,27 +516,7 @@ def _run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
         fac = _spike_factor_sharded(Mpp, E, spec, loc)
         return {**fac, **_spike_reduce_factor(fac, loc)}
 
-    def spmv_A(x):
-        """A x with the halo term: x (B, S, npb) -> (B, S, mp)."""
-        x_last_prev = _neighbor_prev(x[..., ni:], loc)
-        halo = mv(hp.A_halo, x_last_prev)
-        return mv(hp.A_loc, x) + torch.where(is_first, 0.0, halo)
-
-    def spmv_At(v):
-        """Aᵀ v scattered back onto x: v (B, S, mp) -> (B, S, npb)."""
-        mine = vm(v, hp.A_halo)                             # (B, S, b)
-        from_next = _neighbor_next(torch.where(is_first, 0.0, mine), loc)
-        from_next = torch.where(is_last, 0.0, from_next)
-        out = vm(v, hp.A_loc)
-        return torch.cat([out[..., :ni], out[..., ni:] + from_next], dim=-1)
-
-    def linf_scen(*vs):
-        """Per-scenario inf-norms of each v over (parts, rows), reduced
-        over 'horizon' (one collective)."""
-        return _pmax(torch.stack([v.abs().amax(dim=(-2, -1)) for v in vs]),
-                     loc)
-
-    nq = linf_scen(hp.q[None])[0]
+    nq = _linf_scen(loc, hp.q[None])[0]
     if ml_loc:
         # L1 gradient scale in the dual-norm reference (cf. core.admm.
         # l1_grad_scale_raw): max_j max_i lam_i |A[i, j]| over the L1
@@ -431,91 +527,44 @@ def _run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
             (hp.lam[:, :, None] * hp.A_halo[:, sl, :].abs()).amax())
         nq = torch.maximum(nq, _pmax(lamA, loc))
 
-    def body_iter(x, z, y, fac, rho_vec):
-        rhs = sigma * x - hp.q + spmv_At(rho_vec * z - y)
-        xt = _spike_solve_sharded(fac, rhs, loc, spec)
-        zt = spmv_A(xt)
-        x_new = alpha * xt + (1.0 - alpha) * x
-        w = alpha * zt + (1.0 - alpha) * z
-        v = w + y / rho_vec
-        lam_r = (hp.lam / rho_vec[..., mb_loc:mb_loc + ml_loc]
-                 if ml_loc else hp.lam)
-        z_new = project_cone(v, hp.l, hp.u, lam_r, cone)
-        y_new = y + rho_vec * (w - z_new)
-        return x_new, z_new, y_new
-
-    def residuals(x, z, y):
-        Ax = spmv_A(x)
-        Px = hp.P_diag * x
-        Aty = spmv_At(y)
-        return tuple(linf_scen(Ax - z, Px + hp.q + Aty, Ax, z, Px,
-                               Aty)) + (nq,)
-
     rho_bar = torch.tensor(settings.rho, dtype=dtype, device=dev)
-    fac = factor(rho_bar)
+    big = torch.full((B_loc,), float("inf"), dtype=dtype, device=dev)
+    state = dict(hp=hp._asdict(), fac=factor(rho_bar), eq=eq,
+                 soc_rows=is_soc_row, block_ids=loc.block_ids, nq=nq,
+                 x=x0, z=z0, y=y0, rho_bar=rho_bar, new_rho=rho_bar,
+                 iters=torch.zeros(B_loc, dtype=torch.int32, device=dev),
+                 status=torch.full((B_loc,), _UNSOLVED, dtype=torch.int32,
+                                   device=dev),
+                 r_prim=big, r_dual=big,
+                 flags=torch.ones(2, dtype=torch.int32, device=dev))
+    mesh = loc.mesh
+    step = functools.partial(horizon_check, spec=spec, settings=settings,
+                             mesh=mesh)
+    # The key holds plain values (cf. consensus.loop_static).
+    loop = graph.CheckLoop(
+        "run_horizon", step, state, settings, "spike", mesh=mesh,
+        spec=spec, block_ids=tuple(loc.block_ids.tolist()),
+        mesh_shape=tuple(sorted(mesh.shape.items())),
+        mesh_coords=tuple(sorted(mesh.coords.items())))
+
     k = settings.check_every
-    interval_checks = max(1, settings.adaptive_rho_interval // k)
-    tiny = torch.finfo(dtype).tiny
-    x, z, y = x0, z0, y0
     it = 0
-    iters_sc = torch.zeros(B_loc, dtype=torch.int32, device=dev)
-    status = torch.full((B_loc,), _UNSOLVED, dtype=torch.int32, device=dev)
-    r_p = r_d = torch.full((B_loc,), float("inf"), dtype=dtype, device=dev)
     alive = True
     while alive and it < settings.max_iter:
-        check = it // k
-        rho_vec = rho_vec_of(rho_bar)
-        active = status == _UNSOLVED
-        xn, zn, yn = x, z, y
-        for _ in range(k):
-            xn, zn, yn = body_iter(xn, zn, yn, fac, rho_vec)
-        am = active[:, None, None]
-        x, z, y = (torch.where(am, a, o)
-                   for a, o in ((xn, x), (zn, z), (yn, y)))
+        loop(admm.check_variant(it // k, settings, 0))
         it += k
-        iters_sc = iters_sc + active.to(torch.int32) * k
-
-        rp_n, rd_n, nAx, nz, nPx, nAty, nq_ = residuals(x, z, y)
-        eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(nAx, nz)
-        eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
-            torch.maximum(nPx, nAty), nq_)
-        solved = (rp_n <= eps_p) & (rd_n <= eps_d)
-        numerr = ~(torch.isfinite(rp_n) & torch.isfinite(rd_n))
-        status = torch.where(
-            active,
-            torch.where(numerr, int(Status.NUMERICAL_ERROR),
-                        torch.where(solved, _SOLVED, _UNSOLVED)),
-            status).to(torch.int32)
-        r_p = torch.where(active, rp_n, r_p)
-        r_d = torch.where(active, rd_n, r_d)
-
-        still = status == _UNSOLVED
-        do = torch.zeros((), dtype=torch.bool, device=dev)
-        if (settings.adaptive_rho
-                and check % interval_checks == interval_checks - 1):
-            sp = r_p / torch.clamp(torch.maximum(nAx, nz), min=tiny)
-            sd = r_d / torch.clamp(
-                torch.maximum(torch.maximum(nPx, nAty), nq_), min=tiny)
-            logr = torch.where(still, torch.log(torch.sqrt(
-                torch.clamp(sp, min=tiny) / torch.clamp(sd, min=tiny))), 0.0)
-            tot = runtime.psum(logr.sum(), mesh, DATA_AXIS)
-            cnt = runtime.psum(still.sum(), mesh, DATA_AXIS)
-            ratio = torch.exp(tot / torch.clamp(cnt, min=1))
-            new_rho = torch.clamp(rho_bar * ratio, settings.rho_min,
-                                  settings.rho_max)
-            tol = settings.adaptive_rho_tol
-            do = ((ratio > tol) | (ratio < 1.0 / tol)) & (cnt > 0)
         # The one device-to-host read of this check: liveness of any
         # scenario on any rank, and the shared refactor decision.
-        flags = runtime.agree(
-            torch.stack([still.any(), do]).to(torch.int32), mesh)
-        alive, do = (bool(f) for f in flags.tolist())
+        alive, do = (bool(f) for f in
+                     runtime.agree(loop.state["flags"], mesh).tolist())
         if do:
-            rho_bar = new_rho
-            fac = factor(rho_bar)
+            rho_bar = loop.state["new_rho"]
+            loop.set(dict(rho_bar=rho_bar, fac=factor(rho_bar)))
+    x, z, y, status, iters, r_p, r_d, rho_bar = loop.result(
+        "x", "z", "y", "status", "iters", "r_prim", "r_dual", "rho_bar")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
                          status).to(torch.int32)
-    return x, z, y, status, iters_sc, r_p, r_d, rho_bar
+    return x, z, y, status, iters, r_p, r_d, rho_bar
 
 
 def solve_horizon_sharded(hp: HorizonParts, spec: HorizonSpec, mesh: Mesh,

@@ -639,6 +639,49 @@ def _timed_solve(qp, settings):
     return sol, secs, launches["fused_iterate_shared"]
 
 
+def _captured_runs(fn, *args):
+    """fn(*args) from an empty check cache, then a rerun: both results,
+    and a record of the captured checks (core/graph.py) with each run's
+    wall-clock, kernel launches and graph.CACHE.stats deltas (captures,
+    replays, warm-ups, capture ms), the cache's entries, the nodes of
+    each graph (counted after the first run) and the peak device memory
+    allocated over both runs."""
+    import torch
+    from admm_library_torch.core import graph
+    graph.CACHE.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sols, runs = [], []
+    for _ in range(2):
+        before = dict(graph.CACHE.stats)
+        sol, wall, launches = _timed_run(fn, *args)
+        sols.append(sol)
+        runs.append(dict(wall_s=wall, launches=launches, **{
+            k: graph.CACHE.stats[k] - before[k] for k in before}))
+        if len(runs) == 1:
+            nodes = _graph_nodes()
+    return sols, dict(graph_first=runs[0], graph_rerun=runs[1],
+                      graph_entries=len(graph.CACHE.entries),
+                      nodes_per_graph=nodes,
+                      peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _check_captured(tag, rec):
+    """The captured-check bars of a path: its first run captured and
+    replayed a check, its rerun warmed no variant up (every key stayed
+    in the cache), and no graph is empty."""
+    first, rerun = rec["graph_first"], rec["graph_rerun"]
+    check(first["captures"] > 0 and first["replays"] > 0,
+          f"{tag}: no check was captured and replayed")
+    # A variant met once in the first run was only warmed there; its
+    # capture comes at its second check, in the rerun.
+    check(rerun["eager_checks"] == 0,
+          f"{tag}: the rerun warmed a variant up again")
+    check(rerun["replays"] > 0, f"{tag}: the rerun replayed no check")
+    check(min(rec["nodes_per_graph"].values()) > 0,
+          f"{tag}: an empty graph")
+
+
 def phase_slice(batch, dev):
     import torch
     from admm_library_torch import Settings, Status
@@ -1302,11 +1345,14 @@ def phase_banded(dev):
     qp = qp32.astype(torch.float64)      # f32 data, f64 outputs
     s = Settings(eps_abs=EPS, eps_rel=EPS, band_block=spec.block,
                  backend="banded")
-    sol, wall, launches = _timed_run(solve, qp, s)
-    sol2, wall2, _ = _timed_run(solve, qp, s)
+    (sol, sol2), graph_rec = _captured_runs(solve, qp, s)
+    wall, launches = (graph_rec["graph_first"]["wall_s"],
+                      graph_rec["graph_first"]["launches"])
+    wall2 = graph_rec["graph_rerun"]["wall_s"]
+    iters = int(sol.iters)
+    prof = _profiled(solve, qp, s)
     inv = solve(qp, s.replace(backend="inv"))
     r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
-    iters = int(sol.iters)
     kkt_ms = _kkt_solve_ms(qp, s)
     s4 = _config4(dev)[2].replace(backend="auto")
     picked = {"config2": resolve_backend(s.replace(backend="auto"), dev,
@@ -1324,7 +1370,8 @@ def phase_banded(dev):
                inv_x_max_abs_diff=float((sol.x - inv.x).abs().max()),
                rollout_terminal_err=float(
                    rollout(spec, s0, sol.x)[-1].abs().max()),
-               resolve_backend_auto=picked, kkt_solve_ms=kkt_ms)
+               resolve_backend_auto=picked, kkt_solve_ms=kkt_ms,
+               **_profile_fields(prof, iters, wall2), **graph_rec)
     emit("banded", **rec)
     check(int(sol.status) == int(Status.SOLVED), "banded: not SOLVED")
     check(r_p <= eps_p and r_d <= eps_d,
@@ -1339,6 +1386,7 @@ def phase_banded(dev):
           "identical")
     check(picked == {"config2": "inv", "config4": "inv", "n4096": "banded"},
           f"banded: resolve_backend on the card picked {picked}")
+    _check_captured("banded", rec)
     return rec
 
 
@@ -1356,10 +1404,13 @@ def phase_horizon_spike(dev, x_inv):
     qp = qp32.astype(torch.float64)
     s = Settings(eps_abs=EPS, eps_rel=EPS, band_block=spec.block,
                  backend="spike", spike_parts=10)
-    sol, wall, launches = _timed_run(solve_batch_shared, qp, s)
-    sol2, wall2, _ = _timed_run(solve_batch_shared, qp, s)
+    (sol, sol2), graph_rec = _captured_runs(solve_batch_shared, qp, s)
+    wall, launches = (graph_rec["graph_first"]["wall_s"],
+                      graph_rec["graph_first"]["launches"])
+    wall2 = graph_rec["graph_rerun"]["wall_s"]
     r_p, r_d, _ = kkt_residuals(qp, sol.x, sol.z, sol.y)
     lockstep = int(sol.iters.max())
+    prof = _profiled(solve_batch_shared, qp, s)
     solved = int((sol.status == int(Status.SOLVED)).sum())
     rec = dict(cell="horizon_spike_1024", batch=batch, n=qp.n, m=qp.m,
                spike_parts=10, solved=solved, lockstep_iters=lockstep,
@@ -1369,7 +1420,8 @@ def phase_horizon_spike(dev, x_inv):
                kkt_r_dual_max=float(r_d.max()), wall_s=wall,
                wall_rerun_s=wall2, launches=launches,
                rerun_bitwise_identical=_bitwise(sol, sol2),
-               inv_x_max_abs_diff=float((sol.x - x_inv).abs().max()))
+               inv_x_max_abs_diff=float((sol.x - x_inv).abs().max()),
+               **_profile_fields(prof, lockstep, wall2), **graph_rec)
     emit("horizon_spike", **rec)
     check(solved == batch, f"horizon_spike: {batch - solved} lanes not "
           "SOLVED")
@@ -1382,6 +1434,7 @@ def phase_horizon_spike(dev, x_inv):
           "horizon_spike: 'spike' and 'inv' solutions disagree")
     check(rec["rerun_bitwise_identical"], "horizon_spike: rerun not "
           "bitwise identical")
+    _check_captured("horizon_spike", rec)
     return rec
 
 
@@ -1592,9 +1645,11 @@ def phase_consensus(dev, scale):
     s = Settings(eps_abs=EPS, eps_rel=EPS,
                  rho_edge_scale=CONSENSUS_EDGE_SCALE)
     with _PhaseOutputs(consensus, "_consensus_phase") as cap:
-        sol, wall, launches = _timed_run(consensus.consensus_solve, qp,
-                                         spec, mesh, s)
-    sol2, wall2, _ = _timed_run(consensus.consensus_solve, qp, spec, mesh, s)
+        (sol, sol2), graph_rec = _captured_runs(consensus.consensus_solve,
+                                                qp, spec, mesh, s)
+    wall, launches = (graph_rec["graph_first"]["wall_s"],
+                      graph_rec["graph_first"]["launches"])
+    wall2 = graph_rec["graph_rerun"]["wall_s"]
     prof = _profiled(consensus.consensus_solve, qp, spec, mesh, s)
     iters = int(sol.iters)
     ml, ns = spec.m_local, spec.ns
@@ -1616,7 +1671,8 @@ def phase_consensus(dev, scale):
                f32_phase_z_copies_bitwise=_copies_bitwise(f32_phase.z, ml,
                                                           ns),
                x_copies_max_gap=_copies_x_gap(sol.x, ns),
-               rerun_bitwise_identical=_bitwise(sol, sol2), **scale)
+               rerun_bitwise_identical=_bitwise(sol, sol2), **graph_rec,
+               **scale)
     emit("consensus", **rec)
     check(int(sol.status) == int(Status.SOLVED), "consensus: not SOLVED")
     check(abs(iters - CONSENSUS_REFERENCE_ITERS) <= ITER_SLACK,
@@ -1630,6 +1686,7 @@ def phase_consensus(dev, scale):
           "consensus: boundary copies of x disagree")
     check(rec["rerun_bitwise_identical"], "consensus: rerun not bitwise "
           "identical")
+    _check_captured("consensus", rec)
     return rec
 
 
@@ -1653,10 +1710,11 @@ def phase_consensus_mc(dev, scale):
     s = Settings(eps_abs=EPS, eps_rel=EPS,
                  rho_edge_scale=CONSENSUS_EDGE_SCALE)
     with _PhaseOutputs(consensus_mc, "_mc_phase") as cap:
-        sol, wall, launches = _timed_run(consensus_mc.consensus_solve_mc,
-                                         qp, spec, mesh, s)
-    sol2, wall2, _ = _timed_run(consensus_mc.consensus_solve_mc, qp, spec,
-                                mesh, s)
+        (sol, sol2), graph_rec = _captured_runs(
+            consensus_mc.consensus_solve_mc, qp, spec, mesh, s)
+    wall, launches = (graph_rec["graph_first"]["wall_s"],
+                      graph_rec["graph_first"]["launches"])
+    wall2 = graph_rec["graph_rerun"]["wall_s"]
     prof = _profiled(consensus_mc.consensus_solve_mc, qp, spec, mesh, s)
     it = sol.iters.double()
     lockstep = int(it.max())
@@ -1689,7 +1747,8 @@ def phase_consensus_mc(dev, scale):
                f32_phase_z_copies_bitwise=_copies_bitwise(f32_phase.z, ml,
                                                           ns),
                x_copies_max_gap=_copies_x_gap(sol.x, ns),
-               rerun_bitwise_identical=_bitwise(sol, sol2), **scale)
+               rerun_bitwise_identical=_bitwise(sol, sol2), **graph_rec,
+               **scale)
     emit("consensus_mc", **rec)
     check(solved == batch, f"consensus_mc: {batch - solved} lanes not "
           "SOLVED")
@@ -1704,6 +1763,7 @@ def phase_consensus_mc(dev, scale):
           "consensus_mc: boundary copies of x disagree")
     check(rec["rerun_bitwise_identical"], "consensus_mc: rerun not bitwise "
           "identical")
+    _check_captured("consensus_mc", rec)
     return rec
 
 
@@ -1803,10 +1863,11 @@ def phase_horizon_sharded(dev, scale):
     recs = {}
     for name, kw in (("double", HORIZON_PLAIN), ("single", HORIZON_GATE)):
         s = Settings(**kw)
-        sol, wall, launches = _timed_run(solve_horizon_sharded, hp, hspec,
-                                         mesh, s)
-        sol2, wall2, _ = _timed_run(solve_horizon_sharded, hp, hspec, mesh,
-                                    s)
+        (sol, sol2), graph_rec = _captured_runs(solve_horizon_sharded, hp,
+                                                hspec, mesh, s)
+        wall, launches = (graph_rec["graph_first"]["wall_s"],
+                          graph_rec["graph_first"]["launches"])
+        wall2 = graph_rec["graph_rerun"]["wall_s"]
         lockstep = int(sol.iters.max())
         prof = _profiled(solve_horizon_sharded, hp, hspec, mesh, s)
         rec = dict(precision=name, batch=batch, parts=hspec.parts,
@@ -1821,7 +1882,7 @@ def phase_horizon_sharded(dev, scale):
                    hand_written_launches=launches,
                    rerun_bitwise_identical=all(
                        torch.equal(getattr(sol, f), getattr(sol2, f))
-                       for f in sol._fields), **scale)
+                       for f in sol._fields), **graph_rec, **scale)
         if name == "double":
             ref, ref_wall, _ = _timed_run(
                 solve_batch_shared, qp32.astype(torch.float64),
@@ -1843,6 +1904,7 @@ def phase_horizon_sharded(dev, scale):
               f"{tag}: {batch - rec['solved']} lanes not SOLVED")
         check(rec["rerun_bitwise_identical"],
               f"{tag}: rerun not bitwise identical")
+        _check_captured(tag, rec)
         if name == "double":
             check(rec["status_equal_batch_shared"]
                   and rec["iters_equal_batch_shared"],
@@ -1942,34 +2004,25 @@ def _replay_is_eager(step, state):
 
 
 def _graph_nodes():
-    """Device operations of one replay of every graph in the default
-    cache, by entry (kind, dtype of x, lanes) and variant: each graph is
-    replayed once under torch.profiler and its operations are found by
-    the correlation id of its cudaGraphLaunch."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Nodes of every graph in the default cache (its captured template,
+    kept by `graph.CACHE.keep_graphs`, read with libcuda's
+    cuGraphGetNodes), by entry (its place in the cache, kind, dtype of
+    x, lanes) and variant. Counted from the graph itself rather than
+    from a profiled replay, whose device records CUPTI may drop."""
+    import ctypes
     from admm_library_torch.core import graph
-    order = []
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for key, entry in graph.CACHE.entries.items():
-            x = entry.buffers["x"]
-            label = f"{key[0]} {str(x.dtype)[6:]} {tuple(x.shape)}"
-            for variant, g in entry.graphs.items():
-                g.replay()
-                torch.cuda.synchronize()
-                order.append(f"{label} {variant}")
-    events = p.profiler.kineto_results.events()
-    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
-                      if e.name().startswith(("cudaGraphLaunch",
-                                              "cuGraphLaunch")))
-    check(len(launches) == len(order), "graph nodes: a replay was not "
-          "recorded")
-    ops = {}
-    for e in events:
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            ops[e.correlation_id()] = ops.get(e.correlation_id(), 0) + 1
-    return {name: ops.get(cid, 0) for name, (_, cid) in zip(order, launches)}
+    cuda = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    for i, (key, entry) in enumerate(graph.CACHE.entries.items()):
+        x = entry.buffers["x"]
+        label = f"{i}:{key[0]} {str(x.dtype)[6:]} {tuple(x.shape)}"
+        for variant, g in entry.graphs.items():
+            n = ctypes.c_size_t(0)
+            rc = cuda.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()),
+                                      None, ctypes.byref(n))
+            check(rc == 0, f"graph nodes: cuGraphGetNodes returned {rc}")
+            out[f"{label} {variant}"] = n.value
+    return out
 
 
 def phase_graph(dev):
@@ -1978,14 +2031,19 @@ def phase_graph(dev):
     capture ms per solve from an empty cache and on a rerun, nodes per
     graph, host launches and idle share from one profiled run; a replayed
     check bitwise the eager check from the same state for an f64 chunk of
-    config 4 and a b128 re-centred round."""
+    config 4, a b128 re-centred round, the consensus-MC f32 phase at 1024
+    scenarios and the 'spike' batch at 1024 lanes."""
     import torch
     from admm_library_torch import (Settings, Status, solve,
                                     solve_batch_shared)
     from admm_library_torch import api
     from admm_library_torch.core import graph
+    import numpy as np
     from admm_library_torch.models import low_thrust as lt
     from admm_library_torch.models import monte_carlo as mc
+    from admm_library_torch.models.partitioned import (
+        partition_mpc_from_s0, reference_s0)
+    from admm_library_torch.parallel import consensus_mc, runtime
 
     qp3, _, _ = _config3(dev)
     qp4, _, s4, _ = _config4(dev)
@@ -2044,8 +2102,34 @@ def phase_graph(dev):
     (_, step4, state4), = rec4.loops
     step5, state5 = next((step, st) for _, step, st in rec5.loops
                          if st["qp"]["q"].dim() == 2)
+    # The first check of consensus_mc_1024's f32 phase and of
+    # horizon_spike_1024's (one loop each: 'single', no iteration run).
+    _, _, s0 = _config2(dev)
+    qp_mc, spec_mc, _, _ = partition_mpc_from_s0(
+        reference_s0(), s0, np.zeros(6), N=CONSENSUS_N,
+        n_blocks=CONSENSUS_BLOCKS, dim=3, device=dev)
+    with _Loops() as rec_mc:
+        consensus_mc.consensus_solve_mc(
+            qp_mc, spec_mc, runtime.make_mesh(), Settings(
+                eps_abs=EPS, eps_rel=EPS, precision="single", max_iter=0,
+                rho_edge_scale=CONSENSUS_EDGE_SCALE))
+    qp_sp, spec_sp, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(1024),
+                                                   device=dev)
+    with _Loops() as rec_sp:
+        solve_batch_shared(qp_sp, Settings(
+            eps_abs=EPS, eps_rel=EPS, band_block=spec_sp.block,
+            backend="spike", spike_parts=10, precision="single",
+            max_iter=0))
+    (kind_mc, step_mc, state_mc), = rec_mc.loops
+    (kind_sp, step_sp, state_sp), = rec_sp.loops
+    check(kind_mc == "run_consensus_mc"
+          and kind_sp == "run_admm_batch_shared"
+          and state_sp["fac"].keys() >= {"Ainv", "Tld"},
+          "graph: the consensus-MC or the spike loop was not recorded")
     same = {"config4_f64_chunk": _replay_is_eager(step4, state4),
-            "b128_round": _replay_is_eager(step5, state5)}
+            "b128_round": _replay_is_eager(step5, state5),
+            "consensus_mc_1024_f32": _replay_is_eager(step_mc, state_mc),
+            "horizon_spike_1024_f32": _replay_is_eager(step_sp, state_sp)}
     emit("graph", replay_is_eager_bitwise=same)
     for case, variants in same.items():
         check(all(variants.values()),
@@ -2059,7 +2143,9 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import admm_library_torch  # noqa: F401  (turns TF32 off)
+    from admm_library_torch.core import graph
     torch.use_deterministic_algorithms(True)
+    graph.CACHE.keep_graphs = True  # for _graph_nodes
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()

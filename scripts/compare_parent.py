@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """The port at two commits, in turns, on one CUDA card: config 3 and
 config 4 through `solve`, the config-5 batch at 128 and 1024 lanes
-through `solve_batch_shared`, and `solve_batch` on 128 config-1 draws.
+through `solve_batch_shared`, `solve_batch` on 128 config-1 draws, and
+the partitioned and block-backend paths of `chip_smoke.py`: `consensus`
+and `consensus_mc_1024` on a 1x1 mesh, `horizon_sharded_1024` under its
+f64 plain and f32 gate settings, `horizon_spike_1024` and config 2
+through `solve` on 'banded'.
 
     mkdir -p _scratch/parent
     git archive <parent commit> | tar -x -C _scratch/parent
     python3 scripts/compare_parent.py [--parent _scratch/parent]
                                       [--rounds 2] [--reruns 3]
+                                      [--paths consensus,banded,...]
 
 Each side runs in its own process and imports admm_library_torch from
 its own root (the unpacked parent, or this checkout), in turns: parent,
@@ -15,11 +20,16 @@ once cold (its first run: the kernels, built before it, loaded; on the
 tree's side the checks captured) and `--reruns` times more; in each side's first turn one more
 solve of each path runs under torch.profiler: device busy time, the
 idle share against that turn's median rerun, kernels, and the host's
-launch calls (kernel and CUDA graph launches). Prints one JSON line per
-(side, turn, path), one summary line per path (medians over every turn,
-the tree's median rerun over the parent's), then the card's nvidia-smi
-name and power limit. Needs a CUDA card; no JAX. `_scratch/` is
-git-ignored, and copied to the card with the rest of the checkout.
+launch calls (kernel and CUDA graph launches). Each record also holds
+the captured checks of its first run and reruns (`graph.CACHE.stats`
+deltas: captures, replays, warm-ups, capture ms). Each side saves its
+first run's x and status of every path under `_scratch/compare_parent/`,
+and the summary holds max |x_tree - x_parent| and whether the statuses
+and iterations are equal. Prints one JSON line per (side, turn, path),
+one summary line per path (medians over every turn, the tree's median
+rerun over the parent's), then the card's nvidia-smi name and power
+limit. Needs a CUDA card; no JAX. `_scratch/` is git-ignored, and
+copied to the card with the rest of the checkout.
 """
 import argparse
 import json
@@ -30,7 +40,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = ("config3", "config4", "b128", "b1024", "solve_batch")
+PATHS = ("config3", "config4", "b128", "b1024", "solve_batch", "consensus",
+         "consensus_mc_1024", "horizon_f64_plain", "horizon_f32_gate",
+         "horizon_spike_1024", "config2_banded")
+SAVED = os.path.join(ROOT, "_scratch", "compare_parent")
 # The host's calls that put work on the card, as CUPTI names them.
 HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                      "cuGraphLaunch")
@@ -69,6 +82,54 @@ def _path(name, dev):
                                         device=dev)[0]
         return (T.solve_batch_shared, qp.astype(f64),
                 T.Settings(eps_abs=1e-6, eps_rel=1e-6))
+    if name in ("consensus", "consensus_mc_1024", "config2_banded"):
+        from admm_library_torch.models.double_integrator import build_mpc_qp
+        from admm_library_torch.models.partitioned import (
+            partition_mpc, partition_mpc_from_s0, reference_s0)
+        from admm_library_torch.parallel import (consensus, consensus_mc,
+                                                 runtime)
+        rng = np.random.default_rng(0)              # bench_mpc, seed 0
+        s0 = np.concatenate([rng.uniform(-2, 2, 3),
+                             rng.uniform(-0.2, 0.2, 3)])
+        s = T.Settings(eps_abs=1e-6, eps_rel=1e-6, rho_edge_scale=30.0)
+        if name == "consensus":
+            qp, spec, _ = partition_mpc(s0, np.zeros(6), N=50, n_blocks=10,
+                                        dim=3, device=dev)
+            return (consensus.consensus_solve, qp, spec,
+                    runtime.make_mesh(), s)
+        if name == "consensus_mc_1024":
+            qp, spec, _, _ = partition_mpc_from_s0(
+                reference_s0(), s0, np.zeros(6), N=50, n_blocks=10, dim=3,
+                device=dev)
+            return (consensus_mc.consensus_solve_mc, qp, spec,
+                    runtime.make_mesh(), s)
+        qp, spec = build_mpc_qp(s0, np.zeros(6), N=50, dim=3, device=dev)
+        return (T.solve, qp.astype(f64),
+                T.Settings(eps_abs=1e-6, eps_rel=1e-6, band_block=spec.block,
+                           backend="banded"))
+    if name.startswith("horizon"):
+        from admm_library_torch.models import monte_carlo as mc
+        from admm_library_torch.parallel import runtime
+        from admm_library_torch.parallel.horizon import (
+            mpc_row_time, partition_qp, solve_horizon_sharded)
+        qp, spec, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(1024),
+                                                 device=dev)
+        if name == "horizon_spike_1024":
+            return (T.solve_batch_shared, qp.astype(f64),
+                    T.Settings(eps_abs=1e-6, eps_rel=1e-6,
+                               band_block=spec.block, backend="spike",
+                               spike_parts=10))
+        hp, hspec = partition_qp(qp, spec.block, 10,
+                                 mpc_row_time(spec.N, spec.ns, spec.nu))
+        if name == "horizon_f64_plain":
+            s = T.Settings(eps_abs=1e-6, eps_rel=1e-6, precision="double",
+                           scaling_iters=0, restart_every=0, stall_checks=0,
+                           polish=False, eps_pinf=0.0, eps_dinf=0.0)
+        else:
+            s = T.Settings(max_iter=2000, precision="single", eps_abs=1e-5,
+                           eps_rel=1e-5, restart_every=0, stall_checks=0,
+                           polish=False)
+        return (solve_horizon_sharded, hp, hspec, runtime.make_mesh(), s)
     if name == "solve_batch":
         from admm_library_torch.models.random_qp import random_box_qp
         gen = torch.Generator().manual_seed(0)
@@ -83,12 +144,16 @@ def _path(name, dev):
 
 
 def _timed(fn, *args):
+    """(fn(*args), seconds, the check cache's counters it added)."""
     import torch
+    from admm_library_torch.core import graph
+    before = dict(graph.CACHE.stats)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    return out, secs, {k: graph.CACHE.stats[k] - before[k] for k in before}
 
 
 def _profiled(fn, *args):
@@ -123,19 +188,28 @@ def worker(root, side, turn, reruns, profiled, paths):
     dev = torch.device("cuda", 0)
     _build.build()          # nvcc at most once a side, before any clock
     for name in paths:
-        fn, qp, s = _path(name, dev)
-        sol, first = _timed(fn, qp, s)
-        walls = [_timed(fn, qp, s)[1] for _ in range(reruns)]
+        fn, *args = _path(name, dev)
+        torch.cuda.reset_peak_memory_stats()
+        sol, first, graph_first = _timed(fn, *args)
+        reruns_ = [_timed(fn, *args) for _ in range(reruns)]
+        walls = [r[1] for r in reruns_]
         rec = dict(side=side, turn=turn, path=name, first_s=first,
                    rerun_s=walls, iters=int(sol.iters.max()),
                    solved=int((sol.status == 1).sum()),
-                   lanes=int(sol.status.numel()))
+                   lanes=int(sol.status.numel()), graph_first=graph_first,
+                   graph_reruns={k: sum(r[2][k] for r in reruns_)
+                                 for k in graph_first},
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
         if profiled:
-            prof = _profiled(fn, qp, s)
+            prof = _profiled(fn, *args)
             rec.update(prof, idle_share=1.0 - prof["device_busy_ms"] / 1e3
                        / statistics.median(walls),
                        host_launches_per_iteration=prof["host_launches"]
                        / rec["iters"])
+            os.makedirs(SAVED, exist_ok=True)
+            torch.save({"x": sol.x.cpu(), "status": sol.status.cpu(),
+                        "iters": sol.iters.cpu()},
+                       os.path.join(SAVED, f"{side}_{name}.pt"))
         print(json.dumps(rec), flush=True)
 
 
@@ -197,9 +271,25 @@ def main():
                                           for w in r["rerun_s"]),
                 iters=sorted({r["iters"] for r in recs}),
                 idle_share=[r["idle_share"] for r in recs
-                            if "idle_share" in r])
+                            if "idle_share" in r],
+                host_launches_per_iteration=[
+                    r["host_launches_per_iteration"] for r in recs
+                    if "host_launches_per_iteration" in r],
+                graph_first=recs[0]["graph_first"],
+                graph_reruns=recs[0]["graph_reruns"],
+                peak_memory_bytes=max(r["peak_memory_bytes"]
+                                      for r in recs))
         summary["rerun_tree_over_parent"] = (summary["tree"]["rerun_s"]
                                              / summary["parent"]["rerun_s"])
+        saved = [torch.load(os.path.join(SAVED, f"{side}_{name}.pt"))
+                 for side in roots]
+        summary.update(
+            x_max_abs_diff=float((saved[1]["x"].double()
+                                  - saved[0]["x"].double()).abs().max()),
+            status_equal=bool(torch.equal(saved[0]["status"],
+                                          saved[1]["status"])),
+            iters_equal=bool(torch.equal(saved[0]["iters"],
+                                         saved[1]["iters"])))
         print(json.dumps(summary), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1044,7 +1044,7 @@ def test_capture_refuses_an_eager_only_backend(dev):
     from admm_library_torch.core import graph
     state = {"x": torch.zeros(3, device=dev),
              "flags": torch.ones(2, dtype=torch.bool, device=dev)}
-    for backend in ("cg", "pallas_cg", "banded", "spike"):
+    for backend in ("cg", "pallas_cg"):
         with pytest.raises(ValueError, match="not captured"):
             graph.CheckLoop("run_admm", None, state, Settings(), backend,
                             capture=True, cache=graph.CheckCache())
@@ -1069,3 +1069,82 @@ def test_a_failed_capture_raises(dev):
         loop((False, False))
     assert cache.stats["captures"] == 0
     torch.cuda.synchronize()
+
+
+# ---- captured checks of the partitioned drivers and the block backends ----
+
+_PART_SETTINGS = dict(check_every=5, adaptive_rho_interval=10,
+                      restart_every=15, history=3, eps_abs=1e-6,
+                      eps_rel=1e-6, max_iter=4000)
+
+
+def _partitioned_path(name, dev):
+    """(solve function, its arguments) of a small path on the card: the
+    two consensus drivers on a 1-rank mesh, the horizon driver, and the
+    block backends under solve_batch_shared. Each crosses restarts, rho
+    refactors (rho far off) and, for the batches, lanes that freeze
+    early."""
+    from admm_library_torch.models.partitioned import (
+        partition_mpc, partition_mpc_from_s0)
+    from admm_library_torch.parallel import (consensus, consensus_mc,
+                                             horizon, runtime)
+    s0 = np.array([1.0, -2.0, 0.3, -0.1])
+    mesh = runtime.make_mesh(device=dev)
+    if name == "consensus":
+        qp, spec, _ = partition_mpc(s0, np.zeros(4), N=16, n_blocks=4,
+                                    dim=2, u_max=2.0, dtype=torch.float64,
+                                    device=dev)
+        return consensus.consensus_solve, (qp, spec, mesh, Settings(
+            precision="single", rho=0.1, **_PART_SETTINGS))
+    if name == "consensus_mc":
+        s0s = np.stack([s0, 0.5 * s0, 1.5 * s0])
+        qp, spec, _, _ = partition_mpc_from_s0(
+            s0s, s0, np.zeros(4), N=16, n_blocks=4, dim=2, u_max=2.0,
+            dtype=torch.float32, device=dev)
+        return consensus_mc.consensus_solve_mc, (qp, spec, mesh, Settings(
+            rho=0.1, **_PART_SETTINGS))
+    qp, mspec, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(0),
+                                      batch=4, N=8, dim=2,
+                                      dtype=torch.float64, device=dev)
+    if name == "horizon":
+        hp, hs = horizon.partition_qp(qp, mspec.block, 4,
+                                      horizon.mpc_row_time(8, mspec.ns,
+                                                           mspec.nu))
+        return horizon.solve_horizon_sharded, (hp, hs, mesh, Settings(
+            precision="double", rho=10.0, **_PART_SETTINGS))
+    return solve_batch_shared, (qp, Settings(
+        backend=name, band_block=mspec.block, spike_parts=2, rho=0.1,
+        **_PART_SETTINGS))
+
+
+_PARTITIONED = ["consensus", "consensus_mc", "horizon", "banded", "spike"]
+
+
+@pytest.mark.parametrize("name", _PARTITIONED)
+def test_replayed_partitioned_check_is_the_eager_check(name, dev,
+                                                       monkeypatch):
+    """The first state of each loop of a partitioned driver or a block
+    backend: every variant's replay == the eager check, bitwise."""
+    fn, args = _partitioned_path(name, dev)
+    _, loops = _recorded_loops(monkeypatch, fn, *args)
+    kinds = {kind for kind, _, _ in loops}
+    want = {"consensus": "run_consensus", "consensus_mc": "run_consensus_mc",
+            "horizon": "run_horizon"}.get(name, "run_admm_batch_shared")
+    assert want in kinds
+    for kind, step, state in loops[:3]:
+        _replay_is_eager(step, state)
+
+
+@pytest.mark.parametrize("name", _PARTITIONED)
+def test_captured_partitioned_solve_is_the_eager_solve(name, dev,
+                                                       monkeypatch):
+    """A whole solve replayed from graphs equals the same solve with
+    every check eager, bitwise, through the refactors between replays
+    (the factor is written into the static buffers) and restarts."""
+    fn, args = _partitioned_path(name, dev)
+    eager, captured, stats = _eager_and_captured(monkeypatch, fn, *args)
+    for f in ("x", "z", "y", "status", "iters", "r_prim", "r_dual", "rho"):
+        assert torch.equal(getattr(eager, f), getattr(captured, f)), f
+    settings = args[-1]
+    assert float(captured.rho) != settings.rho          # refactored
+    assert stats["captures"] >= 2 and stats["replays"] > stats["captures"]

@@ -4,7 +4,8 @@
   `batch.batch_check`) in every variant makes no host read: it runs
   under FakeTensorMode, where `.item()`, `float(t)`, `bool(t)` and
   `.tolist()` raise. f32 and f64, box, L1 and SOC rows, with and without
-  a shifted-prox offset, the batch's plain and fused-tail forms.
+  a shifted-prox offset, the batch's plain and fused-tail forms, on the
+  dense backends and on the block sweeps of 'banded' and 'spike'.
 - `run_admm`, `run_admm_lanes` and `run_admm_batch_shared` are bitwise
   the plain loops of tests/torch_loops_reference.py (host counters,
   rebinding), over restarts, rho refactors, stalls and every backend
@@ -159,31 +160,39 @@ def _loop_state(monkeypatch, run, *args, **kw):
 
 
 # The fused tail exists in f32 only: the kernel's gate admits no f64.
+# "loop/backend" runs the loop on a block backend: N = 8 variables in
+# blocks of 2 ('banded'), in 2 parts ('spike').
 _FAKE_CASES = [(loop, dtype) for loop in ("run_admm", "run_admm_lanes",
                                           "batch_plain")
-               for dtype in ("f32", "f64")] + [("batch_fused", "f32")]
+               for dtype in ("f32", "f64")] + [("batch_fused", "f32")] + [
+    (f"{loop}/{backend}", dtype)
+    for loop in ("run_admm", "run_admm_lanes", "batch_plain")
+    for backend in ("banded", "spike") for dtype in ("f32", "f64")]
 
 
 @pytest.mark.parametrize("rows", ["box", "l1", "soc"])
 @pytest.mark.parametrize("loop,dtype", _FAKE_CASES)
 def test_check_makes_no_host_read(loop, dtype, rows, monkeypatch):
     dtype = {"f32": F32, "f64": F64}[dtype]
-    s = LOOP_SETTINGS.replace(max_iter=0, history=3)
+    s = LOOP_SETTINGS.replace(max_iter=0, history=3, band_block=2,
+                              spike_parts=2)
+    loop, _, backend = loop.partition("/")
     if loop == "run_admm":
         qp, sc = _single(rows, dtype)
         z_off = None if rows == "box" else _offset(qp)
         step, state = _loop_state(monkeypatch, admm.run_admm, qp, sc, s,
-                                  *_zeros(qp), "chol", z_off=z_off)
+                                  *_zeros(qp), backend or "chol",
+                                  z_off=z_off)
     elif loop == "run_admm_lanes":
         qp, sc = _lanes(rows, dtype)
         step, state = _loop_state(monkeypatch, admm.run_admm_lanes, qp, sc,
-                                  s, *_zeros(qp, 3), "inv")
+                                  s, *_zeros(qp, 3), backend or "inv")
     elif loop == "batch_plain":
         qp, sc = _shared(rows, dtype, lane_q=True)
         z_off = None if rows == "box" else _offset(qp, 4)
         step, state = _loop_state(monkeypatch, batch.run_admm_batch_shared,
-                                  qp, sc, s, *_zeros(qp, 4), "inv",
-                                  z_off=z_off)
+                                  qp, sc, s, *_zeros(qp, 4),
+                                  backend or "inv", z_off=z_off)
     else:
         qp, sc = _shared(rows, dtype)
         step, state = _loop_state(monkeypatch, batch.run_admm_batch_shared,
@@ -328,7 +337,8 @@ _MESHES = {"none": None, "1x1": (1, 1), "data2": (2, 1),
 def test_capture_rule(device, backend, mesh):
     shape = _MESHES[mesh]
     m = None if shape is None else _mesh(*shape)
-    want = (device == "cuda" and backend in ("inv", "chol")
+    want = (device == "cuda"
+            and backend in ("inv", "chol", "banded", "spike")
             and (shape is None or shape == (1, 1)))
     assert graph.capturable(torch.device(device), backend, m) == want
 

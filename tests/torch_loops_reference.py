@@ -1,9 +1,10 @@
-"""The three host loops of admm_library_torch written with host-side
-counters and rebinding, one iterate at a time: `run_admm`,
-`run_admm_lanes` and `run_admm_batch_shared` as plain loops whose check
-is inline. tests/test_torch_graph.py holds the package's loops, whose
-checks are carry-to-carry steps (core/graph.py), bitwise to these on
-the CPU.
+"""The host loops of admm_library_torch written with host-side counters
+and rebinding, one iterate at a time: `run_admm`, `run_admm_lanes` and
+`run_admm_batch_shared`, and the partitioned drivers' `run_consensus`,
+`run_consensus_mc` and `_run_horizon`, as plain loops whose check is
+inline. tests/test_torch_graph.py and test_torch_graph_partitioned.py
+hold the package's loops, whose checks are carry-to-carry steps
+(core/graph.py), bitwise to these on the CPU.
 """
 import torch
 
@@ -17,13 +18,23 @@ from admm_library_torch.ops import fused as fused_ops
 from admm_library_torch.ops import kkt
 from admm_library_torch.parallel.batch import (
     BatchCarry, _agreed, _data_max, _geomean_masked, _pick)
-from admm_library_torch.parallel.runtime import Mesh
-from admm_library_torch.problem import QPData
+from admm_library_torch.parallel import runtime
+from admm_library_torch.parallel.consensus import (
+    ConsensusSpec, Local, PhaseResult, _balance, _l1_scale, _linf_global,
+    _linf_scen, _pmax, _ratio, _Rho, _status, consensus_body,
+    infeasibility_blocks)
+from admm_library_torch.parallel.horizon import (
+    HorizonParts, HorizonSpec, _neighbor_next, _neighbor_prev,
+    _spike_factor_sharded, _spike_reduce_factor, _spike_solve_sharded)
+from admm_library_torch.parallel.runtime import DATA_AXIS, Mesh
+from admm_library_torch.ops.prox import project_cone
+from admm_library_torch.problem import QPData, mv, vm
 from admm_library_torch.settings import Settings
 from admm_library_torch.solution import Status
 
 _UNSOLVED = int(Status.UNSOLVED)
 _STALLED = int(Status.STALLED)
+_SOLVED = int(Status.SOLVED)
 
 
 def _ref_run_admm(qp: QPData, scaling: Scaling, settings: Settings,
@@ -443,3 +454,386 @@ def _ref_run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         r_dual=torch.where(unsolved, rd_best, r_dual), hist=hist)
 
 
+
+def _ref_record(hist, ptr, it, r_p, r_d):
+    """One (iteration, r_prim, r_dual) row of the ring buffer."""
+    hist[ptr % hist.shape[0]] = torch.stack(
+        [torch.tensor(float(it), dtype=hist.dtype, device=hist.device),
+         r_p.to(hist.dtype), r_d.to(hist.dtype)])
+
+
+def _ref_run_consensus(qp_blk: QPData, spec: ConsensusSpec, settings: Settings,
+                       loc: Local, x0, z0, y0, backend: str, scaling_vecs,
+                       z_off=None, rho0=None) -> PhaseResult:
+    dtype, dev = qp_blk.dtype, qp_blk.device
+    d_s, e_s, c_s = scaling_vecs
+    einv = 1.0 / e_s
+    cd_inv = 1.0 / (c_s * d_s)
+    idx = torch.arange(spec.mb, device=dev)
+    box_eq = ((qp_blk.l == qp_blk.u) & torch.isfinite(qp_blk.l)
+              & (idx < spec.cone.m_box))
+    rho = _Rho(qp_blk, spec, settings, backend, box_eq)
+    rho_bar = (torch.tensor(settings.rho, dtype=dtype, device=dev)
+               if rho0 is None else rho0.to(dtype))
+    fac = rho.factor(rho_bar)
+    nlam = _l1_scale(qp_blk, spec, cd_inv, loc)
+    use_cert = settings.eps_pinf > 0 or settings.eps_dinf > 0
+    k = settings.check_every
+    interval_checks = max(1, settings.adaptive_rho_interval // k)
+    restart_checks = settings.restart_every and max(
+        1, settings.restart_every // k)
+    hist = torch.full((max(settings.history, 0), 3), -1.0, dtype=dtype,
+                      device=dev)
+
+    def global_res(x, z, y):
+        """Globally reduced unscaled residual norms (7-tuple)."""
+        Ax = mv(qp_blk.A, x)
+        Px = mv(qp_blk.P, x)
+        Aty = vm(y, qp_blk.A)
+        return (_linf_global(einv * (Ax - z), loc),
+                _linf_global(cd_inv * (Px + qp_blk.q + Aty), loc),
+                _linf_global(einv * Ax, loc), _linf_global(einv * z, loc),
+                _linf_global(cd_inv * Px, loc),
+                _linf_global(cd_inv * Aty, loc),
+                torch.maximum(_linf_global(cd_inv * qp_blk.q, loc), nlam))
+
+    x, z, y = x0, z0, y0
+    x_chk, y_chk = x0, y0
+    sums = [torch.zeros_like(t) for t in (x0, z0, y0)]
+    cnt = 0
+    it = 0
+    status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
+    r_prim = r_dual = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    done = False
+    while not done and it < settings.max_iter:
+        check = it // k
+        rho_vec = rho.vec(rho_bar)
+        for _ in range(k):
+            x, z, y = consensus_body(qp_blk, spec, settings, loc, fac, x, z,
+                                     y, rho_vec, backend, z_off=z_off)
+        it += k
+        res = global_res(x, z, y)
+        # Certificates use PRE-restart deltas: a restart replaces the
+        # iterate with a window average, which wrecks the delta ray.
+        cert = (infeasibility_blocks(qp_blk, spec, settings, loc,
+                                     scaling_vecs, x - x_chk, y - y_chk)
+                if use_cert else None)
+        x_chk, y_chk = x, y
+
+        # Restarted averaging: the comparison uses globally reduced
+        # norms, so every rank takes the same decision, and the average
+        # keeps the agreement-row pairing.
+        sums = [s + t for s, t in zip(sums, (x, z, y))]
+        cnt += 1
+        if restart_checks and check % restart_checks == restart_checks - 1:
+            xa, za, ya = (s / float(cnt) for s in sums)
+            res_a = global_res(xa, za, ya)
+            take = _ratio(res_a, settings) < _ratio(res, settings)
+            x, z, y = (torch.where(take, a, b)
+                       for a, b in ((xa, x), (za, z), (ya, y)))
+            res = tuple(torch.where(take, ra, rc)
+                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+            sums = [torch.zeros_like(s) for s in sums]
+            cnt = 0
+
+        status = _status(res, settings, cert)
+        r_prim, r_dual = res[0], res[1]
+        do = torch.zeros((), dtype=torch.bool, device=dev)
+        if (settings.adaptive_rho
+                and check % interval_checks == interval_checks - 1):
+            new_rho, changed = _balance(res, rho_bar, settings)
+            do = changed & (status == _UNSOLVED)
+        if hist.shape[0]:
+            _ref_record(hist, check, it, r_prim, r_dual)
+        # The one device-to-host read of this check.
+        flags = runtime.agree(
+            torch.stack([(status != _UNSOLVED).to(torch.int32),
+                         do.to(torch.int32)]), loc.mesh)
+        done, do = (bool(f) for f in flags.tolist())
+        if do:
+            rho_bar = new_rho
+            fac = rho.refresh(fac, rho_bar)
+    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
+                         status).to(torch.int32)
+    return PhaseResult(x, z, y, status,
+                       torch.tensor(it, dtype=torch.int32, device=dev),
+                       r_prim, r_dual, rho_bar, hist)
+
+
+def _ref_run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
+                          settings: Settings, loc: Local, x0, z0, y0,
+                          backend: str, scaling_vecs, z_off=None,
+                          rho0=None) -> PhaseResult:
+    dtype, dev = qp_blk.dtype, qp_blk.device
+    mesh = loc.mesh
+    B_loc = x0.shape[0]
+    d_s, e_s, c_s = scaling_vecs
+    einv = 1.0 / e_s
+    cd_inv = 1.0 / (c_s * d_s)
+    # Equality boost from lane 0's bounds (dispersions change values,
+    # not the equality pattern) plus all edge rows.
+    idx = torch.arange(spec.mb, device=dev)
+    l0, u0 = qp_blk.l[0], qp_blk.u[0]
+    box_eq = (l0 == u0) & torch.isfinite(l0) & (idx < spec.cone.m_box)
+    rho = _Rho(qp_blk, spec, settings, backend, box_eq)
+    rho_bar = (torch.tensor(settings.rho, dtype=dtype, device=dev)
+               if rho0 is None else rho0.to(dtype))
+    fac = rho.factor(rho_bar)
+    nlam = _l1_scale(qp_blk, spec, cd_inv, loc)
+    # The q scale is a max over this rank's scenarios and the horizon
+    # axis, as the reference's (per-scenario q in the re-centred rounds).
+    nq = torch.maximum(_pmax((cd_inv * qp_blk.q).abs().amax(), loc), nlam)
+    use_cert = settings.eps_pinf > 0 or settings.eps_dinf > 0
+    k = settings.check_every
+    interval_checks = max(1, settings.adaptive_rho_interval // k)
+    restart_checks = settings.restart_every and max(
+        1, settings.restart_every // k)
+    hist = torch.full((max(settings.history, 0), 3), -1.0, dtype=dtype,
+                      device=dev)
+
+    def scen_res(x, z, y):
+        """Per-scenario unscaled residual norms (7-tuple of (B_loc,))."""
+        Ax = mv(qp_blk.A, x)
+        Px = mv(qp_blk.P, x)
+        Aty = vm(y, qp_blk.A)
+        return (_linf_scen(einv * (Ax - z), loc),
+                _linf_scen(cd_inv * (Px + qp_blk.q + Aty), loc),
+                _linf_scen(einv * Ax, loc), _linf_scen(einv * z, loc),
+                _linf_scen(cd_inv * Px, loc), _linf_scen(cd_inv * Aty, loc),
+                nq)
+
+    def geomean(v):
+        return _geomean_masked(v, still, mesh)
+
+    def pick(mask, a, b):
+        return torch.where(mask[:, None, None], a, b)
+
+    x, z, y = x0, z0, y0
+    x_chk, y_chk = x0, y0
+    sums = [torch.zeros_like(t) for t in (x0, z0, y0)]
+    cnt = 0
+    it = 0
+    iters_sc = torch.zeros(B_loc, dtype=torch.int32, device=dev)
+    status = torch.full((B_loc,), _UNSOLVED, dtype=torch.int32, device=dev)
+    r_p = r_d = torch.full((B_loc,), float("inf"), dtype=dtype, device=dev)
+    alive = True
+    while alive and it < settings.max_iter:
+        check = it // k
+        rho_vec = rho.vec(rho_bar)
+        active = status == _UNSOLVED
+        xn, zn, yn = x, z, y
+        for _ in range(k):
+            xn, zn, yn = consensus_body(qp_blk, spec, settings, loc, fac,
+                                        xn, zn, yn, rho_vec, backend,
+                                        z_off=z_off)
+        x, z, y = pick(active, xn, x), pick(active, zn, z), pick(active, yn, y)
+        it += k
+        iters_sc = iters_sc + active.to(torch.int32) * k
+        res = scen_res(x, z, y)
+        # Per-scenario certificates from PRE-restart deltas.
+        cert = (infeasibility_blocks(qp_blk, spec, settings, loc,
+                                     scaling_vecs, x - x_chk, y - y_chk)
+                if use_cert else None)
+        x_chk, y_chk = x, y
+
+        # Per-scenario restarted averaging; the norms are reduced over
+        # the horizon axis, so every horizon rank takes the same
+        # per-scenario decision.
+        sums = [s + t for s, t in zip(sums, (x, z, y))]
+        cnt += 1
+        if restart_checks and check % restart_checks == restart_checks - 1:
+            xa, za, ya = (s / float(cnt) for s in sums)
+            res_a = scen_res(xa, za, ya)
+            take = active & (_ratio(res_a, settings) < _ratio(res, settings))
+            x, z, y = pick(take, xa, x), pick(take, za, z), pick(take, ya, y)
+            res = tuple(torch.where(take, ra, rc)
+                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+            sums = [torch.zeros_like(s) for s in sums]
+            cnt = 0
+
+        status = torch.where(active, _status(res, settings, cert), status)
+        r_p = torch.where(active, res[0], r_p)
+        r_d = torch.where(active, res[1], r_d)
+
+        still = status == _UNSOLVED
+        do = torch.zeros((), dtype=torch.bool, device=dev)
+        if (settings.adaptive_rho
+                and check % interval_checks == interval_checks - 1):
+            new_rho, changed = _balance((r_p, r_d) + res[2:], rho_bar,
+                                        settings, geomean=geomean)
+            do = changed & still.any()
+        if hist.shape[0]:
+            _ref_record(hist, check, it,
+                    runtime.pmax(r_p.amax(), mesh, DATA_AXIS),
+                    runtime.pmax(r_d.amax(), mesh, DATA_AXIS))
+        # The one device-to-host read of this check: liveness over every
+        # scenario of the mesh, and the shared rho decision.
+        flags = runtime.agree(
+            torch.stack([still.any(), do]).to(torch.int32), mesh)
+        alive, do = (bool(f) for f in flags.tolist())
+        if do:
+            rho_bar = new_rho
+            fac = rho.refresh(fac, rho_bar)
+    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
+                         status).to(torch.int32)
+    return PhaseResult(x, z, y, status, iters_sc, r_p, r_d, rho_bar, hist)
+
+
+def _ref_run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
+                     loc: Local, x0, z0, y0):
+    dtype, dev = hp.q.dtype, hp.q.device
+    mesh = loc.mesh
+    S = hp.q.shape[0]
+    ni, b, npb, mp = spec.ni, spec.b, spec.npb, spec.mp
+    B_loc = x0.shape[0]
+    sigma = settings.sigma
+    alpha = settings.alpha
+    cone = spec.cone
+    mb_loc, ml_loc = cone.m_box, cone.m_l1
+    is_first, is_last = loc.is_first, loc.is_last          # (S, 1)
+    l0, u0 = hp.l[0], hp.u[0]
+    row_idx = torch.arange(mp, device=dev)
+    # Only box rows are equalities (cf. problem.is_equality_row).
+    eq = (l0 == u0) & torch.isfinite(l0) & (row_idx < mb_loc)
+    is_soc_row = row_idx >= mb_loc + ml_loc
+
+    def rho_vec_of(rb):
+        rv = torch.where(eq, settings.rho_eq_scale * rb, rb)
+        if cone.m_soc and settings.rho_soc_scale != 1.0:
+            rv = torch.where(is_soc_row, settings.rho_soc_scale * rb, rv)
+        return rv
+
+    def factor(rb):
+        rv = rho_vec_of(rb)
+        Mpp = (hp.A_loc.mT @ (rv[..., None] * hp.A_loc)
+               + sigma * torch.eye(npb, dtype=dtype, device=dev)
+               + torch.diag_embed(hp.P_diag))
+        # The next part's A_haloᵀ ρ A_halo lands on OUR separator block.
+        corner = _neighbor_next(
+            (hp.A_halo.mT @ (rv[..., None] * hp.A_halo)).reshape(S, b * b),
+            loc).reshape(S, b, b)
+        Mpp[:, ni:, ni:] += torch.where(is_last[:, :, None], 0.0, corner)
+        # E couples OUR first variable block to the previous part's
+        # separator: A_locᵀ ρ A_halo (partition_qp keeps it inside the
+        # first b variable rows).
+        E = (hp.A_loc.mT @ (rv[..., None] * hp.A_halo))[:, :b, :]
+        E = torch.where(is_first[:, :, None], 0.0, E)
+        fac = _spike_factor_sharded(Mpp, E, spec, loc)
+        return {**fac, **_spike_reduce_factor(fac, loc)}
+
+    def spmv_A(x):
+        """A x with the halo term: x (B, S, npb) -> (B, S, mp)."""
+        x_last_prev = _neighbor_prev(x[..., ni:], loc)
+        halo = mv(hp.A_halo, x_last_prev)
+        return mv(hp.A_loc, x) + torch.where(is_first, 0.0, halo)
+
+    def spmv_At(v):
+        """Aᵀ v scattered back onto x: v (B, S, mp) -> (B, S, npb)."""
+        mine = vm(v, hp.A_halo)                             # (B, S, b)
+        from_next = _neighbor_next(torch.where(is_first, 0.0, mine), loc)
+        from_next = torch.where(is_last, 0.0, from_next)
+        out = vm(v, hp.A_loc)
+        return torch.cat([out[..., :ni], out[..., ni:] + from_next], dim=-1)
+
+    def linf_scen(*vs):
+        """Per-scenario inf-norms of each v over (parts, rows), reduced
+        over 'horizon' (one collective)."""
+        return _pmax(torch.stack([v.abs().amax(dim=(-2, -1)) for v in vs]),
+                     loc)
+
+    nq = linf_scen(hp.q[None])[0]
+    if ml_loc:
+        # L1 gradient scale in the dual-norm reference (cf. core.admm.
+        # l1_grad_scale_raw): max_j max_i lam_i |A[i, j]| over the L1
+        # rows, whose column support is local + halo.
+        sl = slice(mb_loc, mb_loc + ml_loc)
+        lamA = torch.maximum(
+            (hp.lam[:, :, None] * hp.A_loc[:, sl, :].abs()).amax(),
+            (hp.lam[:, :, None] * hp.A_halo[:, sl, :].abs()).amax())
+        nq = torch.maximum(nq, _pmax(lamA, loc))
+
+    def body_iter(x, z, y, fac, rho_vec):
+        rhs = sigma * x - hp.q + spmv_At(rho_vec * z - y)
+        xt = _spike_solve_sharded(fac, rhs, loc, spec)
+        zt = spmv_A(xt)
+        x_new = alpha * xt + (1.0 - alpha) * x
+        w = alpha * zt + (1.0 - alpha) * z
+        v = w + y / rho_vec
+        lam_r = (hp.lam / rho_vec[..., mb_loc:mb_loc + ml_loc]
+                 if ml_loc else hp.lam)
+        z_new = project_cone(v, hp.l, hp.u, lam_r, cone)
+        y_new = y + rho_vec * (w - z_new)
+        return x_new, z_new, y_new
+
+    def residuals(x, z, y):
+        Ax = spmv_A(x)
+        Px = hp.P_diag * x
+        Aty = spmv_At(y)
+        return tuple(linf_scen(Ax - z, Px + hp.q + Aty, Ax, z, Px,
+                               Aty)) + (nq,)
+
+    rho_bar = torch.tensor(settings.rho, dtype=dtype, device=dev)
+    fac = factor(rho_bar)
+    k = settings.check_every
+    interval_checks = max(1, settings.adaptive_rho_interval // k)
+    tiny = torch.finfo(dtype).tiny
+    x, z, y = x0, z0, y0
+    it = 0
+    iters_sc = torch.zeros(B_loc, dtype=torch.int32, device=dev)
+    status = torch.full((B_loc,), _UNSOLVED, dtype=torch.int32, device=dev)
+    r_p = r_d = torch.full((B_loc,), float("inf"), dtype=dtype, device=dev)
+    alive = True
+    while alive and it < settings.max_iter:
+        check = it // k
+        rho_vec = rho_vec_of(rho_bar)
+        active = status == _UNSOLVED
+        xn, zn, yn = x, z, y
+        for _ in range(k):
+            xn, zn, yn = body_iter(xn, zn, yn, fac, rho_vec)
+        am = active[:, None, None]
+        x, z, y = (torch.where(am, a, o)
+                   for a, o in ((xn, x), (zn, z), (yn, y)))
+        it += k
+        iters_sc = iters_sc + active.to(torch.int32) * k
+
+        rp_n, rd_n, nAx, nz, nPx, nAty, nq_ = residuals(x, z, y)
+        eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(nAx, nz)
+        eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+            torch.maximum(nPx, nAty), nq_)
+        solved = (rp_n <= eps_p) & (rd_n <= eps_d)
+        numerr = ~(torch.isfinite(rp_n) & torch.isfinite(rd_n))
+        status = torch.where(
+            active,
+            torch.where(numerr, int(Status.NUMERICAL_ERROR),
+                        torch.where(solved, _SOLVED, _UNSOLVED)),
+            status).to(torch.int32)
+        r_p = torch.where(active, rp_n, r_p)
+        r_d = torch.where(active, rd_n, r_d)
+
+        still = status == _UNSOLVED
+        do = torch.zeros((), dtype=torch.bool, device=dev)
+        if (settings.adaptive_rho
+                and check % interval_checks == interval_checks - 1):
+            sp = r_p / torch.clamp(torch.maximum(nAx, nz), min=tiny)
+            sd = r_d / torch.clamp(
+                torch.maximum(torch.maximum(nPx, nAty), nq_), min=tiny)
+            logr = torch.where(still, torch.log(torch.sqrt(
+                torch.clamp(sp, min=tiny) / torch.clamp(sd, min=tiny))), 0.0)
+            tot = runtime.psum(logr.sum(), mesh, DATA_AXIS)
+            cnt = runtime.psum(still.sum(), mesh, DATA_AXIS)
+            ratio = torch.exp(tot / torch.clamp(cnt, min=1))
+            new_rho = torch.clamp(rho_bar * ratio, settings.rho_min,
+                                  settings.rho_max)
+            tol = settings.adaptive_rho_tol
+            do = ((ratio > tol) | (ratio < 1.0 / tol)) & (cnt > 0)
+        # The one device-to-host read of this check: liveness of any
+        # scenario on any rank, and the shared refactor decision.
+        flags = runtime.agree(
+            torch.stack([still.any(), do]).to(torch.int32), mesh)
+        alive, do = (bool(f) for f in flags.tolist())
+        if do:
+            rho_bar = new_rho
+            fac = factor(rho_bar)
+    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
+                         status).to(torch.int32)
+    return x, z, y, status, iters_sc, r_p, r_d, rho_bar
