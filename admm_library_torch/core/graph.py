@@ -8,17 +8,22 @@ residual check. Here the host loop of `core.admm.run_admm`,
 partitioned drivers (`parallel.consensus.run_consensus`,
 `consensus_mc.run_consensus_mc`, `horizon._run_horizon`) stays, and on
 the card each of its checks is one CUDA graph replay. The host still
-reads one small flag tensor a check.
+reads one small flag tensor a check. `parallel.rowshard.
+solve_rowsharded` replays a few graphs an iteration instead: its CG
+stops on a flag the host reads every ops/kkt._CG_CHECK steps.
 
 A check is `step(state, variant) -> updates`: `state` is a dict of
 tensors (one level of nested dicts allowed: the problem data, the
 scaling, the KKT factor), `updates` the top-level entries the check
 changes, and `variant` the check's static part, the restart boundary
 and the rho test (`(restart, rho_test)`), which selects one of up to
-four graphs. A loop's static arguments enter the key as plain hashable
-values (a mesh by its shape and coordinates, never by identity). A step
-makes no host read and keeps no host counter: what it counts lives in
-the state.
+four graphs. A variant may also name a segment of a check that the host
+sequences, with host reads between segments: `parallel.rowshard`'s loop
+runs ("cg", steps) blocks of its CG, ("tail",) iteration ends and
+("check", restart, rho_test) checks, one graph each. A loop's static
+arguments enter the key as plain hashable values (a mesh by its shape
+and coordinates, never by identity). A step makes no host read and
+keeps no host counter: what it counts lives in the state.
 
 `CheckLoop` runs a loop's checks. Where `capturable` says no (CPU
 tensors, an eager-only backend, a mesh axis of size > 1) it applies
@@ -42,10 +47,14 @@ import torch
 # triangular solves ('chol'), or block sweeps whose trip counts are
 # static shapes ('banded': two sweeps over the N blocks; 'spike': batched
 # interior products and a sweep over the separator blocks; a check of
-# config 2 on 'banded' is a graph of ~61,000 nodes). 'cg' reads its loop
-# condition every ops/kkt._CG_CHECK steps and 'pallas_cg' counts kernel
-# 2's launches in Python: both stay eager.
-CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike")
+# config 2 on 'banded' is a graph of ~61,000 nodes); and the matrix-free
+# CG of parallel/rowshard ('rowshard_cg'), whose loop runs as segments
+# that the host sequences: blocks of ops/kkt._CG_CHECK steps between
+# reads of its stop flag, iteration tails and checks. The KKT backends
+# 'cg' (its loop condition read inside a check, every _CG_CHECK steps)
+# and 'pallas_cg' (kernel 2's launches counted in Python) stay eager.
+CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike",
+                     "rowshard_cg")
 
 # Entries of the default cache; the oldest is dropped beyond this.
 CACHE_SIZE = 16

@@ -23,16 +23,24 @@ layout does not split evenly in order, the rows are interleaved so that
 every shard holds the same (m_box/ndev | m_l1/ndev | n_soc/ndev) mix,
 and z and y are permuted back at the end.
 
-The host loop reads the device once per check (the status, agreed over
-every rank) and once every `ops.kkt._CG_CHECK` CG steps.
+The loop runs on `core/graph.CheckLoop` in segments: each CG block of
+`ops.kkt._CG_CHECK` steps, each iteration's tail (with the next head),
+and each check (the last tail, the residual check, the next head). On
+the card with a data axis of one rank each segment is one CUDA graph
+replay; with more ranks the collectives stay eager, and the same
+segments run as plain tensor code. The host reads the device once per
+CG block (the stop flag) and once per check (the status), each agreed
+over every rank.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..core import admm, graph
 from ..core.scaling import ruiz_equilibrate
 from ..ops.kkt import _CG_CHECK
 from ..ops.prox import project_cone
@@ -97,40 +105,275 @@ class RowShardSolution(NamedTuple):
     cg_steps: torch.Tensor   # CG steps taken over every x-update
 
 
-def _cg_rowsharded(P, A_loc, rho_loc, sigma, rhs, mesh: Mesh, tol: float,
-                   max_iter: int):
-    """CG on the condensed operator with row-sharded A; every rank holds
-    the same n-vectors. Stops once ‖r‖² ≤ tol²·max(‖rhs‖², 1) or after
-    max_iter steps. The host reads the stop every _CG_CHECK steps; in
-    between, a step taken after the test holds has α = 0 and leaves x
-    and r as they were, so the result is the one of a stop at that very
-    step (as ops/kkt.cg_solve). Returns (x, the steps taken)."""
-    def op(v):
-        At = runtime.psum((rho_loc * (A_loc @ v)) @ A_loc, mesh, DATA_AXIS)
-        return P @ v + sigma * v + At
+# The name under which core/graph.capturable admits this loop: the
+# matrix-free CG, whose blocks have static trip counts.
+BACKEND = "rowshard_cg"
 
-    tiny = torch.finfo(rhs.dtype).tiny
-    x = torch.zeros_like(rhs)
-    r = rhs - op(x)
-    p = r
+
+def _op(st, v, sigma: float, mesh: Mesh):
+    """M v = P v + σ v + Aᵀ diag(ρ) (A v): this rank's rows of A, one sum
+    over the data axis."""
+    A = st["A_loc"]
+    At = runtime.psum((st["rho_loc"] * (A @ v)) @ A, mesh, DATA_AXIS)
+    return st["P"] @ v + sigma * v + At
+
+
+def _live(rs, tol2):
+    """The CG's stop flag as the host reads it: int32 (1,), 1 while the
+    residual is above its tolerance."""
+    return (rs > tol2).to(torch.int32)[None]
+
+
+def cg_head(st, settings: Settings, mesh: Mesh):
+    """The start of an x-update from the carry (x, z, y, rho_bar): the
+    row-local ρ, and CG on M xt = rhs from xt = 0 (xt, r, p, rs, tol2 and
+    the first stop flag). The CG stops once ‖r‖² ≤ tol²·max(‖rhs‖², 1)
+    or after cg_max_iter steps."""
+    s = settings
+    rb = st["rho_bar"]
+    rho_loc = torch.where(st["eq_loc"], s.rho_eq_scale * rb, rb)
+    rhs = s.sigma * st["x"] - st["q"] + runtime.psum(
+        (rho_loc * st["z"] - st["y"]) @ st["A_loc"], mesh, DATA_AXIS)
+    xt = torch.zeros_like(rhs)
+    r = rhs - _op(dict(st, rho_loc=rho_loc), xt, s.sigma, mesh)
     rs = torch.dot(r, r)
-    tol2 = (tol * tol) * torch.clamp(torch.dot(rhs, rhs), min=1.0)
-    steps = torch.zeros((), dtype=torch.int32, device=rhs.device)
-    for it in range(max_iter):
+    tol2 = (s.cg_tol * s.cg_tol) * torch.clamp(torch.dot(rhs, rhs), min=1.0)
+    return dict(rho_loc=rho_loc, xt=xt, r=r, p=r, rs=rs, tol2=tol2,
+                live=_live(rs, tol2))
+
+
+def cg_block(st, steps: int, sigma: float, mesh: Mesh):
+    """`steps` CG steps from the state's (xt, r, p, rs). A step taken
+    once the stop test holds has α = 0 and leaves xt and r as they were,
+    so the result is the one of a stop at that very step (as
+    ops/kkt.cg_solve). Counts the steps taken in cg_steps and writes the
+    next stop flag."""
+    tiny = torch.finfo(st["rs"].dtype).tiny
+    xt, r, p, rs, tol2 = (st[k] for k in ("xt", "r", "p", "rs", "tol2"))
+    count = st["cg_steps"]
+    for _ in range(steps):
         live = rs > tol2
-        if it % _CG_CHECK == 0 and not bool(
-                runtime.agree(live.to(torch.int32)[None], mesh)):
-            break
-        Mp = op(p)
+        Mp = _op(st, p, sigma, mesh)
         alpha = torch.where(
             live, rs / torch.clamp(torch.dot(p, Mp), min=tiny), 0.0)
-        x = x + alpha * p
+        xt = xt + alpha * p
         r = r - alpha * Mp
         rs_new = torch.dot(r, r)
         p = r + (rs_new / torch.clamp(rs, min=tiny)) * p
         rs = torch.where(live, rs_new, rs)
-        steps = steps + live.to(torch.int32)
-    return x, steps
+        count = count + live.to(torch.int32)
+    return dict(xt=xt, r=r, p=p, rs=rs, cg_steps=count, live=_live(rs, tol2))
+
+
+def cg_variants(max_iter: int):
+    """The CG blocks of one x-update: `_CG_CHECK` steps each, the last
+    one shorter where max_iter is not a multiple."""
+    full, rest = divmod(max_iter, _CG_CHECK)
+    return [("cg", _CG_CHECK)] * full + ([("cg", rest)] if rest else [])
+
+
+def _cg_rowsharded(loop, blocks, mesh: Mesh):
+    """The CG of one x-update on `loop`'s state, from its head: each
+    block runs while the stop flag, agreed over every rank, says a
+    residual is still above its tolerance (one host read a block)."""
+    for variant in blocks:
+        if not bool(runtime.agree(loop.state["live"], mesh)):
+            return
+        loop(variant)
+
+
+def _tail(st, settings: Settings, cone: ConeSpec):
+    """The rest of one ADMM iteration after its CG: x, z and y."""
+    a = settings.alpha
+    rho_loc, x, z, y = st["rho_loc"], st["x"], st["z"], st["y"]
+    zt = st["A_loc"] @ st["xt"]
+    w = a * zt + (1 - a) * z
+    v = w + y / rho_loc
+    lo, hi = cone.m_box, cone.m_box + cone.m_l1
+    lam_r = st["lam_loc"][lo:hi] / rho_loc[lo:hi]
+    z_new = project_cone(v, st["l_loc"], st["u_loc"], lam_r, cone)
+    return dict(x=a * st["xt"] + (1 - a) * x, z=z_new,
+                y=y + rho_loc * (w - z_new))
+
+
+def _pmax_abs(mesh: Mesh, *vs):
+    """Max |v| of each row-local v over the axis (one collective)."""
+    return runtime.pmax(torch.stack([v.abs().max() for v in vs]), mesh,
+                        DATA_AXIS)
+
+
+def _row_res(st, mesh: Mesh, x, z, y):
+    """Globally reduced unscaled residual norms (7-tuple)."""
+    A, einv, cd_inv, q = st["A_loc"], st["einv_loc"], st["cd_inv"], st["q"]
+    Ax = A @ x
+    Aty = runtime.psum(y @ A, mesh, DATA_AXIS)
+    Px = st["P"] @ x
+    r_p, nAx, nz = _pmax_abs(mesh, einv * (Ax - z), einv * Ax, einv * z)
+    r_d = (cd_inv * (Px + q + Aty)).abs().max()
+    nPx = (cd_inv * Px).abs().max()
+    nAty = (cd_inv * Aty).abs().max()
+    nq = torch.maximum((cd_inv * q).abs().max(), st["nlam"])
+    return r_p, r_d, nAx, nz, nPx, nAty, nq
+
+
+def _eps(res, s: Settings):
+    _, _, nAx, nz, nPx, nAty, nq = res
+    eps_p = s.eps_abs + s.eps_rel * torch.maximum(nAx, nz)
+    eps_d = s.eps_abs + s.eps_rel * torch.maximum(
+        nPx, torch.maximum(nAty, nq))
+    return eps_p, eps_d
+
+
+def _ratio(res, s: Settings):
+    ep, ed = _eps(res, s)
+    return torch.maximum(res[0] / ep, res[1] / ed)
+
+
+def _count_bad(ok, mesh: Mesh):
+    return runtime.psum((~ok).to(torch.int32).sum(), mesh, DATA_AXIS)
+
+
+def _infeasibility(st, dx_s, dy_s, s: Settings, cone: ConeSpec,
+                   mesh: Mesh):
+    """OSQP §3.4 certificates on row-sharded data (cf. core.admm.
+    infeasibility): dx_s whole (n,), dy_s row-local; every cross-shard
+    quantity is reduced over the axis, so every rank reaches the same
+    verdicts."""
+    eps_pi, eps_di = s.eps_pinf, s.eps_dinf
+    tiny = torch.finfo(dx_s.dtype).tiny
+    inf = float("inf")
+    A_loc, e_loc, einv_loc = st["A_loc"], st["e_loc"], st["einv_loc"]
+    c_v, d_v, cd_inv = st["c"], st["d"], st["cd_inv"]
+    mbl_box, nl = cone.m_box, cone.m_l1
+    mbl = mbl_box + nl
+
+    # ---- primal infeasibility from dy ----
+    dy = (e_loc / c_v) * dy_s
+    ndy = _pmax_abs(mesh, dy)[0]
+    dyn = dy / torch.clamp(ndy, min=tiny)
+    Aty = runtime.psum(((c_v / e_loc) * dyn) @ A_loc, mesh,
+                       DATA_AXIS) * cd_inv
+    cond_A = Aty.abs().max() <= eps_pi
+    lu_l = st["l_loc"][:mbl] * einv_loc[:mbl]
+    lu_u = st["u_loc"][:mbl] * einv_loc[:mbl]
+    dyb = dyn[:mbl]
+    up = torch.where(dyb > eps_pi, torch.where(
+        torch.isfinite(lu_u), lu_u * dyb, inf), 0.0)
+    lo = torch.where(dyb < -eps_pi, torch.where(
+        torch.isfinite(lu_l), lu_l * dyb, inf), 0.0)
+    sup = runtime.psum((up + lo).sum(), mesh, DATA_AXIS)
+    if cone.m_soc:
+        d_soc = cone.soc_dims[0]
+        blk = dyn[mbl:].reshape(cone.n_soc, d_soc)
+        ok = (torch.linalg.vector_norm(blk[:, 1:], dim=-1)
+              <= -blk[:, 0] + eps_pi)
+        sup = torch.where(_count_bad(ok, mesh) > 0, inf, sup)
+    pinf = (ndy > 0) & cond_A & (sup <= eps_pi)
+
+    # ---- dual infeasibility from dx (whole) ----
+    dx = d_v * dx_s
+    ndx = dx.abs().max()
+    dxn = dx / torch.clamp(ndx, min=tiny)
+    Pdx = (st["P"] @ (dxn / d_v)) * cd_inv
+    Adx = einv_loc * (A_loc @ (dxn / d_v))
+    cond_P = Pdx.abs().max() <= eps_di
+    qdx = ((cd_inv * st["q"]) * dxn).sum()
+    if nl:
+        sl = slice(mbl_box, mbl)
+        lam_u = st["lam_loc"][sl] * e_loc[sl] / c_v
+        qdx = qdx + runtime.psum((lam_u * Adx[sl].abs()).sum(), mesh,
+                                 DATA_AXIS)
+    cond_q = qdx <= -eps_di
+    av = Adx[:mbl]
+    ok_up = (av <= eps_di) | ~torch.isfinite(lu_u)
+    ok_lo = (av >= -eps_di) | ~torch.isfinite(lu_l)
+    cond_box = _count_bad(ok_up & ok_lo, mesh) == 0
+    cond_soc = True
+    if cone.m_soc:
+        d_soc = cone.soc_dims[0]
+        blk = Adx[mbl:].reshape(cone.n_soc, d_soc)
+        ok = (torch.linalg.vector_norm(blk[:, 1:], dim=-1)
+              <= blk[:, 0] + eps_di)
+        cond_soc = _count_bad(ok, mesh) == 0
+    dinf = (ndx > 0) & cond_P & cond_q & cond_box & cond_soc
+    return pinf, dinf
+
+
+def _check(st, restart: bool, rho_test: bool, *, settings: Settings,
+           mesh: Mesh, cone: ConeSpec, use_cert: bool, restart_checks: int):
+    """The residual check after a check's last iteration: the reduced
+    residuals, the restarted averaging, the status, the certificates
+    from the deltas since the last check and, in the rho-test variant,
+    adaptive ρ. 'flags' holds (status left UNSOLVED) as int32 (1,)."""
+    s = settings
+    x, z, y = st["x"], st["z"], st["y"]
+    res = _row_res(st, mesh, x, z, y)
+
+    # Restarted averaging (Settings.restart_every): the decision uses
+    # globally reduced norms, so every rank takes the same one. The
+    # window always holds restart_checks checks: the loop starts at
+    # check 0.
+    sums = [st[n] + t for n, t in (("x_sum", x), ("z_sum", z),
+                                   ("y_sum", y))]
+    if restart:
+        xa, za, ya = (t / float(restart_checks) for t in sums)
+        res_a = _row_res(st, mesh, xa, za, ya)
+        take = _ratio(res_a, s) < _ratio(res, s)
+        x, z, y = (torch.where(take, a, b)
+                   for a, b in ((xa, x), (za, z), (ya, y)))
+        res = tuple(torch.where(take, ra, rc)
+                    for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+        sums = [torch.zeros_like(t) for t in sums]
+
+    r_p, r_d = res[0], res[1]
+    eps_p, eps_d = _eps(res, s)
+    status = torch.where((r_p <= eps_p) & (r_d <= eps_d), _SOLVED,
+                         _UNSOLVED).to(torch.int32)
+    if use_cert:
+        pinf, dinf = _infeasibility(st, x - st["x_chk"], y - st["y_chk"],
+                                    s, cone, mesh)
+        status = torch.where(
+            status == _SOLVED, status,
+            torch.where(pinf, int(Status.PRIMAL_INFEASIBLE),
+                        torch.where(dinf, int(Status.DUAL_INFEASIBLE),
+                                    status))).to(torch.int32)
+    out = dict(x=x, z=z, y=y, x_chk=x, y_chk=y, x_sum=sums[0],
+               z_sum=sums[1], y_sum=sums[2], status=status, r_p=r_p,
+               r_d=r_d, flags=(status != _UNSOLVED).to(torch.int32)[None])
+    # Adaptive rho: free under CG, and every input is a reduced scalar,
+    # so every rank computes the same new rho.
+    if rho_test:
+        tiny = torch.finfo(r_p.dtype).tiny
+        _, _, nAx, nz, nPx, nAty, nq = res
+        sp = r_p / torch.clamp(torch.maximum(nAx, nz), min=tiny)
+        sd = r_d / torch.clamp(torch.maximum(torch.maximum(nPx, nAty), nq),
+                               min=tiny)
+        ratio = torch.sqrt(sp / torch.clamp(sd, min=tiny))
+        new_rho = torch.clamp(st["rho_bar"] * ratio, s.rho_min, s.rho_max)
+        tol = s.adaptive_rho_tol
+        changed = (ratio > tol) | (ratio < 1.0 / tol)
+        out["rho_bar"] = torch.where(changed & (status == _UNSOLVED),
+                                     new_rho, st["rho_bar"])
+    return out
+
+
+def rowshard_step(st, variant, *, settings: Settings, mesh: Mesh,
+                  cone: ConeSpec, use_cert: bool, restart_checks: int):
+    """One segment of the loop of `solve_rowsharded`, a step of
+    core/graph.CheckLoop. `variant` is ("cg", steps), a CG block;
+    ("tail",), the end of an iteration and the head of the next; or
+    ("check", restart, rho_test), the end of a check's last iteration,
+    the residual check and the head of the next iteration. Returns the
+    state entries it changes."""
+    if variant[0] == "cg":
+        return cg_block(st, variant[1], settings.sigma, mesh)
+    out = _tail(st, settings, cone)
+    if variant[0] == "check":
+        out.update(_check(dict(st, **out), *variant[1:], settings=settings,
+                          mesh=mesh, cone=cone, use_cert=use_cert,
+                          restart_checks=restart_checks))
+    out.update(cg_head(dict(st, **out), settings, mesh))
+    return out
 
 
 def solve_rowsharded(qp: QPData, mesh: Mesh, settings: Settings = Settings(),
@@ -164,11 +407,9 @@ def solve_rowsharded(qp: QPData, mesh: Mesh, settings: Settings = Settings(),
     eq = ((qps.l == qps.u) & torch.isfinite(qps.l)
           & (torch.arange(m, device=dev) < mb))
 
-    def zeros(k):
-        return torch.zeros(k, dtype=dtype, device=dev)
-
     def as_dev(t, k):
-        return zeros(k) if t is None else torch.as_tensor(t).to(dev, dtype)
+        return (torch.zeros(k, dtype=dtype, device=dev) if t is None
+                else torch.as_tensor(t).to(dev, dtype))
 
     # Warm starts: scale, then permute into shard order.
     x = scaling.scale_x(as_dev(x0, n))
@@ -180,199 +421,62 @@ def solve_rowsharded(qp: QPData, mesh: Mesh, settings: Settings = Settings(),
         row_leaves = [t[pidx] for t in row_leaves]
     A_loc, l_loc, u_loc, lam_loc, eq_loc, e_loc, z, y = (
         t[rows] for t in row_leaves)
-    P_mat, q = qps.P, qps.q
     d_v, c_v = scaling.d, scaling.c
-
-    einv_loc = 1.0 / e_loc
     cd_inv = 1.0 / (c_v * d_v)
     k = s.check_every
-    interval_checks = max(1, s.adaptive_rho_interval // k)
     restart_checks = s.restart_every and max(1, s.restart_every // k)
     use_cert = s.eps_pinf > 0 or s.eps_dinf > 0
-    mbl_box, nl = cone_loc.m_box, cone_loc.m_l1
-    mbl = mbl_box + nl
-    tiny = torch.finfo(dtype).tiny
-    inf = float("inf")
-
-    def pmax_abs(*vs):
-        """Max |v| of each row-local v over the axis (one collective)."""
-        return runtime.pmax(torch.stack([v.abs().max() for v in vs]), mesh,
-                            DATA_AXIS)
-
-    def psum(v):
-        return runtime.psum(v, mesh, DATA_AXIS)
+    mbl_box, mbl = cone_loc.m_box, cone_loc.m_box + cone_loc.m_l1
 
     # L1 gradient scale in the dual-norm reference (core.admm.
     # l1_grad_scale): L1 rows are row-local, so the column max takes a
     # max over the axis.
-    if nl:
+    if cone_loc.m_l1:
         lamA = (lam_loc[mbl_box:mbl, None]
                 * A_loc[mbl_box:mbl].abs()).amax(dim=0)
-        nlam = pmax_abs(cd_inv * lamA)[0]
+        nlam = _pmax_abs(mesh, cd_inv * lamA)[0]
     else:
         nlam = torch.zeros((), dtype=dtype, device=dev)
 
-    def rho_of(rb):
-        return torch.where(eq_loc, s.rho_eq_scale * rb, rb)
-
-    cg_steps = torch.zeros((), dtype=torch.int32, device=dev)
-
-    def iter_once(x, z, y, rho_bar, cg_steps):
-        rho_loc = rho_of(rho_bar)
-        rhs = s.sigma * x - q + psum((rho_loc * z - y) @ A_loc)
-        xt, steps = _cg_rowsharded(P_mat, A_loc, rho_loc, s.sigma, rhs,
-                                   mesh, s.cg_tol, s.cg_max_iter)
-        zt = A_loc @ xt
-        a = s.alpha
-        x_new = a * xt + (1 - a) * x
-        w = a * zt + (1 - a) * z
-        v = w + y / rho_loc
-        lam_r = lam_loc[mbl_box:mbl] / rho_loc[mbl_box:mbl]
-        z_new = project_cone(v, l_loc, u_loc, lam_r, cone_loc)
-        y_new = y + rho_loc * (w - z_new)
-        return x_new, z_new, y_new, cg_steps + steps
-
-    def row_res(x, z, y):
-        """Globally reduced unscaled residual norms (7-tuple)."""
-        Ax = A_loc @ x
-        Aty = psum(y @ A_loc)
-        Px = P_mat @ x
-        r_p, nAx, nz = pmax_abs(einv_loc * (Ax - z), einv_loc * Ax,
-                                einv_loc * z)
-        r_d = (cd_inv * (Px + q + Aty)).abs().max()
-        nPx = (cd_inv * Px).abs().max()
-        nAty = (cd_inv * Aty).abs().max()
-        nq = torch.maximum((cd_inv * q).abs().max(), nlam)
-        return r_p, r_d, nAx, nz, nPx, nAty, nq
-
-    def eps_of(res):
-        _, _, nAx, nz, nPx, nAty, nq = res
-        eps_p = s.eps_abs + s.eps_rel * torch.maximum(nAx, nz)
-        eps_d = s.eps_abs + s.eps_rel * torch.maximum(
-            nPx, torch.maximum(nAty, nq))
-        return eps_p, eps_d
-
-    def ratio_of(res):
-        ep, ed = eps_of(res)
-        return torch.maximum(res[0] / ep, res[1] / ed)
-
-    def count_bad(ok):
-        return psum((~ok).to(torch.int32).sum())
-
-    def infeasibility_local(dx_s, dy_s):
-        """OSQP §3.4 certificates on row-sharded data (cf. core.admm.
-        infeasibility): dx_s whole (n,), dy_s row-local; every
-        cross-shard quantity is reduced over the axis, so every rank
-        reaches the same verdicts."""
-        eps_pi, eps_di = s.eps_pinf, s.eps_dinf
-
-        # ---- primal infeasibility from dy ----
-        dy = (e_loc / c_v) * dy_s
-        ndy = pmax_abs(dy)[0]
-        dyn = dy / torch.clamp(ndy, min=tiny)
-        Aty = psum(((c_v / e_loc) * dyn) @ A_loc) * cd_inv
-        cond_A = Aty.abs().max() <= eps_pi
-        lu_l = l_loc[:mbl] * einv_loc[:mbl]
-        lu_u = u_loc[:mbl] * einv_loc[:mbl]
-        dyb = dyn[:mbl]
-        up = torch.where(dyb > eps_pi, torch.where(
-            torch.isfinite(lu_u), lu_u * dyb, inf), 0.0)
-        lo = torch.where(dyb < -eps_pi, torch.where(
-            torch.isfinite(lu_l), lu_l * dyb, inf), 0.0)
-        sup = psum((up + lo).sum())
-        if cone_loc.m_soc:
-            d_soc = cone_loc.soc_dims[0]
-            blk = dyn[mbl:].reshape(cone_loc.n_soc, d_soc)
-            ok = (torch.linalg.vector_norm(blk[:, 1:], dim=-1)
-                  <= -blk[:, 0] + eps_pi)
-            sup = torch.where(count_bad(ok) > 0, inf, sup)
-        pinf = (ndy > 0) & cond_A & (sup <= eps_pi)
-
-        # ---- dual infeasibility from dx (whole) ----
-        dx = d_v * dx_s
-        ndx = dx.abs().max()
-        dxn = dx / torch.clamp(ndx, min=tiny)
-        Pdx = (P_mat @ (dxn / d_v)) * cd_inv
-        Adx = einv_loc * (A_loc @ (dxn / d_v))
-        cond_P = Pdx.abs().max() <= eps_di
-        qdx = ((cd_inv * q) * dxn).sum()
-        if nl:
-            sl = slice(mbl_box, mbl)
-            lam_u = lam_loc[sl] * e_loc[sl] / c_v
-            qdx = qdx + psum((lam_u * Adx[sl].abs()).sum())
-        cond_q = qdx <= -eps_di
-        av = Adx[:mbl]
-        ok_up = (av <= eps_di) | ~torch.isfinite(lu_u)
-        ok_lo = (av >= -eps_di) | ~torch.isfinite(lu_l)
-        cond_box = count_bad(ok_up & ok_lo) == 0
-        cond_soc = True
-        if cone_loc.m_soc:
-            d_soc = cone_loc.soc_dims[0]
-            blk = Adx[mbl:].reshape(cone_loc.n_soc, d_soc)
-            ok = (torch.linalg.vector_norm(blk[:, 1:], dim=-1)
-                  <= blk[:, 0] + eps_di)
-            cond_soc = count_bad(ok) == 0
-        dinf = (ndx > 0) & cond_P & cond_q & cond_box & cond_soc
-        return pinf, dinf
-
-    rho_bar = torch.tensor(s.rho, dtype=dtype, device=dev)
-    status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
-    r_p = r_d = torch.tensor(inf, dtype=dtype, device=dev)
-    sums = [torch.zeros_like(t) for t in (x, z, y)]
-    avg_cnt = 0
-    x_chk, y_chk = x, y
+    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    state = dict(
+        A_loc=A_loc, l_loc=l_loc, u_loc=u_loc, lam_loc=lam_loc,
+        eq_loc=eq_loc, e_loc=e_loc, einv_loc=1.0 / e_loc, P=qps.P, q=qps.q,
+        d=d_v, c=c_v, cd_inv=cd_inv, nlam=nlam,
+        x=x, z=z, y=y, x_chk=x, y_chk=y,
+        x_sum=torch.zeros_like(x), z_sum=torch.zeros_like(z),
+        y_sum=torch.zeros_like(y),
+        rho_bar=torch.tensor(s.rho, dtype=dtype, device=dev),
+        status=torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev),
+        r_p=inf, r_d=inf,
+        flags=torch.zeros(1, dtype=torch.int32, device=dev),
+        cg_steps=torch.zeros((), dtype=torch.int32, device=dev))
+    state.update(cg_head(state, s, mesh))
+    step = functools.partial(rowshard_step, settings=s, mesh=mesh,
+                             cone=cone_loc, use_cert=use_cert,
+                             restart_checks=restart_checks)
+    # The key holds plain values (cf. consensus.loop_static).
+    loop = graph.CheckLoop(
+        "solve_rowsharded", step, state, s, BACKEND, mesh=mesh,
+        cone=cone_loc, use_cert=use_cert, restart_checks=restart_checks,
+        interval_checks=max(1, s.adaptive_rho_interval // k),
+        permuted=perm is not None,
+        mesh_shape=tuple(sorted(mesh.shape.items())),
+        mesh_coords=tuple(sorted(mesh.coords.items())))
+    blocks = cg_variants(s.cg_max_iter)
     it = 0
     done = False
     while not done and it < s.max_iter:
-        check = it // k
-        for _ in range(k):
-            x, z, y, cg_steps = iter_once(x, z, y, rho_bar, cg_steps)
+        for i in range(k):
+            _cg_rowsharded(loop, blocks, mesh)
+            loop(("tail",) if i < k - 1 else ("check",)
+                 + admm.check_variant(it // k, s, restart_checks))
         it += k
-        res = row_res(x, z, y)
-
-        # Restarted averaging (Settings.restart_every): the decision
-        # uses globally reduced norms, so every rank takes the same one.
-        sums = [a + b for a, b in zip(sums, (x, z, y))]
-        avg_cnt += 1
-        if restart_checks and check % restart_checks == restart_checks - 1:
-            xa, za, ya = (t / float(avg_cnt) for t in sums)
-            res_a = row_res(xa, za, ya)
-            take = ratio_of(res_a) < ratio_of(res)
-            x, z, y = (torch.where(take, a, b)
-                       for a, b in ((xa, x), (za, z), (ya, y)))
-            res = tuple(torch.where(take, ra, rc)
-                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
-            sums = [torch.zeros_like(t) for t in sums]
-            avg_cnt = 0
-
-        r_p, r_d = res[0], res[1]
-        eps_p, eps_d = eps_of(res)
-        status = torch.where((r_p <= eps_p) & (r_d <= eps_d), _SOLVED,
-                             _UNSOLVED).to(torch.int32)
-        if use_cert:
-            pinf, dinf = infeasibility_local(x - x_chk, y - y_chk)
-            status = torch.where(
-                status == _SOLVED, status,
-                torch.where(pinf, int(Status.PRIMAL_INFEASIBLE),
-                            torch.where(dinf, int(Status.DUAL_INFEASIBLE),
-                                        status))).to(torch.int32)
-        # Adaptive rho: free under CG, and every input is a reduced
-        # scalar, so every rank computes the same new rho.
-        if s.adaptive_rho and check % interval_checks == interval_checks - 1:
-            _, _, nAx, nz, nPx, nAty, nq = res
-            sp = r_p / torch.clamp(torch.maximum(nAx, nz), min=tiny)
-            sd = r_d / torch.clamp(torch.maximum(torch.maximum(nPx, nAty),
-                                                 nq), min=tiny)
-            ratio = torch.sqrt(sp / torch.clamp(sd, min=tiny))
-            new_rho = torch.clamp(rho_bar * ratio, s.rho_min, s.rho_max)
-            tol = s.adaptive_rho_tol
-            changed = (ratio > tol) | (ratio < 1.0 / tol)
-            rho_bar = torch.where(changed & (status == _UNSOLVED), new_rho,
-                                  rho_bar)
-        x_chk, y_chk = x, y
-        # The one device-to-host read of this check.
-        done = bool(runtime.agree(
-            (status != _UNSOLVED).to(torch.int32)[None], mesh))
+        # The one device-to-host read of this check, agreed over every
+        # rank.
+        done = bool(runtime.agree(loop.state["flags"], mesh))
+    x, z, y, status, r_p, r_d, rho_bar, cg_steps = loop.result(
+        "x", "z", "y", "status", "r_p", "r_d", "rho_bar", "cg_steps")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
                          status).to(torch.int32)
 

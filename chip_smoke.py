@@ -103,11 +103,16 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                mesh=): bitwise phase 4's solve, the kernel launched;
 15. rowshard — the reference's rowshard_qp4096 cell (n=4096, m=8192, f32
                data, eps 1e-6) on the port's own seeded draw, through
-               solve_rowsharded_hybrid on a 1-rank data mesh: SOLVED,
-               f64 KKT within the mixed criterion (r/eps reported), z
-               within 1e-5 of A x, a rerun bitwise identical; CG steps
-               per iteration, iterations beside the TPU's on JAX's draw,
-               and one profiled run;
+               solve_rowsharded_hybrid on a 1-rank data mesh, its loop
+               as captured graphs: SOLVED at the eager loop's 250
+               iterations and 11,554 CG steps, f64 KKT within the mixed
+               criterion (r/eps reported), z within 1e-5 of A x, reruns
+               bitwise identical, the captured solve bitwise the eager
+               one; captures, replays, warm-ups and capture ms of the
+               first run and two reruns (the second captures nothing),
+               nodes per graph, peak memory, the host's reads and launch
+               calls an iteration, iterations beside the TPU's on JAX's
+               draw, and one profiled run;
 16. horizon_sharded — config 5 at 1024 (the JAX dispersions) in 10 time
                parts through solve_horizon_sharded on a 1x1 mesh: in f64
                under the reference test's plain settings every lane
@@ -129,7 +134,8 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                4 and a b128 re-centred round.
 
 Every solve above runs its checks as captured graphs where the capture
-rule admits its backend ('inv', 'chol') and mesh (none, or 1 rank).
+rule admits its backend ('inv', 'chol', 'banded', 'spike', and the
+row-sharded CG) and mesh (none, or 1 rank).
 Phases 9-17 run no kernel of their own: their backends are plain
 PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
 to (phase 14 runs the fused kernel on its lanes).
@@ -256,6 +262,10 @@ COPY_X_AGREE = 1e-5
 ROWSHARD_N, ROWSHARD_M = 4096, 8192
 ROWSHARD_TPU_ITERS = 225
 ROWSHARD_Z_AGREE = 1e-5
+# The count of the port's eager loop on this draw in every chip run
+# before the loop was captured (H100): the captured loop computes the
+# same iterates.
+ROWSHARD_PARENT_ITERS, ROWSHARD_PARENT_CG_STEPS = 250, 11554
 # The horizon-sharded SPIKE driver on config 5 at 1024 (the JAX draw of
 # the dispersions), 10 parts. In f64 under the reference test's plain
 # settings (no Ruiz scaling, restart or stall exit) it is held lane by
@@ -639,31 +649,34 @@ def _timed_solve(qp, settings):
     return sol, secs, launches["fused_iterate_shared"]
 
 
-def _captured_runs(fn, *args):
-    """fn(*args) from an empty check cache, then a rerun: both results,
-    and a record of the captured checks (core/graph.py) with each run's
-    wall-clock, kernel launches and graph.CACHE.stats deltas (captures,
-    replays, warm-ups, capture ms), the cache's entries, the nodes of
-    each graph (counted after the first run) and the peak device memory
-    allocated over both runs."""
+def _captured_runs(fn, *args, reruns=1):
+    """fn(*args) from an empty check cache, then `reruns` reruns: every
+    result, and a record of the captured checks (core/graph.py) with
+    each run's wall-clock, kernel launches and graph.CACHE.stats deltas
+    (captures, replays, warm-ups, capture ms; `graph_rerun` the last
+    rerun, `graph_reruns` each where there are more), the cache's
+    entries, the nodes of each graph (counted after the last run, so
+    that a variant captured in a rerun counts too) and the peak device
+    memory allocated over every run."""
     import torch
     from admm_library_torch.core import graph
     graph.CACHE.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sols, runs = [], []
-    for _ in range(2):
+    for _ in range(1 + reruns):
         before = dict(graph.CACHE.stats)
         sol, wall, launches = _timed_run(fn, *args)
         sols.append(sol)
         runs.append(dict(wall_s=wall, launches=launches, **{
             k: graph.CACHE.stats[k] - before[k] for k in before}))
-        if len(runs) == 1:
-            nodes = _graph_nodes()
-    return sols, dict(graph_first=runs[0], graph_rerun=runs[1],
-                      graph_entries=len(graph.CACHE.entries),
-                      nodes_per_graph=nodes,
-                      peak_memory_bytes=torch.cuda.max_memory_allocated())
+    rec = dict(graph_first=runs[0], graph_rerun=runs[-1],
+               graph_entries=len(graph.CACHE.entries),
+               nodes_per_graph=_graph_nodes(),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if reruns > 1:
+        rec["graph_reruns"] = runs[1:]
+    return sols, rec
 
 
 def _check_captured(tag, rec):
@@ -1507,8 +1520,9 @@ def phase_solve_batch(dev):
 
 
 class _PhaseOutputs:
-    """Records what each call of a consensus phase function returns
-    (`module.name`), with whether it ran with a re-centring offset."""
+    """Records what each call of `module.name` returns (a consensus
+    phase function's, with whether it ran with a re-centring offset;
+    the host's agreed reads)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -1799,11 +1813,16 @@ def phase_data_axis(dev, sol1024):
 
 def phase_rowshard(dev, scale):
     """rowshard_qp4096: one n=4096, m=8192 box QP through
-    solve_rowsharded_hybrid on a 1-rank data mesh on the card."""
+    solve_rowsharded_hybrid on a 1-rank data mesh on the card, its loop
+    replayed as captured graphs (CG blocks of 8 steps, iteration tails,
+    checks): from an empty cache and two reruns, then once with every
+    segment eager (bitwise the captured solve; the host's reads counted)
+    and once under the profiler."""
     import torch
     from admm_library_torch import Settings, Status
+    from admm_library_torch.core import graph
     from admm_library_torch.models.random_qp import random_box_qp
-    from admm_library_torch.parallel import make_data_mesh
+    from admm_library_torch.parallel import make_data_mesh, runtime
     from admm_library_torch.parallel.rowshard import solve_rowsharded_hybrid
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1811,34 +1830,64 @@ def phase_rowshard(dev, scale):
     qp = qp32.astype(torch.float64)      # f32 data, f64 outputs
     mesh = make_data_mesh(1)
     s = Settings(eps_abs=EPS, eps_rel=EPS, backend="cg")
-    sol, wall, launches = _timed_run(solve_rowsharded_hybrid, qp, mesh, s)
-    sol2, wall2, _ = _timed_run(solve_rowsharded_hybrid, qp, mesh, s)
+    sols, graph_rec = _captured_runs(solve_rowsharded_hybrid, qp, mesh, s,
+                                     reruns=2)
+    sol, sol2 = sols[0], sols[-1]
+    wall = graph_rec["graph_first"]["wall_s"]
+    launches = graph_rec["graph_first"]["launches"]
+    wall2 = graph_rec["graph_rerun"]["wall_s"]
+    capturable = graph.capturable
+    graph.capturable = lambda *a, **kw: False
+    try:
+        with _PhaseOutputs(runtime, "agree") as reads:
+            eager, eager_wall, _ = _timed_run(solve_rowsharded_hybrid, qp,
+                                              mesh, s)
+    finally:
+        graph.capturable = capturable
     prof = _profiled(solve_rowsharded_hybrid, qp, mesh, s)
     r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
     iters = int(sol.iters)
     rec = dict(cell="rowshard_qp4096", n=qp.n, m=qp.m,
                status=Status(int(sol.status)).name, iters=iters,
+               parent_iters=ROWSHARD_PARENT_ITERS,
                tpu_iters_on_the_jax_draw=ROWSHARD_TPU_ITERS,
                kkt_r_prim=r_p, kkt_r_dual=r_d, eps_prim=eps_p,
                eps_dual=eps_d, r_prim_over_eps=r_p / eps_p,
                r_dual_over_eps=r_d / eps_d,
                cg_steps=int(sol.cg_steps),
+               parent_cg_steps=ROWSHARD_PARENT_CG_STEPS,
                cg_steps_per_iteration=int(sol.cg_steps) / iters,
                z_minus_Ax_max=float((qp.A @ sol.x - sol.z).abs().max()),
                wall_s=wall, wall_rerun_s=wall2,
+               wall_reruns_s=[r["wall_s"] for r in graph_rec["graph_reruns"]],
+               eager_wall_s=eager_wall, host_reads=len(reads.calls),
+               host_reads_per_iteration=len(reads.calls) / iters,
                **_profile_fields(prof, iters, wall2),
                hand_written_launches=launches,
+               captured_bitwise_eager=all(
+                   torch.equal(getattr(sol, f), getattr(eager, f))
+                   for f in ("x", "z", "y", "status", "iters", "cg_steps")),
                rerun_bitwise_identical=all(
                    torch.equal(getattr(sol, f), getattr(sol2, f))
-                   for f in sol._fields), **scale)
+                   for f in sol._fields), **graph_rec, **scale)
     emit("rowshard", **rec)
     check(int(sol.status) == int(Status.SOLVED), "rowshard: not SOLVED")
+    check(iters == ROWSHARD_PARENT_ITERS
+          and rec["cg_steps"] == ROWSHARD_PARENT_CG_STEPS,
+          f"rowshard: {iters} iterations and {rec['cg_steps']} CG steps, "
+          f"the eager loop took {ROWSHARD_PARENT_ITERS} and "
+          f"{ROWSHARD_PARENT_CG_STEPS}")
     check(r_p <= eps_p and r_d <= eps_d,
           "rowshard: f64 KKT residuals above the mixed criterion")
     check(rec["z_minus_Ax_max"] <= ROWSHARD_Z_AGREE,
           "rowshard: z disagrees with A x")
+    check(rec["captured_bitwise_eager"],
+          "rowshard: the captured solve differs from the eager one")
     check(rec["rerun_bitwise_identical"], "rowshard: rerun not bitwise "
           "identical")
+    _check_captured("rowshard", rec)
+    check(graph_rec["graph_rerun"]["captures"] == 0,
+          "rowshard: the second rerun captured a segment")
     return rec
 
 

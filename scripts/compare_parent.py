@@ -4,8 +4,9 @@ config 4 through `solve`, the config-5 batch at 128 and 1024 lanes
 through `solve_batch_shared`, `solve_batch` on 128 config-1 draws, and
 the partitioned and block-backend paths of `chip_smoke.py`: `consensus`
 and `consensus_mc_1024` on a 1x1 mesh, `horizon_sharded_1024` under its
-f64 plain and f32 gate settings, `horizon_spike_1024` and config 2
-through `solve` on 'banded'.
+f64 plain and f32 gate settings, `horizon_spike_1024`, config 2
+through `solve` on 'banded', and `rowshard_qp4096` through
+`solve_rowsharded_hybrid` on a 1-rank data mesh.
 
     mkdir -p _scratch/parent
     git archive <parent commit> | tar -x -C _scratch/parent
@@ -42,7 +43,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("config3", "config4", "b128", "b1024", "solve_batch", "consensus",
          "consensus_mc_1024", "horizon_f64_plain", "horizon_f32_gate",
-         "horizon_spike_1024", "config2_banded")
+         "horizon_spike_1024", "config2_banded", "rowshard_qp4096")
 SAVED = os.path.join(ROOT, "_scratch", "compare_parent")
 # The host's calls that put work on the card, as CUPTI names them.
 HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
@@ -130,6 +131,15 @@ def _path(name, dev):
                            eps_rel=1e-5, restart_every=0, stall_checks=0,
                            polish=False)
         return (solve_horizon_sharded, hp, hspec, runtime.make_mesh(), s)
+    if name == "rowshard_qp4096":
+        from admm_library_torch.models.random_qp import random_box_qp
+        from admm_library_torch.parallel import make_data_mesh
+        from admm_library_torch.parallel.rowshard import (
+            solve_rowsharded_hybrid)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        qp = random_box_qp(gen, n=4096, m=8192, device=dev)
+        return (solve_rowsharded_hybrid, qp.astype(f64), make_data_mesh(1),
+                T.Settings(eps_abs=1e-6, eps_rel=1e-6, backend="cg"))
     if name == "solve_batch":
         from admm_library_torch.models.random_qp import random_box_qp
         gen = torch.Generator().manual_seed(0)
@@ -200,6 +210,8 @@ def worker(root, side, turn, reruns, profiled, paths):
                    graph_reruns={k: sum(r[2][k] for r in reruns_)
                                  for k in graph_first},
                    peak_memory_bytes=torch.cuda.max_memory_allocated())
+        if hasattr(sol, "cg_steps"):
+            rec["cg_steps"] = int(sol.cg_steps)
         if profiled:
             prof = _profiled(fn, *args)
             rec.update(prof, idle_share=1.0 - prof["device_busy_ms"] / 1e3
@@ -270,6 +282,10 @@ def main():
                 rerun_s=statistics.median(w for r in recs
                                           for w in r["rerun_s"]),
                 iters=sorted({r["iters"] for r in recs}),
+                cg_steps=sorted({r["cg_steps"] for r in recs
+                                 if "cg_steps" in r}),
+                device_busy_ms=[r["device_busy_ms"] for r in recs
+                                if "device_busy_ms" in r],
                 idle_share=[r["idle_share"] for r in recs
                             if "idle_share" in r],
                 host_launches_per_iteration=[

@@ -876,7 +876,11 @@ def _recorded_loops(monkeypatch, fn, *args, **kw):
     return out, loops
 
 
-def _replay_is_eager(step, state):
+_CHECK_VARIANTS = [(False, False), (False, True), (True, False),
+                   (True, True)]
+
+
+def _replay_is_eager(step, state, variants=_CHECK_VARIANTS):
     """Every variant of `step` from `state`: the eager step on the
     default stream, the warm-up on the capture stream, the captured
     graph's first replay and a second replay, each from the same state,
@@ -884,8 +888,7 @@ def _replay_is_eager(step, state):
     from admm_library_torch.core import graph
     cache = graph.CheckCache()
     entry = cache.entry("case", step, state)
-    for variant in [(False, False), (False, True), (True, False),
-                    (True, True)]:
+    for variant in variants:
         want = step(graph._map(torch.clone, state), variant)
         runs = []
         for _ in range(3):
@@ -895,8 +898,9 @@ def _replay_is_eager(step, state):
         for key, value in want.items():
             for got in runs:
                 assert torch.equal(got[key], value), (variant, key)
-    assert cache.stats["captures"] == 4 and cache.stats["replays"] == 8
-    assert cache.stats["eager_checks"] == 4
+    v = len(variants)
+    assert cache.stats["captures"] == v and cache.stats["replays"] == 2 * v
+    assert cache.stats["eager_checks"] == v
 
 
 def test_replayed_check_is_the_eager_check_config4_f64_chunk(
@@ -1148,3 +1152,74 @@ def test_captured_partitioned_solve_is_the_eager_solve(name, dev,
     settings = args[-1]
     assert float(captured.rho) != settings.rho          # refactored
     assert stats["captures"] >= 2 and stats["replays"] > stats["captures"]
+
+
+# ---- the row-sharded loop's segments as captured graphs ----
+
+# Restart every 3 checks, rho test every 2, rho far off, a CG cut at 13
+# steps (a full block and a short one): every segment occurs.
+_ROWSHARD_SETTINGS = dict(check_every=5, adaptive_rho_interval=10,
+                          restart_every=15, rho=0.01, cg_max_iter=13,
+                          eps_abs=1e-7, eps_rel=1e-7, max_iter=3000)
+_ROWSHARD_VARIANTS = [("cg", 8), ("cg", 5), ("tail",)] + [
+    ("check",) + v for v in _CHECK_VARIANTS]
+
+
+def _rowshard_path(name, dev):
+    """(solve function, its arguments) of a small row-sharded solve on a
+    1-rank data mesh on the card: mixed cones in f64, or the hybrid
+    path on f32 data (phase 1 and each re-centred round cut at 60
+    iterations). Each loop meets every segment it runs at least twice."""
+    from admm_library_torch.models.random_qp import random_box_qp
+    from admm_library_torch.parallel import make_data_mesh
+    from admm_library_torch.parallel import rowshard
+    mesh = make_data_mesh()
+    if name == "mixed_f64":
+        return rowshard.solve_rowsharded, (
+            _small_l1_soc(dev), mesh,
+            Settings(precision="single", **_ROWSHARD_SETTINGS))
+    qp = random_box_qp(torch.Generator().manual_seed(21), n=32, m=64,
+                       dtype=torch.float32, device="cpu").to(dev)
+    return rowshard.solve_rowsharded_hybrid, (
+        qp.astype(torch.float64), mesh,
+        Settings(**dict(_ROWSHARD_SETTINGS, rho=0.1, cg_max_iter=200,
+                        max_iter=60, eps_abs=1e-6, eps_rel=1e-6)))
+
+
+def test_replayed_rowshard_segment_is_the_eager_segment(dev, monkeypatch):
+    """The first state of the row-sharded loop (its CG head done): every
+    segment's replay == the eager segment, bitwise."""
+    fn, (qp, mesh, s) = _rowshard_path("mixed_f64", dev)
+    _, loops = _recorded_loops(monkeypatch, fn, qp, mesh,
+                               s.replace(max_iter=0))
+    (kind, step, state), = loops
+    assert kind == "solve_rowsharded" and state["A_loc"].is_cuda
+    _replay_is_eager(step, state, _ROWSHARD_VARIANTS)
+
+
+@pytest.mark.parametrize("name", ["mixed_f64", "hybrid"])
+def test_captured_rowsharded_solve_is_the_eager_solve(name, dev,
+                                                      monkeypatch):
+    """A whole row-sharded solve replayed from graphs equals the same
+    solve with every segment eager, bitwise, through restarts, rho
+    updates and the short last CG block; a second call replays and
+    captures nothing."""
+    from admm_library_torch.core import graph
+    fn, args = _rowshard_path(name, dev)
+    eager, captured, stats = _eager_and_captured(monkeypatch, fn, *args)
+    fields = ("x", "z", "y", "status", "iters", "r_prim", "r_dual", "rho",
+              "cg_steps")
+    for f in fields:
+        assert torch.equal(getattr(eager, f), getattr(captured, f)), f
+    if name == "mixed_f64":
+        assert int(captured.status) == int(Status.SOLVED)
+    else:
+        assert int(captured.iters) > 60                 # rounds ran
+    assert stats["captures"] >= 4 and stats["replays"] > stats["captures"]
+    before = dict(graph.CACHE.stats)
+    again = fn(*args)
+    for f in fields:
+        assert torch.equal(getattr(again, f), getattr(captured, f)), f
+    assert graph.CACHE.stats["captures"] == before["captures"]
+    assert graph.CACHE.stats["eager_checks"] == before["eager_checks"]
+    assert graph.CACHE.stats["replays"] > before["replays"]

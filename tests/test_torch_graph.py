@@ -5,7 +5,9 @@
   under FakeTensorMode, where `.item()`, `float(t)`, `bool(t)` and
   `.tolist()` raise. f32 and f64, box, L1 and SOC rows, with and without
   a shifted-prox offset, the batch's plain and fused-tail forms, on the
-  dense backends and on the block sweeps of 'banded' and 'spike'.
+  dense backends and on the block sweeps of 'banded' and 'spike'; and
+  every segment of `parallel.rowshard.solve_rowsharded`'s loop (CG
+  blocks, tails, checks).
 - `run_admm`, `run_admm_lanes` and `run_admm_batch_shared` are bitwise
   the plain loops of tests/torch_loops_reference.py (host counters,
   rebinding), over restarts, rho refactors, stalls and every backend
@@ -27,7 +29,8 @@ import admm_library_torch as T
 from admm_library_torch import api
 from admm_library_torch.core import admm, graph
 from admm_library_torch.core.scaling import ruiz_equilibrate
-from admm_library_torch.parallel import batch
+from admm_library_torch.parallel import batch, rowshard
+from admm_library_torch.parallel.batch import make_data_mesh
 from admm_library_torch.parallel.runtime import Mesh
 
 import torch_loops_reference as ref
@@ -138,13 +141,13 @@ class _Recorder:
 
 # ---------------------------------------------------------------- (a)
 
-def _run_without_host_read(step, state):
+def _run_without_host_read(step, state, variants=VARIANTS):
     """Every variant of `step` from `state` under FakeTensorMode; each
     update keeps its entry's shape and dtype."""
     mode = FakeTensorMode()
     fake = graph._map(mode.from_tensor, state)
     with mode:
-        for variant in VARIANTS:
+        for variant in variants:
             for key, t in step(fake, variant).items():
                 assert tuple(t.shape) == tuple(fake[key].shape), key
                 assert t.dtype == fake[key].dtype, key
@@ -167,7 +170,13 @@ _FAKE_CASES = [(loop, dtype) for loop in ("run_admm", "run_admm_lanes",
                for dtype in ("f32", "f64")] + [("batch_fused", "f32")] + [
     (f"{loop}/{backend}", dtype)
     for loop in ("run_admm", "run_admm_lanes", "batch_plain")
-    for backend in ("banded", "spike") for dtype in ("f32", "f64")]
+    for backend in ("banded", "spike") for dtype in ("f32", "f64")] + [
+    ("solve_rowsharded", dtype) for dtype in ("f32", "f64")]
+
+# Every segment of the row-sharded loop: a full CG block, a short last
+# one, an iteration's tail and the check in its four forms.
+ROWSHARD_VARIANTS = [("cg", 8), ("cg", 5), ("tail",)] + [
+    ("check",) + v for v in VARIANTS]
 
 
 @pytest.mark.parametrize("rows", ["box", "l1", "soc"])
@@ -193,6 +202,13 @@ def test_check_makes_no_host_read(loop, dtype, rows, monkeypatch):
         step, state = _loop_state(monkeypatch, batch.run_admm_batch_shared,
                                   qp, sc, s, *_zeros(qp, 4),
                                   backend or "inv", z_off=z_off)
+    elif loop == "solve_rowsharded":
+        step, state = _loop_state(monkeypatch, rowshard.solve_rowsharded,
+                                  _qp(*_arrays(rows, 0), dtype),
+                                  make_data_mesh(device="cpu"), s)
+        assert step.keywords["use_cert"]
+        _run_without_host_read(step, state, ROWSHARD_VARIANTS)
+        return
     else:
         qp, sc = _shared(rows, dtype)
         step, state = _loop_state(monkeypatch, batch.run_admm_batch_shared,
@@ -326,7 +342,8 @@ def _mesh(data, horizon):
                 world=data * horizon, device=torch.device("cpu"))
 
 
-_BACKENDS = ["chol", "inv", "banded", "spike", "cg", "pallas_cg"]
+_BACKENDS = ["chol", "inv", "banded", "spike", "cg", "pallas_cg",
+             "rowshard_cg"]
 _MESHES = {"none": None, "1x1": (1, 1), "data2": (2, 1),
            "horizon2": (1, 2), "2x2": (2, 2)}
 
@@ -338,7 +355,7 @@ def test_capture_rule(device, backend, mesh):
     shape = _MESHES[mesh]
     m = None if shape is None else _mesh(*shape)
     want = (device == "cuda"
-            and backend in ("inv", "chol", "banded", "spike")
+            and backend in ("inv", "chol", "banded", "spike", "rowshard_cg")
             and (shape is None or shape == (1, 1)))
     assert graph.capturable(torch.device(device), backend, m) == want
 

@@ -1,10 +1,11 @@
 """The host loops of admm_library_torch written with host-side counters
 and rebinding, one iterate at a time: `run_admm`, `run_admm_lanes` and
-`run_admm_batch_shared`, and the partitioned drivers' `run_consensus`,
-`run_consensus_mc` and `_run_horizon`, as plain loops whose check is
-inline. tests/test_torch_graph.py and test_torch_graph_partitioned.py
-hold the package's loops, whose checks are carry-to-carry steps
-(core/graph.py), bitwise to these on the CPU.
+`run_admm_batch_shared`, the partitioned drivers' `run_consensus`,
+`run_consensus_mc` and `_run_horizon`, and the row-sharded
+`solve_rowsharded` with its CG, as plain loops whose check is inline.
+tests/test_torch_graph.py, test_torch_graph_partitioned.py and
+test_torch_graph_rowshard.py hold the package's loops, whose checks are
+carry-to-carry steps (core/graph.py), bitwise to these on the CPU.
 """
 import torch
 
@@ -26,8 +27,12 @@ from admm_library_torch.parallel.consensus import (
 from admm_library_torch.parallel.horizon import (
     HorizonParts, HorizonSpec, _neighbor_next, _neighbor_prev,
     _spike_factor_sharded, _spike_reduce_factor, _spike_solve_sharded)
+from admm_library_torch.parallel.rowshard import (
+    RowShardSolution, uniform_row_permutation)
 from admm_library_torch.parallel.runtime import DATA_AXIS, Mesh
+from admm_library_torch.ops.kkt import _CG_CHECK
 from admm_library_torch.ops.prox import project_cone
+from admm_library_torch.core.scaling import ruiz_equilibrate
 from admm_library_torch.problem import QPData, mv, vm
 from admm_library_torch.settings import Settings
 from admm_library_torch.solution import Status
@@ -837,3 +842,296 @@ def _ref_run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
                          status).to(torch.int32)
     return x, z, y, status, iters_sc, r_p, r_d, rho_bar
+
+
+def _ref_cg_rowsharded(P, A_loc, rho_loc, sigma, rhs, mesh: Mesh, tol: float,
+                   max_iter: int):
+    """CG on the condensed operator with row-sharded A; every rank holds
+    the same n-vectors. Stops once ‖r‖² ≤ tol²·max(‖rhs‖², 1) or after
+    max_iter steps. The host reads the stop every _CG_CHECK steps; in
+    between, a step taken after the test holds has α = 0 and leaves x
+    and r as they were, so the result is the one of a stop at that very
+    step (as ops/kkt.cg_solve). Returns (x, the steps taken)."""
+    def op(v):
+        At = runtime.psum((rho_loc * (A_loc @ v)) @ A_loc, mesh, DATA_AXIS)
+        return P @ v + sigma * v + At
+
+    tiny = torch.finfo(rhs.dtype).tiny
+    x = torch.zeros_like(rhs)
+    r = rhs - op(x)
+    p = r
+    rs = torch.dot(r, r)
+    tol2 = (tol * tol) * torch.clamp(torch.dot(rhs, rhs), min=1.0)
+    steps = torch.zeros((), dtype=torch.int32, device=rhs.device)
+    for it in range(max_iter):
+        live = rs > tol2
+        if it % _CG_CHECK == 0 and not bool(
+                runtime.agree(live.to(torch.int32)[None], mesh)):
+            break
+        Mp = op(p)
+        alpha = torch.where(
+            live, rs / torch.clamp(torch.dot(p, Mp), min=tiny), 0.0)
+        x = x + alpha * p
+        r = r - alpha * Mp
+        rs_new = torch.dot(r, r)
+        p = r + (rs_new / torch.clamp(rs, min=tiny)) * p
+        rs = torch.where(live, rs_new, rs)
+        steps = steps + live.to(torch.int32)
+    return x, steps
+
+
+def _ref_solve_rowsharded(qp: QPData, mesh: Mesh,
+                          settings: Settings = Settings(),
+                          x0=None, z0=None, y0=None) -> RowShardSolution:
+    """Solve ONE QP with A, l, u and ρ split by constraint rows over the
+    ranks of the mesh's data axis, in qp's dtype, on the mesh's device.
+
+    Mixed cones are supported through the row interleaving (module
+    docstring); optional UNSCALED (x0, z0, y0) warm start. The backend
+    is the matrix-free row-sharded CG, so ρ adapts for free. Every rank
+    passes the whole problem and gets the whole solution.
+    """
+    ndev = mesh.shape[DATA_AXIS]
+    rank = mesh.coords[DATA_AXIS]
+    m, n = qp.m, qp.n
+    if m % ndev != 0:
+        raise ValueError(f"m={m} rows not divisible by {ndev} devices")
+    perm, cone_loc = uniform_row_permutation(qp.cone, m, ndev)
+    dev = mesh.device
+    qp = qp.to(dev)
+    dtype = qp.dtype
+    s = settings
+    m_loc = m // ndev
+    rows = slice(rank * m_loc, (rank + 1) * m_loc)
+
+    # Global Ruiz scaling, in the original row order.
+    qps, scaling = ruiz_equilibrate(qp, s.scaling_iters)
+    mb, ml1 = qp.cone.m_box, qp.cone.m_l1
+    lam_full = torch.zeros(m, dtype=dtype, device=dev)
+    lam_full[mb:mb + ml1] = qps.lam
+    eq = ((qps.l == qps.u) & torch.isfinite(qps.l)
+          & (torch.arange(m, device=dev) < mb))
+
+    def zeros(k):
+        return torch.zeros(k, dtype=dtype, device=dev)
+
+    def as_dev(t, k):
+        return zeros(k) if t is None else torch.as_tensor(t).to(dev, dtype)
+
+    # Warm starts: scale, then permute into shard order.
+    x = scaling.scale_x(as_dev(x0, n))
+    z = scaling.scale_z(as_dev(z0, m))
+    y = scaling.scale_y(as_dev(y0, m))
+    row_leaves = [qps.A, qps.l, qps.u, lam_full, eq, scaling.e, z, y]
+    if perm is not None:
+        pidx = torch.as_tensor(perm, dtype=torch.long, device=dev)
+        row_leaves = [t[pidx] for t in row_leaves]
+    A_loc, l_loc, u_loc, lam_loc, eq_loc, e_loc, z, y = (
+        t[rows] for t in row_leaves)
+    P_mat, q = qps.P, qps.q
+    d_v, c_v = scaling.d, scaling.c
+
+    einv_loc = 1.0 / e_loc
+    cd_inv = 1.0 / (c_v * d_v)
+    k = s.check_every
+    interval_checks = max(1, s.adaptive_rho_interval // k)
+    restart_checks = s.restart_every and max(1, s.restart_every // k)
+    use_cert = s.eps_pinf > 0 or s.eps_dinf > 0
+    mbl_box, nl = cone_loc.m_box, cone_loc.m_l1
+    mbl = mbl_box + nl
+    tiny = torch.finfo(dtype).tiny
+    inf = float("inf")
+
+    def pmax_abs(*vs):
+        """Max |v| of each row-local v over the axis (one collective)."""
+        return runtime.pmax(torch.stack([v.abs().max() for v in vs]), mesh,
+                            DATA_AXIS)
+
+    def psum(v):
+        return runtime.psum(v, mesh, DATA_AXIS)
+
+    # L1 gradient scale in the dual-norm reference (core.admm.
+    # l1_grad_scale): L1 rows are row-local, so the column max takes a
+    # max over the axis.
+    if nl:
+        lamA = (lam_loc[mbl_box:mbl, None]
+                * A_loc[mbl_box:mbl].abs()).amax(dim=0)
+        nlam = pmax_abs(cd_inv * lamA)[0]
+    else:
+        nlam = torch.zeros((), dtype=dtype, device=dev)
+
+    def rho_of(rb):
+        return torch.where(eq_loc, s.rho_eq_scale * rb, rb)
+
+    cg_steps = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def iter_once(x, z, y, rho_bar, cg_steps):
+        rho_loc = rho_of(rho_bar)
+        rhs = s.sigma * x - q + psum((rho_loc * z - y) @ A_loc)
+        xt, steps = _ref_cg_rowsharded(P_mat, A_loc, rho_loc, s.sigma, rhs,
+                                   mesh, s.cg_tol, s.cg_max_iter)
+        zt = A_loc @ xt
+        a = s.alpha
+        x_new = a * xt + (1 - a) * x
+        w = a * zt + (1 - a) * z
+        v = w + y / rho_loc
+        lam_r = lam_loc[mbl_box:mbl] / rho_loc[mbl_box:mbl]
+        z_new = project_cone(v, l_loc, u_loc, lam_r, cone_loc)
+        y_new = y + rho_loc * (w - z_new)
+        return x_new, z_new, y_new, cg_steps + steps
+
+    def row_res(x, z, y):
+        """Globally reduced unscaled residual norms (7-tuple)."""
+        Ax = A_loc @ x
+        Aty = psum(y @ A_loc)
+        Px = P_mat @ x
+        r_p, nAx, nz = pmax_abs(einv_loc * (Ax - z), einv_loc * Ax,
+                                einv_loc * z)
+        r_d = (cd_inv * (Px + q + Aty)).abs().max()
+        nPx = (cd_inv * Px).abs().max()
+        nAty = (cd_inv * Aty).abs().max()
+        nq = torch.maximum((cd_inv * q).abs().max(), nlam)
+        return r_p, r_d, nAx, nz, nPx, nAty, nq
+
+    def eps_of(res):
+        _, _, nAx, nz, nPx, nAty, nq = res
+        eps_p = s.eps_abs + s.eps_rel * torch.maximum(nAx, nz)
+        eps_d = s.eps_abs + s.eps_rel * torch.maximum(
+            nPx, torch.maximum(nAty, nq))
+        return eps_p, eps_d
+
+    def ratio_of(res):
+        ep, ed = eps_of(res)
+        return torch.maximum(res[0] / ep, res[1] / ed)
+
+    def count_bad(ok):
+        return psum((~ok).to(torch.int32).sum())
+
+    def infeasibility_local(dx_s, dy_s):
+        """OSQP §3.4 certificates on row-sharded data (cf. core.admm.
+        infeasibility): dx_s whole (n,), dy_s row-local; every
+        cross-shard quantity is reduced over the axis, so every rank
+        reaches the same verdicts."""
+        eps_pi, eps_di = s.eps_pinf, s.eps_dinf
+
+        # ---- primal infeasibility from dy ----
+        dy = (e_loc / c_v) * dy_s
+        ndy = pmax_abs(dy)[0]
+        dyn = dy / torch.clamp(ndy, min=tiny)
+        Aty = psum(((c_v / e_loc) * dyn) @ A_loc) * cd_inv
+        cond_A = Aty.abs().max() <= eps_pi
+        lu_l = l_loc[:mbl] * einv_loc[:mbl]
+        lu_u = u_loc[:mbl] * einv_loc[:mbl]
+        dyb = dyn[:mbl]
+        up = torch.where(dyb > eps_pi, torch.where(
+            torch.isfinite(lu_u), lu_u * dyb, inf), 0.0)
+        lo = torch.where(dyb < -eps_pi, torch.where(
+            torch.isfinite(lu_l), lu_l * dyb, inf), 0.0)
+        sup = psum((up + lo).sum())
+        if cone_loc.m_soc:
+            d_soc = cone_loc.soc_dims[0]
+            blk = dyn[mbl:].reshape(cone_loc.n_soc, d_soc)
+            ok = (torch.linalg.vector_norm(blk[:, 1:], dim=-1)
+                  <= -blk[:, 0] + eps_pi)
+            sup = torch.where(count_bad(ok) > 0, inf, sup)
+        pinf = (ndy > 0) & cond_A & (sup <= eps_pi)
+
+        # ---- dual infeasibility from dx (whole) ----
+        dx = d_v * dx_s
+        ndx = dx.abs().max()
+        dxn = dx / torch.clamp(ndx, min=tiny)
+        Pdx = (P_mat @ (dxn / d_v)) * cd_inv
+        Adx = einv_loc * (A_loc @ (dxn / d_v))
+        cond_P = Pdx.abs().max() <= eps_di
+        qdx = ((cd_inv * q) * dxn).sum()
+        if nl:
+            sl = slice(mbl_box, mbl)
+            lam_u = lam_loc[sl] * e_loc[sl] / c_v
+            qdx = qdx + psum((lam_u * Adx[sl].abs()).sum())
+        cond_q = qdx <= -eps_di
+        av = Adx[:mbl]
+        ok_up = (av <= eps_di) | ~torch.isfinite(lu_u)
+        ok_lo = (av >= -eps_di) | ~torch.isfinite(lu_l)
+        cond_box = count_bad(ok_up & ok_lo) == 0
+        cond_soc = True
+        if cone_loc.m_soc:
+            d_soc = cone_loc.soc_dims[0]
+            blk = Adx[mbl:].reshape(cone_loc.n_soc, d_soc)
+            ok = (torch.linalg.vector_norm(blk[:, 1:], dim=-1)
+                  <= blk[:, 0] + eps_di)
+            cond_soc = count_bad(ok) == 0
+        dinf = (ndx > 0) & cond_P & cond_q & cond_box & cond_soc
+        return pinf, dinf
+
+    rho_bar = torch.tensor(s.rho, dtype=dtype, device=dev)
+    status = torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev)
+    r_p = r_d = torch.tensor(inf, dtype=dtype, device=dev)
+    sums = [torch.zeros_like(t) for t in (x, z, y)]
+    avg_cnt = 0
+    x_chk, y_chk = x, y
+    it = 0
+    done = False
+    while not done and it < s.max_iter:
+        check = it // k
+        for _ in range(k):
+            x, z, y, cg_steps = iter_once(x, z, y, rho_bar, cg_steps)
+        it += k
+        res = row_res(x, z, y)
+
+        # Restarted averaging (Settings.restart_every): the decision
+        # uses globally reduced norms, so every rank takes the same one.
+        sums = [a + b for a, b in zip(sums, (x, z, y))]
+        avg_cnt += 1
+        if restart_checks and check % restart_checks == restart_checks - 1:
+            xa, za, ya = (t / float(avg_cnt) for t in sums)
+            res_a = row_res(xa, za, ya)
+            take = ratio_of(res_a) < ratio_of(res)
+            x, z, y = (torch.where(take, a, b)
+                       for a, b in ((xa, x), (za, z), (ya, y)))
+            res = tuple(torch.where(take, ra, rc)
+                        for ra, rc in zip(res_a[:6], res[:6])) + (res[6],)
+            sums = [torch.zeros_like(t) for t in sums]
+            avg_cnt = 0
+
+        r_p, r_d = res[0], res[1]
+        eps_p, eps_d = eps_of(res)
+        status = torch.where((r_p <= eps_p) & (r_d <= eps_d), _SOLVED,
+                             _UNSOLVED).to(torch.int32)
+        if use_cert:
+            pinf, dinf = infeasibility_local(x - x_chk, y - y_chk)
+            status = torch.where(
+                status == _SOLVED, status,
+                torch.where(pinf, int(Status.PRIMAL_INFEASIBLE),
+                            torch.where(dinf, int(Status.DUAL_INFEASIBLE),
+                                        status))).to(torch.int32)
+        # Adaptive rho: free under CG, and every input is a reduced
+        # scalar, so every rank computes the same new rho.
+        if s.adaptive_rho and check % interval_checks == interval_checks - 1:
+            _, _, nAx, nz, nPx, nAty, nq = res
+            sp = r_p / torch.clamp(torch.maximum(nAx, nz), min=tiny)
+            sd = r_d / torch.clamp(torch.maximum(torch.maximum(nPx, nAty),
+                                                 nq), min=tiny)
+            ratio = torch.sqrt(sp / torch.clamp(sd, min=tiny))
+            new_rho = torch.clamp(rho_bar * ratio, s.rho_min, s.rho_max)
+            tol = s.adaptive_rho_tol
+            changed = (ratio > tol) | (ratio < 1.0 / tol)
+            rho_bar = torch.where(changed & (status == _UNSOLVED), new_rho,
+                                  rho_bar)
+        x_chk, y_chk = x, y
+        # The one device-to-host read of this check.
+        done = bool(runtime.agree(
+            (status != _UNSOLVED).to(torch.int32)[None], mesh))
+    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
+                         status).to(torch.int32)
+
+    # Gather the rows, unscale, and undo the row permutation.
+    z = runtime.all_gather(z, mesh, DATA_AXIS)
+    y = runtime.all_gather(y, mesh, DATA_AXIS)
+    if perm is not None:
+        inv = torch.argsort(pidx)
+        z, y = z[inv], y[inv]
+    return RowShardSolution(
+        x=scaling.unscale_x(x), z=scaling.unscale_z(z),
+        y=scaling.unscale_y(y), status=status,
+        iters=torch.tensor(it, dtype=torch.int32, device=dev),
+        r_prim=r_p, r_dual=r_d, rho=rho_bar, cg_steps=cg_steps)
