@@ -14,15 +14,21 @@ stops on a flag the host reads every ops/kkt._CG_CHECK steps.
 
 A check is `step(state, variant) -> updates`: `state` is a dict of
 tensors (one level of nested dicts allowed: the problem data, the
-scaling, the KKT factor), `updates` the top-level entries the check
-changes, and `variant` the check's static part, the restart boundary
-and the rho test (`(restart, rho_test)`), which selects one of up to
-four graphs. A variant may also name a segment of a check that the host
-sequences, with host reads between segments: `parallel.rowshard`'s loop
-runs ("cg", steps) blocks of its CG, ("tail",) iteration ends and
-("check", restart, rho_test) checks, one graph each. A loop's static
-arguments enter the key as plain hashable values (a mesh by its shape
-and coordinates, never by identity). A step makes no host read and
+scaling, the KKT factor), `updates` the entries the check changes, and
+`variant` the check's static part, the restart boundary and the rho
+test (`(restart, rho_test)`), which selects one of up to four graphs. A
+variant may also name a segment that the host sequences, with host
+reads between segments: `parallel.rowshard`'s loop runs ("cg", steps)
+blocks of its CG, ("tail",) iteration ends and ("check", restart,
+rho_test) checks, one graph each; `parallel.batch`'s loop runs a
+("prologue",) (scaling, factor and starting carry from the raw data),
+its checks, ("refactor",) segments and an ("epilogue",) (the best
+iterate and the unscale), and the re-centred driver above it its own
+round segments. A segment may add entries to the state: its updates
+hold new keys, which get buffers of their own, allocated outside every
+graph's pool (a segment that adds entries is captured twice). A loop's
+static arguments enter the key as plain hashable values (a mesh by its
+shape and coordinates, never by identity). A step makes no host read and
 keeps no host counter: what it counts lives in the state.
 
 `CheckLoop` runs a loop's checks. Where `capturable` says no (CPU
@@ -30,15 +36,23 @@ tensors, an eager-only backend, a mesh axis of size > 1) it applies
 each step's updates to a plain dict, the plain version of this module.
 Where it says yes, the state lives in static buffers owned by an entry
 of a `CheckCache`, keyed by `check_key`; a later loop with the same key
-copies its data and starting carry into them. The first check of each
-variant runs eagerly on the cache's side stream (the warm-up that
-capture needs: cuBLAS handles and workspaces), the next one of that
-variant is captured there, and every later one replays. No check runs
+copies its data and starting carry into them. An entry's very first
+segment runs eagerly on the cache's side stream (the warm-up that
+capture needs: cuBLAS and cuSOLVER handles and workspaces) and is then
+captured for its next meeting; every other variant is captured there
+the first time it is met and replayed. So every variant a run meets is
+captured in that run, and a rerun captures nothing. No segment runs
 twice. A failure to capture or replay raises.
+
+A hand-written kernel launched inside a capture is counted by the graph
+(`count_launch`): each replay adds the graph's launches to the kernel
+wrapper's `launches`, so that count stays the number of times the
+kernel ran.
 """
 from __future__ import annotations
 
 import collections
+import gc
 import time
 
 import torch
@@ -94,6 +108,48 @@ def _map(fn, state):
             for k, v in state.items()}
 
 
+def _write(buffers, updates, grown=None):
+    """Copy `updates` into `buffers` (a buffer given back unchanged under
+    its own key is skipped). A new key gets a clone of its own, or,
+    inside a capture (`grown` a list), is only listed there as
+    (buffers, key, value): its buffer must not come from the graph's
+    pool (`_Entry._capture`)."""
+    for key, value in updates.items():
+        dst = buffers.get(key)
+        if isinstance(value, dict):
+            _write(buffers.setdefault(key, {}), value, grown)
+        elif dst is None and grown is not None:
+            grown.append((buffers, key, value))
+        elif dst is None:
+            buffers[key] = value.clone()
+        elif value is not dst:
+            dst.copy_(value)
+
+
+def is_check(variant) -> bool:
+    """Whether a variant is a residual check, (restart, rho_test) or
+    ("check", restart, rho_test), rather than another named segment."""
+    return not isinstance(variant[0], str) or variant[0] == "check"
+
+
+# The kernel wrappers launched inside the capture under way (None when
+# no capture is), in launch order.
+_captured_launches = None
+
+
+def count_launch(kernel) -> None:
+    """One launch of the hand-written kernel whose wrapper is `kernel`
+    (it carries the `launches` count): counted at once, or, inside a
+    `CheckCache` capture, at every replay of the graph that holds it."""
+    if _captured_launches is not None:
+        _captured_launches.append(kernel)
+        return
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a kernel launch captured outside a CheckCache "
+                           "would not be counted at its replays")
+    kernel.launches += 1
+
+
 def check_key(kind: str, backend: str, settings, state, **static):
     """The cache key of a loop: its kind, backend, the CHECK_FIELDS of
     its settings, the path, shape, dtype and device of every state
@@ -116,68 +172,114 @@ class _Entry:
         self.cache = cache
         self.pool = None
         self.graphs = {}
-        self.warmed = set()
+        self.kernels = {}
+        self.warm = False
 
     def load(self, state):
-        for (_, dst), (_, src) in zip(_leaves(self.buffers),
-                                      _leaves(state)):
+        """Copy a new loop's data and carry into the buffers of the same
+        paths (entries a segment added keep their contents)."""
+        for path, src in _leaves(state):
+            dst = self.buffers
+            for k in path:
+                dst = dst[k]
             dst.copy_(src)
 
     def write(self, updates):
-        """Copy a step's updates into the buffers (a step returns fresh
-        tensors, or a buffer unchanged under its own key)."""
-        for key, value in updates.items():
-            if value is not self.buffers[key]:
-                self.buffers[key].copy_(value)
+        _write(self.buffers, updates)
+
+    def _replay(self, variant):
+        self.graphs[variant].replay()
+        self.cache.stats["replays"] += 1
+        for kernel in self.kernels[variant]:
+            kernel.launches += 1
 
     def run(self, variant):
+        if variant not in self.graphs:
+            stream = self.cache.stream(self.device)
+            if not self.warm:
+                # The entry's first segment: eager on the capture stream
+                # (the warm-up), then captured for its next meeting.
+                cur = torch.cuda.current_stream(self.device)
+                stream.wait_stream(cur)
+                with torch.cuda.stream(stream):
+                    self.write(self.step(self.buffers, variant))
+                cur.wait_stream(stream)
+                self.warm = True
+                self.cache.stats["eager_checks"] += 1
+                self._capture(variant, stream)
+                return
+            self._capture(variant, stream)
+        self._replay(variant)
+
+    def _capture(self, variant, stream):
+        # A segment that adds state entries is captured twice: the first
+        # capture lists them, their buffers are then allocated outside
+        # the graph's pool, and the second capture writes into them. A
+        # buffer allocated inside a capture would take pool blocks that
+        # an earlier capture's scratch freed, and that graph's replays
+        # would overwrite it.
         stats = self.cache.stats
-        graph = self.graphs.get(variant)
-        if graph is not None:
-            graph.replay()
-            stats["replays"] += 1
-            return
-        stream = self.cache.stream(self.device)
-        if variant not in self.warmed:
-            cur = torch.cuda.current_stream(self.device)
-            stream.wait_stream(cur)
-            with torch.cuda.stream(stream):
-                self.write(self.step(self.buffers, variant))
-            cur.wait_stream(stream)
-            self.warmed.add(variant)
-            stats["eager_checks"] += 1
-            return
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph(keep_graph=self.cache.keep_graphs)
         t0 = time.perf_counter()
-        # capture_begin/end rather than torch.cuda.graph, which would
-        # synchronise the card and empty the allocator's cache at every
-        # capture: the warm-up already ran on this stream, and the graph
-        # allocates from its own pool.
-        with torch.cuda.stream(stream):
-            graph.capture_begin(pool=self.pool)
-            try:
-                self.write(self.step(self.buffers, variant))
-            finally:
-                graph.capture_end()
+        # No garbage collection inside a capture: collecting an
+        # unreachable CUDAGraph (a dropped cache's) destroys it, a call
+        # that invalidates the capture under way. torch.cuda.graph runs
+        # gc.collect() before each capture for the same reason.
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            grown = []
+            graph, launched = self._capture_once(variant, stream, grown)
+            if grown:
+                for buffers, key, value in grown:
+                    buffers[key] = torch.empty_like(value)
+                # Drop the first graph and its outputs before the
+                # second capture.
+                del graph, value
+                grown.clear()
+                graph, launched = self._capture_once(variant, stream, grown)
+                if grown:
+                    raise RuntimeError(f"segment {variant} added state "
+                                       "entries at its second capture")
+        finally:
+            if gc_on:
+                gc.enable()
         if self.cache.keep_graphs:
             graph.instantiate()
         stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
         stats["captures"] += 1
         self.graphs[variant] = graph
-        graph.replay()
-        stats["replays"] += 1
+        self.kernels[variant] = launched
+
+    def _capture_once(self, variant, stream, grown):
+        global _captured_launches
+        graph = torch.cuda.CUDAGraph(keep_graph=self.cache.keep_graphs)
+        # capture_begin/end rather than torch.cuda.graph, which would
+        # synchronise the card and empty the allocator's cache at every
+        # capture: the warm-up already ran on this stream, and the graph
+        # allocates from its own pool.
+        launched = _captured_launches = []
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                _write(self.buffers, self.step(self.buffers, variant),
+                       grown)
+            finally:
+                _captured_launches = None
+                graph.capture_end()
+        return graph, launched
 
 
 class CheckCache:
     """Captured checks by `check_key`, at most `size` entries (the
     least recently used goes first), with counters for the measuring
-    scripts: captures, replays, eager checks (warm-ups) and the host
-    milliseconds spent capturing. One side stream per device serves
-    every capture. With `keep_graphs` set, each graph keeps its captured
-    template beside its executable (`raw_cuda_graph()`), so that a
-    measuring script can count its nodes; it costs host memory only."""
+    scripts: captures, replays, eager segments (each entry's warm-up)
+    and the host milliseconds spent capturing. One side stream per
+    device serves every capture. With `keep_graphs` set, each graph
+    keeps its captured template beside its executable
+    (`raw_cuda_graph()`), so that a measuring script can count its
+    nodes; it costs host memory only."""
 
     def __init__(self, size: int = CACHE_SIZE):
         self.size = size
@@ -216,8 +318,9 @@ class CheckLoop:
     """The state and the checks of one host loop.
 
     `step(state, variant)` is the check (module docstring); `pre(state)`,
-    where given, runs eagerly before it every check and returns updates
-    too (the fused kernel's launch, which stays outside the graph).
+    where given, runs before the step in every check, inside the same
+    segment (on the card a node of the check's graph): the fused
+    kernel's launch. Its updates reach the step and are not kept.
     `capture=None` follows `capturable`; `capture=True` for a loop that
     `capturable` refuses raises ValueError. `static` holds the step's
     hashable arguments for the key.
@@ -230,38 +333,33 @@ class CheckLoop:
         if capture and not allowed:
             raise ValueError(f"a check on {dev} with backend {backend!r} "
                              "and this mesh is not captured")
+        self.kind = kind
         self.capture = allowed if capture is None else capture
-        self.step, self.pre = step, pre
+        self.step = step if pre is None else _PreStep(pre, step)
         if self.capture:
             cache = CACHE if cache is None else cache
             key = check_key(kind, backend, settings, state, **static)
-            self._entry = cache.entry(key, step, state)
+            self._entry = cache.entry(key, self.step, state)
             self.state = self._entry.buffers
         else:
             self.state = dict(state)
 
     def __call__(self, variant) -> None:
-        """Run one check; the caller then reads state['flags']."""
-        if self.pre is not None:
-            self.set(self.pre(self.state))
+        """Run one check or segment; after a check the caller reads
+        state['flags']."""
         if self.capture:
             self._entry.run(variant)
         else:
             self.state.update(self.step(self.state, variant))
 
     def set(self, updates):
-        """Host-side updates between checks (a refactor): copied into the
-        static buffers, or rebound in the plain dict."""
-        if not self.capture:
+        """Host-side updates between segments: copied into the static
+        buffers (a new key gets buffers of their own), or rebound in the
+        plain dict."""
+        if self.capture:
+            self._entry.write(updates)
+        else:
             self.state.update(updates)
-            return
-        for key, value in updates.items():
-            dst = self.state[key]
-            if isinstance(dst, dict):
-                for name, leaf in value.items():
-                    dst[name].copy_(leaf)
-            else:
-                dst.copy_(value)
 
     def result(self, *keys):
         """The entries `keys` of the state, owned by the caller: clones
@@ -271,3 +369,15 @@ class CheckLoop:
             out = [_map(torch.clone, v) if isinstance(v, dict) else v.clone()
                    for v in out]
         return out
+
+
+class _PreStep:
+    """A step whose checks run `pre` first, inside the same segment."""
+
+    def __init__(self, pre, step):
+        self.pre, self.step = pre, step
+
+    def __call__(self, state, variant):
+        if not is_check(variant):
+            return self.step(state, variant)
+        return self.step(dict(state, **self.pre(state)), variant)

@@ -72,7 +72,10 @@
 //
 // Interface: plain C, loaded with ctypes (ops/fused.py). The entry
 // point launches once on the given stream and returns the first
-// non-zero CUDA error.
+// non-zero CUDA error. It may be called while that stream is being
+// captured into a CUDA graph: the barrier counter is then zeroed by a
+// node of the same graph before the kernel's node, so every replay
+// starts it from 0.
 
 #include <cuda_runtime.h>
 
@@ -575,25 +578,61 @@ __global__ void __launch_bounds__(threads_of(TL), 1) fused_iterate(Args a) {
   }
 }
 
+// The shared memory attribute of one template on one device is set at
+// its first launch there and at each launch that asks for more; the
+// occupancy check runs at every launch, so a grid too large for the
+// card is refused before any launch is made. Neither puts work on a
+// stream, so both may run while the stream is being captured.
+constexpr int MAX_DEVICES = 64;
+
 template <int TL, typename AccT>
-cudaError_t launch(Args& a, int grid, int smem, cudaStream_t s) {
+cudaError_t prepare(int grid, int smem) {
+  static int smem_set[MAX_DEVICES];
   const void* fn = reinterpret_cast<const void*>(&fused_iterate<TL, AccT>);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int per_sm = 0, dev = 0, sms = 0;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = smem;
+  }
+  int per_sm = 0, sms = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, fn, threads_of(TL), smem)) != cudaSuccess)
     return err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
   if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(fn, grid, threads_of(TL), params, smem, s);
+  return cudaSuccess;
+}
+
+// A cooperative launch through cudaLaunchKernelEx: a stream capture
+// records it as a kernel node with the cooperative attribute, so the
+// launch may sit inside a CUDA graph (core/graph.py captures the
+// batch's residual check with it).
+template <int TL, typename AccT>
+cudaError_t launch(Args& a, int grid, int smem, cudaStream_t s) {
+  cudaError_t err = prepare<TL, AccT>(grid, smem);
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads_of(TL));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_iterate<TL, AccT>, a);
+  // cudaGetLastError also clears a refused launch's error, which would
+  // otherwise be reported by the next launch.
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace

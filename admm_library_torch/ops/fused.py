@@ -39,6 +39,7 @@ import functools
 
 import torch
 
+from ..core import graph
 from ..problem import ConeSpec
 from .prox import project_cone
 from . import _build
@@ -418,6 +419,9 @@ def fused_iterate_shared(A, Minv, M, q, rho_vec, lam, l, u, x, z, y,
     xo, zo, yo = (t.clone() for t in (x, z, y))
     rhs, xt, r = (torch.empty_like(xo) for _ in range(3))
     acc = torch.float64 if p.acc_bytes == 8 else torch.float32
+    # Inside a CUDA graph capture the scratch comes from the graph's
+    # pool and the barrier's zero fill is a node of the graph, so every
+    # replay starts the counter from 0.
     part_n = torch.empty((max(p.a.row_splits, p.nn.row_splits), B, n),
                          dtype=acc, device=x.device)
     part_m = torch.empty((p.a.col_splits, B, m), dtype=acc, device=x.device)
@@ -441,9 +445,10 @@ def fused_iterate_shared(A, Minv, M, q, rho_vec, lam, l, u, x, z, y,
         raise RuntimeError(
             f"fused_iterate_shared: CUDA launch failed ({rc}: "
             f"{err_str(rc).decode()})")
-    fused_iterate_shared.launches += 1
+    graph.count_launch(fused_iterate_shared)
     return xo, zo, yo
 
 
-# Times the kernel was launched (one per call on CUDA tensors).
+# Times the kernel ran: one per call on CUDA tensors, or, for a call
+# inside a captured graph (core/graph.py), one per replay of that graph.
 fused_iterate_shared.launches = 0

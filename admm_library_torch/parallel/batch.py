@@ -12,9 +12,16 @@ keep honest per-lane iteration counts. On f32 'inv' batches each
 The solve runs as a host loop over residual checks. Each check reads one
 small tensor from the device (loop liveness and the refactor flag);
 the restart boundary and the adaptive-rho cadence follow from the
-lockstep count, which the host keeps. On the card each check's tail
-(and, off the fused path, its iterations) is a captured CUDA graph
-(core/graph.py); the fused kernel stays an eager launch before it.
+lockstep count, which the host keeps. Everything between those reads is
+a segment of the loop (core/graph.py), on the card one CUDA graph
+replay: the prologue (cast, Ruiz scaling, warm start, factor, starting
+carry), each check with its iterations (the fused kernel's launch a
+node of the check's graph), each refactor, and the epilogue (the best
+iterate, the unscale, the objective). The hybrid driver's work between
+phases (the rounds' set-up and safeguard, the f64 true residuals) is a
+loop of its own in the same way, with one host read before each later
+round and one before the f64 fallback: the whole solve replays from
+graphs, as the JAX package runs it as one compiled program.
 
 Data parallelism: `shard_batch` gives each rank of a `make_data_mesh`
 its slice of the lanes, and `solve_batch_shared(..., mesh=)` runs the
@@ -27,6 +34,7 @@ the identity, so the result is bitwise the solve without a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -34,7 +42,7 @@ import torch
 
 from ..api import resolve_backend
 from ..core import admm, graph
-from ..core.scaling import ruiz_equilibrate, scale_qp
+from ..core.scaling import Scaling, ruiz_equilibrate, scale_qp
 from ..ops import fused as fused_ops
 from ..ops import kkt
 from ..ops.prox import project_soc_block
@@ -84,16 +92,10 @@ def _geomean_masked(v, mask, mesh: Mesh | None = None):
 
 
 def _agreed(flags, mesh: Mesh | None):
-    """The host's read of a check's flags, the same on every rank."""
-    flags = flags.to(torch.int32)
+    """The host's read of a segment's flags, the same on every rank."""
     if mesh is not None:
-        flags = runtime.agree(flags, mesh)
+        flags = runtime.agree(flags.to(torch.int32), mesh)
     return [bool(f) for f in flags.tolist()]
-
-
-def _all_lanes(mask, mesh: Mesh | None) -> bool:
-    """True when mask holds on every lane of every rank."""
-    return not _agreed((~mask).any()[None], mesh)[0]
 
 
 def _pick(mask, a, b):
@@ -218,41 +220,166 @@ def batch_check(state, variant, *, cone, settings: Settings, backend: str,
     return out
 
 
-def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
-                          x0, z0, y0, backend: str, rho0=None,
-                          z_off=None, mesh: Mesh | None = None
-                          ) -> BatchCarry:
-    """Lockstep batched ADMM with one shared KKT factor.
+# The named segments of the batch loop besides its checks.
+PROLOGUE, REFACTOR, EPILOGUE = ("prologue",), ("refactor",), ("epilogue",)
+# Settings the prologue reads besides graph.CHECK_FIELDS: they enter the
+# loop's key.
+_PROLOGUE_FIELDS = ("scaling_iters", "warm_start", "rho", "band_block",
+                    "spike_parts")
+_QP_FIELDS = ("P", "q", "A", "l", "u", "lam")
 
-    `qp` carries unbatched P and A with (B, m) l, u (q may be (B, n));
-    iterates are (B, ·). The shared scalar rho_bar adapts on the
-    geometric-mean residual ratio of the still-active lanes, so one
-    refactorisation serves all lanes. With a `mesh` the lanes are this
-    rank's share of the batch: liveness, the rho statistics and the
-    history's maxima are taken over the data axis. Each check is
-    `batch_check`, on the card a CUDA graph replay where
-    `graph.capturable` allows; the fused kernel stays an eager launch
-    before it.
-    """
-    dtype, dev = qp.dtype, qp.device
-    cone = qp.cone
-    eq_mask = admm.is_equality_row_shared(qp)
-    rho_bar = (torch.tensor(settings.rho, dtype=dtype, device=dev)
-               if rho0 is None else
-               torch.clamp(rho0.to(dtype), settings.rho_min,
+
+def _leaves_of(qp: QPData) -> dict:
+    return {f: getattr(qp, f) for f in _QP_FIELDS}
+
+
+def _factor(P, A, rho_bar, eq_mask, settings: Settings, backend: str, cone):
+    rv = admm.rho_vec_of(rho_bar, eq_mask, settings, cone)
+    return kkt.factor_condensed(P, A, settings.sigma, rv, backend,
+                                settings.band_block, settings.spike_parts)
+
+
+def batch_prologue(state, *, cone, settings: Settings, backend: str, dtype,
+                   scale: str, mesh: Mesh | None):
+    """The loop's start from its raw entries ('raw' problem, warm start
+    'x0', 'z0', 'y0', and where given the scaling 'sc', 'rho0' and the
+    unscaled shifted-prox offset 'z_off0'), cast to `dtype`: the scaled
+    problem (`scale` 'ruiz': Ruiz equilibration; 'given': the scaling in
+    'sc'; 'scaled': the data is already scaled by 'sc'), the scaled warm
+    start and offset, the equality rows, rho, the KKT factor and the
+    starting carry."""
+    qp = QPData(**state["raw"], cone=cone).astype(dtype)
+    x0, z0, y0 = (state[k].to(dtype) for k in ("x0", "z0", "y0"))
+    z_off = state.get("z_off0")
+    if scale == "scaled":
+        qps, scaling = qp, Scaling(**state["sc"])
+        xs, zs, ys = x0, z0, y0
+    else:
+        if scale == "given":
+            # Re-centred rounds keep phase 1's P/A, so the Ruiz loop
+            # would recompute identical factors.
+            scaling = Scaling(**state["sc"]).astype(dtype)
+            qps = scale_qp(qp, scaling)
+        else:
+            qps, scaling = _ruiz(qp, settings, mesh)
+        if settings.warm_start:
+            xs = scaling.scale_x(x0)
+            zs = scaling.scale_z(z0)
+            ys = scaling.scale_y(y0)
+        else:
+            xs, zs, ys = x0, z0, y0
+        if z_off is not None:
+            # Shifted-prox offsets live in z-space; they keep their own
+            # (f64) dtype — ops/prox upcasts there.
+            z_off = scaling.e.to(z_off.dtype) * z_off
+    dev = x0.device
+    eq_mask = admm.is_equality_row_shared(qps)
+    rho_bar = (torch.full((), settings.rho, dtype=dtype, device=dev)
+               if "rho0" not in state else
+               torch.clamp(state["rho0"].to(dtype), settings.rho_min,
                            settings.rho_max))
     B = x0.shape[0]
+    big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    slots = max(settings.history, 0)
+    out = admm.problem_state(
+        qps, scaling, _factor(qps.P, qps.A, rho_bar, eq_mask, settings,
+                              backend, cone), eq_mask, z_off)
+    out.update(admm.carry_state(
+        xs, zs, ys, rho_bar,
+        torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev), big,
+        torch.zeros(B, dtype=torch.int32, device=dev),
+        torch.full((slots, 3), -1.0, dtype=dtype, device=dev)))
+    out.update(iters_lane=torch.zeros(B, dtype=torch.int32, device=dev),
+               x_best=xs, z_best=zs, y_best=ys, rp_best=big, rd_best=big)
+    return out
 
-    def factor(rho_bar):
-        rv = admm.rho_vec_of(rho_bar, eq_mask, settings, cone)
-        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend,
-                                    settings.band_block,
-                                    settings.spike_parts)
 
+def batch_refactor(state, *, cone, settings: Settings, backend: str):
+    """The factor of the rho the last check proposed ('new_rho')."""
+    rho_bar = state["new_rho"]
+    if backend == "cg":
+        # Matrix-free: rho enters the operator, no refactorisation.
+        fac = dict(state["fac"], rho=admm.rho_vec_of(
+            rho_bar, state["eq_mask"], settings, cone))
+    else:
+        d = state["qp"]
+        fac = _factor(d["P"], d["A"], rho_bar, state["eq_mask"], settings,
+                      backend, cone)
+    return dict(rho_bar=rho_bar, fac=fac)
+
+
+def batch_epilogue(state, *, cone, dtype, scale: str):
+    """'out': each lane's iterate (the BEST one for lanes that ran out of
+    iterations), status and residuals; unless the loop was given scaled
+    data (`scale` 'scaled'), the iterates unscaled and the objective on
+    the raw data."""
+    unsolved = state["status"] == _UNSOLVED
+    x, z, y = (_pick(unsolved, state[f"{v}_best"], state[v])
+               for v in ("x", "z", "y"))
+    out = dict(status=torch.where(unsolved, int(Status.MAX_ITER),
+                                  state["status"]),
+               r_prim=torch.where(unsolved, state["rp_best"],
+                                  state["r_prim"]),
+               r_dual=torch.where(unsolved, state["rd_best"],
+                                  state["r_dual"]))
+    if scale != "scaled":
+        scaling = Scaling(**state["scaling"])
+        x = scaling.unscale_x(x)
+        z = scaling.unscale_z(z)
+        y = scaling.unscale_y(y)
+        out["obj"] = objective(
+            QPData(**state["raw"], cone=cone).astype(dtype), x, z)
+    out.update(x=x, z=z, y=y)
+    return dict(out=out)
+
+
+def batch_step(state, variant, *, cone, settings: Settings, backend: str,
+               restart_checks: int, fused: bool, mesh: Mesh | None, dtype,
+               scale: str):
+    """A segment of the batch loop: PROLOGUE, REFACTOR, EPILOGUE, or the
+    check `variant` = (restart, rho_test) (`batch_check`)."""
+    if variant == PROLOGUE:
+        return batch_prologue(state, cone=cone, settings=settings,
+                              backend=backend, dtype=dtype, scale=scale,
+                              mesh=mesh)
+    if variant == REFACTOR:
+        return batch_refactor(state, cone=cone, settings=settings,
+                              backend=backend)
+    if variant == EPILOGUE:
+        return batch_epilogue(state, cone=cone, dtype=dtype, scale=scale)
+    return batch_check(state, variant, cone=cone, settings=settings,
+                       backend=backend, restart_checks=restart_checks,
+                       fused=fused, mesh=mesh)
+
+
+def _fused_pre(settings: Settings, cone):
+    """The fused kernel's k-block from a check's state: (xn, zn, yn)."""
+    def pre(state):
+        d = state["qp"]
+        rho_vec = admm.rho_vec_of(state["rho_bar"], state["eq_mask"],
+                                  settings, cone)
+        xn, zn, yn = fused_ops.fused_iterate_shared(
+            d["A"], state["fac"]["Minv"], state["fac"]["M"], d["q"],
+            rho_vec, d["lam"], d["l"], d["u"], state["x"], state["z"],
+            state["y"], cone=cone, sigma=settings.sigma,
+            alpha=settings.alpha, k=settings.check_every,
+            refine_steps=settings.refine_steps)
+        return dict(xn=xn, zn=zn, yn=yn)
+    return pre
+
+
+def _run_batch(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
+               dtype, scale: str, scaling=None, rho0=None,
+               z_off=None, mesh: Mesh | None = None) -> graph.CheckLoop:
+    """The batch loop from raw data: PROLOGUE, the checks with a
+    REFACTOR wherever a check asks for one, EPILOGUE. Returns the loop;
+    its state's 'out', 'rho_bar', 'iters_lane' and 'hist' are the
+    result."""
+    cone = qp.cone
     # The only place where the plain iteration body is chosen over the
     # fused kernel: f32, explicit inverse, shared q/lam, no shifted prox,
     # uniform SOC blocks.
-    use_fused = (
+    fused = (
         settings.fused != "off"
         and backend == "inv"
         and qp.A.dim() == 2
@@ -261,41 +388,25 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         and dtype == torch.float32
         and z_off is None
         and (cone.m_soc == 0 or cone.soc_uniform))
-
-    big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    slots = max(settings.history, 0)
-    state = admm.problem_state(qp, scaling, factor(rho_bar), eq_mask, z_off)
-    state.update(admm.carry_state(
-        x0, z0, y0, rho_bar,
-        torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev), big,
-        torch.zeros(B, dtype=torch.int32, device=dev),
-        torch.full((slots, 3), -1.0, dtype=dtype, device=dev)))
-    state.update(iters_lane=torch.zeros(B, dtype=torch.int32, device=dev),
-                 x_best=x0, z_best=z0, y_best=y0, rp_best=big, rd_best=big)
-    pre = None
-    if use_fused:
-        state.update(xn=x0, zn=z0, yn=y0)
-
-        def pre(state):
-            d = state["qp"]
-            rho_vec = admm.rho_vec_of(state["rho_bar"], state["eq_mask"],
-                                      settings, cone)
-            xn, zn, yn = fused_ops.fused_iterate_shared(
-                d["A"], state["fac"]["Minv"], state["fac"]["M"], d["q"],
-                rho_vec, d["lam"], d["l"], d["u"], state["x"], state["z"],
-                state["y"], cone=cone, sigma=settings.sigma,
-                alpha=settings.alpha, k=settings.check_every,
-                refine_steps=settings.refine_steps)
-            return dict(xn=xn, zn=zn, yn=yn)
-
+    state = dict(raw=_leaves_of(qp), x0=x0, z0=z0, y0=y0)
+    if scaling is not None:
+        state["sc"] = dict(d=scaling.d, e=scaling.e, c=scaling.c)
+    if rho0 is not None:
+        state["rho0"] = rho0
+    if z_off is not None:
+        state["z_off0"] = z_off
     restart_checks = admm.restart_cadence_checks(settings)
-    step = functools.partial(batch_check, cone=cone, settings=settings,
+    step = functools.partial(batch_step, cone=cone, settings=settings,
                              backend=backend, restart_checks=restart_checks,
-                             fused=use_fused, mesh=mesh)
-    loop = graph.CheckLoop("run_admm_batch_shared", step, state, settings,
-                           backend, mesh=mesh, pre=pre, cone=cone,
-                           restart_checks=restart_checks, fused=use_fused)
-
+                             fused=fused, mesh=mesh, dtype=dtype,
+                             scale=scale)
+    loop = graph.CheckLoop(
+        "run_admm_batch_shared", step, state, settings, backend, mesh=mesh,
+        pre=_fused_pre(settings, cone) if fused else None,
+        cone=cone, restart_checks=restart_checks, fused=fused,
+        dtype=dtype, scale=scale,
+        **{f: getattr(settings, f) for f in _PROLOGUE_FIELDS})
+    loop(PROLOGUE)
     k = settings.check_every
     it = 0
     alive = True
@@ -306,30 +417,35 @@ def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         # mesh: liveness of any lane anywhere, and the rho decision.
         alive, do = _agreed(loop.state["flags"], mesh)
         if do:
-            rho_bar = loop.state["new_rho"]
-            if backend == "cg":
-                # Matrix-free: rho enters the operator, no refactorisation.
-                fac = dict(loop.state["fac"],
-                           rho=admm.rho_vec_of(rho_bar, eq_mask, settings,
-                                               cone))
-            else:
-                fac = factor(rho_bar)
-            loop.set(dict(rho_bar=rho_bar, fac=fac))
+            loop(REFACTOR)
+    loop(EPILOGUE)
+    return loop
 
-    (x, z, y, x_best, z_best, y_best, rho_bar, iters_lane, status, r_prim,
-     r_dual, rp_best, rd_best, hist) = loop.result(
-        "x", "z", "y", "x_best", "z_best", "y_best", "rho_bar",
-        "iters_lane", "status", "r_prim", "r_dual", "rp_best", "rd_best",
-        "hist")
-    # Lanes that ran out of iterations also return their BEST iterate.
-    unsolved = status == _UNSOLVED
-    return BatchCarry(
-        x=_pick(unsolved, x_best, x), z=_pick(unsolved, z_best, z),
-        y=_pick(unsolved, y_best, y), rho_bar=rho_bar,
-        iters_lane=iters_lane,
-        status=torch.where(unsolved, int(Status.MAX_ITER), status),
-        r_prim=torch.where(unsolved, rp_best, r_prim),
-        r_dual=torch.where(unsolved, rd_best, r_dual), hist=hist)
+
+def run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
+                          x0, z0, y0, backend: str, rho0=None,
+                          z_off=None, mesh: Mesh | None = None
+                          ) -> BatchCarry:
+    """Lockstep batched ADMM with one shared KKT factor.
+
+    `qp` carries unbatched P and A with (B, m) l, u (q may be (B, n)),
+    already scaled by `scaling`; iterates are (B, ·). The shared scalar
+    rho_bar adapts on the geometric-mean residual ratio of the
+    still-active lanes, so one refactorisation serves all lanes. With a
+    `mesh` the lanes are this rank's share of the batch: liveness, the
+    rho statistics and the history's maxima are taken over the data
+    axis. Each segment (the prologue, each check with the fused kernel's
+    launch where it runs, each refactor, the epilogue) is `batch_step`,
+    on the card a CUDA graph replay where `graph.capturable` allows.
+    """
+    loop = _run_batch(qp, x0, z0, y0, settings, backend, dtype=qp.dtype,
+                      scale="scaled", scaling=scaling, rho0=rho0,
+                      z_off=z_off, mesh=mesh)
+    out, rho_bar, iters_lane, hist = loop.result("out", "rho_bar",
+                                                 "iters_lane", "hist")
+    return BatchCarry(x=out["x"], z=out["z"], y=out["y"], rho_bar=rho_bar,
+                      iters_lane=iters_lane, status=out["status"],
+                      r_prim=out["r_prim"], r_dual=out["r_dual"], hist=hist)
 
 
 def _ruiz(qp, settings, mesh):
@@ -344,34 +460,21 @@ def _ruiz(qp, settings, mesh):
 
 
 def _phase(qp, x0, z0, y0, settings, backend, scaling=None, rho0=None,
-           z_off=None, mesh=None):
-    if scaling is not None:
-        # Precomputed scaling (re-centred rounds keep phase 1's P/A, so
-        # the Ruiz loop would recompute identical factors).
-        scaling = scaling.astype(qp.dtype)
-        qps = scale_qp(qp, scaling)
-    else:
-        qps, scaling = _ruiz(qp, settings, mesh)
-    if settings.warm_start:
-        xs = scaling.scale_x(x0)
-        zs = scaling.scale_z(z0)
-        ys = scaling.scale_y(y0)
-    else:
-        xs, zs, ys = x0, z0, y0
-    if z_off is not None:
-        # Shifted-prox offsets live in z-space; they keep their own
-        # (f64) dtype — ops/prox upcasts there.
-        z_off = scaling.e.to(z_off.dtype) * z_off
-    carry = run_admm_batch_shared(
-        qps, scaling, settings, xs, zs, ys, backend, rho0=rho0, z_off=z_off,
-        mesh=mesh)
-    x = scaling.unscale_x(carry.x)
-    z = scaling.unscale_z(carry.z)
-    y = scaling.unscale_y(carry.y)
+           z_off=None, mesh=None, dtype=None):
+    """One phase on `qp` and the unscaled warm start, both cast to
+    `dtype` (default qp's): Ruiz-scaled, or scaled by a precomputed
+    `scaling`; the solution unscaled. Scaling, factor, loop and unscale
+    are the segments of one `_run_batch` loop."""
+    dtype = qp.dtype if dtype is None else dtype
+    loop = _run_batch(qp, x0, z0, y0, settings, backend, dtype=dtype,
+                      scale="ruiz" if scaling is None else "given",
+                      scaling=scaling, rho0=rho0, z_off=z_off, mesh=mesh)
+    out, rho_bar, iters_lane, hist = loop.result("out", "rho_bar",
+                                                 "iters_lane", "hist")
     return Solution(
-        x=x, z=z, y=y, status=carry.status, iters=carry.iters_lane,
-        r_prim=carry.r_prim, r_dual=carry.r_dual, obj=objective(qp, x, z),
-        rho=carry.rho_bar, history=carry.hist)
+        x=out["x"], z=out["z"], y=out["y"], status=out["status"],
+        iters=iters_lane, r_prim=out["r_prim"], r_dual=out["r_dual"],
+        obj=out["obj"], rho=rho_bar, history=hist)
 
 
 def _s32_of_shared(settings: Settings) -> Settings:
@@ -387,6 +490,221 @@ def _s32_of_shared(settings: Settings) -> Settings:
         rho_eq_scale=min(settings.rho_eq_scale, 1e2))
 
 
+def _mask_dual(qp64: QPData, y, z, act_tol: float):
+    """Dual base for re-centring — the part of the accumulated dual the
+    correction's linear term absorbs (g_c includes Aᵀy_base, and the
+    round solves for the O(residual) remainder):
+      box:  y within act_tol of a bound, else exactly 0;
+      L1:   0 (∂(λ|z|) is bounded, so the round's dual replaces);
+      SOC:  the projection of y onto the normal cone at the current
+            primal — 0 in the interior, the component along the normal
+            ray on the boundary, the polar part at the tip.
+    """
+    cone = qp64.cone
+    mb, ml = cone.m_box, cone.m_l1
+    scale = 1.0 + z.abs()
+    near_l = torch.isfinite(qp64.l) & (z - qp64.l <= act_tol * scale)
+    near_u = torch.isfinite(qp64.u) & (qp64.u - z <= act_tol * scale)
+    parts = [torch.where((near_l | near_u)[..., :mb], y[..., :mb], 0.0)]
+    if ml:
+        parts.append(torch.zeros_like(y[..., mb:mb + ml]))
+    if cone.m_soc:
+        d = cone.soc_dims[0]
+        shp = z[..., mb + ml:].shape[:-1] + (cone.n_soc, d)
+        zb = z[..., mb + ml:].reshape(shp)
+        yb = y[..., mb + ml:].reshape(shp)
+        t, u = zb[..., 0], zb[..., 1:]
+        yt, yu = yb[..., 0], yb[..., 1:]
+        nu = torch.linalg.vector_norm(u, dim=-1)
+        sc = act_tol * (1.0 + t.abs() + nu)
+        interior = nu <= t - sc
+        tip = (nu <= sc) & (t <= sc)
+        # Boundary outward normal ray n = (−1, u/‖u‖)/√2:
+        # base = <y, n>₊ n.
+        safe = torch.clamp(nu, min=torch.finfo(z.dtype).tiny)
+        cross = (yu * u).sum(-1) / safe - yt
+        s_ray = 0.5 * torch.clamp(cross, min=0.0)
+        ray_t = -s_ray
+        ray_u = s_ray[..., None] * (u / safe[..., None])
+        # Tip: polar-cone part via Moreau (y − Π_SOC(y)).
+        pt, pu = project_soc_block(yt, yu)
+        tip_t, tip_u = yt - pt, yu - pu
+        bt = torch.where(interior, 0.0, torch.where(tip, tip_t, ray_t))
+        bu = torch.where(interior[..., None], 0.0,
+                         torch.where(tip[..., None], tip_u, ray_u))
+        base = torch.cat([bt[..., None], bu], dim=-1)
+        parts.append(base.reshape(z[..., mb + ml:].shape))
+    return torch.cat(parts, dim=-1)
+
+
+def _true_residuals(qp64: QPData, settings: Settings, x, y, z):
+    """(r_p, r_d, eps_p, eps_d) per lane on the original f64 data, with
+    the solver loop's eps_d reference (incl. the L1 term)."""
+    linf = admm.linf
+    A64, P64, q64 = qp64.A, qp64.P, qp64.q
+    Ax = x @ A64.mT
+    Px = x @ P64.mT
+    Aty = y @ A64
+    eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(
+        linf(Ax), linf(z))
+    eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+        torch.maximum(linf(Px), linf(Aty)),
+        torch.maximum(linf(q64), admm.l1_grad_scale_raw(qp64)))
+    return linf(Ax - z), linf(Px + q64 + Aty), eps_p, eps_d
+
+
+def _true_ratio(qp64, settings, x, y, z):
+    r_p, r_d, eps_p, eps_d = _true_residuals(qp64, settings, x, y, z)
+    return torch.maximum(r_p / eps_p, r_d / eps_d)
+
+
+# The segments of the re-centred driver.
+START, SAFEGUARD, FINAL, JOIN = ("start",), ("safeguard",), ("final",), \
+    ("join",)
+
+
+def _solution_leaves(sol: Solution) -> dict:
+    return {f.name: getattr(sol, f.name) for f in dataclasses.fields(sol)}
+
+
+def recentered_step(state, variant, *, cone, settings: Settings,
+                    mesh: Mesh | None):
+    """A segment of `_solve_shared_recentered` on its state: the raw
+    problem 'raw', phase 1's scaling 'sc' and solution 'p1', the rounds'
+    carry 'carry' (accumulated f64 x, y, z, iterations, rho, frozen
+    lanes), each round's inputs 'rnd' and solution 'solc', the f64
+    fallback's solution 'f64'; 'flags' holds one flag for the host's
+    next branch, 'out' the solve's result.
+
+    START: phase 1's Ruiz scaling of the f32 data. ("setup", first): a
+    round's data shifted around the carry (with `first`, the carry
+    taken from phase 1 first). SAFEGUARD: accept a lane's round only
+    where it improves the true residual ratio; flag: a lane is neither
+    SOLVED in the round nor frozen. FINAL: the true residuals and
+    status in f64, the result without fallback; flag: a lane is neither
+    solved nor infeasible in phase 1. JOIN: the result with the f64
+    fallback's solution."""
+    f32, f64 = torch.float32, torch.float64
+    qp = QPData(**state["raw"], cone=cone)
+    if variant == START:
+        _, scaling1 = _ruiz(qp.astype(f32), settings, mesh)
+        return dict(sc=dict(d=scaling1.d, e=scaling1.e, c=scaling1.c))
+    qp64 = qp.astype(f64)
+    d = qp.dtype
+    if variant[0] == "setup":
+        if variant[1]:
+            p1 = state["p1"]
+            carry = dict(x=clean64(p1["x"]), y=clean64(p1["y"]),
+                         z=clean64(p1["z"]), iters=p1["iters"],
+                         rho=p1["rho"],
+                         frozen=torch.zeros(p1["x"].shape[0],
+                                            dtype=torch.bool,
+                                            device=p1["x"].device))
+        else:
+            carry = state["carry"]
+        return dict(carry=carry, **_round_setup(qp, qp64, carry, settings))
+    carry = state["carry"]
+    x_t, y_t, z_t = carry["x"], carry["y"], carry["z"]
+    if variant == SAFEGUARD:
+        solc = state["solc"]
+        mixed = (cone.m_l1 + cone.m_soc) > 0
+        x_n = x_t + clean64(solc["x"])
+        y_n = (state["y_base"] + clean64(solc["y"])) if mixed else \
+            clean64(solc["y"])
+        z_n = state["Ax"] + clean64(solc["z"])
+        # Round safeguard: accept a lane's round only when it improves
+        # the true scaled residual ratio on the original f64 data;
+        # rejected lanes keep their iterate and freeze.
+        ok = ~carry["frozen"] & (_true_ratio(qp64, settings, x_n, y_n, z_n)
+                                 < _true_ratio(qp64, settings, x_t, y_t,
+                                               z_t))
+        rstat = torch.where(ok, solc["status"], _STALLED)
+        frozen = carry["frozen"] | ~ok
+        return dict(
+            carry=dict(x=_pick(ok, x_n, x_t), y=_pick(ok, y_n, y_t),
+                       z=_pick(ok, z_n, z_t),
+                       iters=carry["iters"] + solc["iters"],
+                       rho=solc["rho"].to(carry["rho"].dtype),
+                       frozen=frozen),
+            flags=(~((rstat == _SOLVED) | frozen)).any()[None])
+    p1 = state["p1"]
+    p1_inf = (p1["status"] == _PINF) | (p1["status"] == _DINF)
+    if variant == FINAL:
+        # True residuals/status in f64 on the original data.
+        r_p, r_d, eps_p, eps_d = _true_residuals(qp64, settings, x_t, y_t,
+                                                 z_t)
+        solved = (r_p <= eps_p) & (r_d <= eps_d)
+        status = torch.where(p1_inf, p1["status"],
+                             torch.where(solved, _SOLVED,
+                                         int(Status.MAX_ITER)).to(
+                                             torch.int32))
+        return dict(
+            flags=(~(solved | p1_inf)).any()[None],
+            out=dict(x=x_t.to(d), z=z_t.to(d), y=y_t.to(d), status=status,
+                     iters=carry["iters"], r_prim=r_p.to(d),
+                     r_dual=r_d.to(d),
+                     obj=objective(qp64, x_t, z_t).to(d),
+                     rho=carry["rho"].to(d), history=p1["history"].to(d)))
+    s64 = state["f64"]
+    return dict(out=dict(
+        x=s64["x"].to(d), z=s64["z"].to(d), y=s64["y"].to(d),
+        status=torch.where(p1_inf, p1["status"], s64["status"]),
+        iters=carry["iters"] + s64["iters"],
+        r_prim=s64["r_prim"].to(d), r_dual=s64["r_dual"].to(d),
+        obj=s64["obj"].to(d), rho=s64["rho"].to(d),
+        history=s64["history"].to(d)))
+
+
+def _round_setup(qp: QPData, qp64: QPData, carry, settings: Settings):
+    """A re-centring round's problem around the carry: g = Px + q (f64)
+    becomes the correction's q, box bounds shift by -Ax; L1/SOC rows keep
+    their bounds and evaluate the shifted prox with an f64 offset = Ax.
+    'rnd' holds its f32 data, warm start, rho and offset; 'Ax' and
+    'y_base' what the safeguard adds back."""
+    f32 = torch.float32
+    cone = qp.cone
+    mb = cone.m_box
+    mixed = (cone.m_l1 + cone.m_soc) > 0
+    x_t, y_t, z_t64 = carry["x"], carry["y"], carry["z"]
+    A64, P64, q64 = qp64.A, qp64.P, qp64.q
+    y_base = (_mask_dual(qp64, y_t, z_t64,
+                         10.0 * max(settings.hybrid_eps, settings.eps_abs))
+              if mixed else None)
+    Ax = x_t @ A64.mT
+    Px = x_t @ P64.mT
+    out = dict(Ax=Ax)
+    if mixed:
+        g = Px + q64 + y_base @ A64
+        # Box rows shift through the bounds; L1/SOC rows keep the
+        # original bounds/lam and use the shifted prox (offset=Ax).
+        l_c = torch.cat([qp64.l[..., :mb] - Ax[..., :mb],
+                         qp64.l[..., mb:]], dim=-1)
+        u_c = torch.cat([qp64.u[..., :mb] - Ax[..., :mb],
+                         qp64.u[..., mb:]], dim=-1)
+        z_off = torch.cat([torch.zeros_like(Ax[..., :mb]),
+                           Ax[..., mb:]], dim=-1)
+        y_warm = (y_t - y_base).to(f32)
+        out["y_base"] = y_base
+    else:
+        # Box-only: the correction is the original problem in shifted
+        # coordinates, so its dual is a complete dual and replaces.
+        g = Px + q64
+        l_c = qp64.l - Ax
+        u_c = qp64.u - Ax
+        z_off = None
+        y_warm = y_t.to(f32)
+    B = x_t.shape[0]
+    rnd = dict(P=qp.P.to(f32), q=g.to(f32), A=qp.A.to(f32), l=l_c.to(f32),
+               u=u_c.to(f32), lam=qp.lam.to(f32),
+               x0=torch.zeros((B, qp.n), dtype=f32, device=x_t.device),
+               z0=(z_t64 - Ax).to(f32), y0=y_warm,
+               rho0=carry["rho"].to(f32))
+    if z_off is not None:
+        rnd["z_off"] = z_off
+    out["rnd"] = rnd
+    return out
+
+
 def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
                              backend: str, mesh=None) -> Solution:
     """Hybrid precision via f32 re-centring (all cone types).
@@ -398,181 +716,66 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     prox with an f64 offset = Ax. The correction lives at the residual
     scale, so f32 iterations reach the 1e-6 target. A capped,
     warm-started f64 phase runs only for lanes the rounds left unsolved.
-    Its host branches (skip the later rounds, skip the f64 phase) are
-    agreed over the mesh.
+
+    The work between the phases runs as the segments of one loop of its
+    own (`recentered_step`), so on the card each is a graph replay. Its
+    host branches (skip the later rounds, skip the f64 phase) read one
+    flag each, agreed over the mesh.
     """
     f32, f64 = torch.float32, torch.float64
+    cone = qp.cone
     s1 = _s32_of_shared(settings)
-    qp64 = qp.astype(f64)
-    # One Ruiz pass serves phase 1 and every correction round.
-    _, scaling1 = _ruiz(qp.astype(f32), s1, mesh)
-    sol = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32), s1,
-                 backend, scaling=scaling1, mesh=mesh)
-    p1_inf = (sol.status == _PINF) | (sol.status == _DINF)
-    x_t = clean64(sol.x)
-    y_t = clean64(sol.y)
-    z_t64 = clean64(sol.z)
-    iters = sol.iters
-    rho = sol.rho
-
     # Correction rounds: absolute eps at the target tolerance.
     s_c = s1.replace(eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
                      rho_soc_scale=settings.rho_soc_scale)
-    B = x_t.shape[0]
-    cone = qp.cone
-    mb, ml = cone.m_box, cone.m_l1
-    mixed = (ml + cone.m_soc) > 0
-    act_tol = 10.0 * max(settings.hybrid_eps, settings.eps_abs)
-    A64, P64, q64 = qp64.A, qp64.P, qp64.q
-
-    def mask_dual(y, z):
-        """Dual base for re-centring — the part of the accumulated dual
-        the correction's linear term absorbs (g_c includes Aᵀy_base, and
-        the round solves for the O(residual) remainder):
-          box:  y within act_tol of a bound, else exactly 0;
-          L1:   0 (∂(λ|z|) is bounded, so the round's dual replaces);
-          SOC:  the projection of y onto the normal cone at the current
-                primal — 0 in the interior, the component along the
-                normal ray on the boundary, the polar part at the tip.
-        """
-        scale = 1.0 + z.abs()
-        near_l = torch.isfinite(qp64.l) & (z - qp64.l <= act_tol * scale)
-        near_u = torch.isfinite(qp64.u) & (qp64.u - z <= act_tol * scale)
-        parts = [torch.where((near_l | near_u)[..., :mb], y[..., :mb], 0.0)]
-        if ml:
-            parts.append(torch.zeros_like(y[..., mb:mb + ml]))
-        if cone.m_soc:
-            d = cone.soc_dims[0]
-            shp = z[..., mb + ml:].shape[:-1] + (cone.n_soc, d)
-            zb = z[..., mb + ml:].reshape(shp)
-            yb = y[..., mb + ml:].reshape(shp)
-            t, u = zb[..., 0], zb[..., 1:]
-            yt, yu = yb[..., 0], yb[..., 1:]
-            nu = torch.linalg.vector_norm(u, dim=-1)
-            sc = act_tol * (1.0 + t.abs() + nu)
-            interior = nu <= t - sc
-            tip = (nu <= sc) & (t <= sc)
-            # Boundary outward normal ray n = (−1, u/‖u‖)/√2:
-            # base = <y, n>₊ n.
-            safe = torch.clamp(nu, min=torch.finfo(z.dtype).tiny)
-            cross = (yu * u).sum(-1) / safe - yt
-            s_ray = 0.5 * torch.clamp(cross, min=0.0)
-            ray_t = -s_ray
-            ray_u = s_ray[..., None] * (u / safe[..., None])
-            # Tip: polar-cone part via Moreau (y − Π_SOC(y)).
-            pt, pu = project_soc_block(yt, yu)
-            tip_t, tip_u = yt - pt, yu - pu
-            bt = torch.where(interior, 0.0, torch.where(tip, tip_t, ray_t))
-            bu = torch.where(interior[..., None], 0.0,
-                             torch.where(tip[..., None], tip_u, ray_u))
-            base = torch.cat([bt[..., None], bu], dim=-1)
-            parts.append(base.reshape(z[..., mb + ml:].shape))
-        return torch.cat(parts, dim=-1)
-
-    linf = admm.linf
-
-    def true_residuals(x, y, z):
-        """(r_p, r_d, eps_p, eps_d) per lane on the original f64 data,
-        with the solver loop's eps_d reference (incl. the L1 term)."""
-        Ax = x @ A64.mT
-        Px = x @ P64.mT
-        Aty = y @ A64
-        eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(
-            linf(Ax), linf(z))
-        eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
-            torch.maximum(linf(Px), linf(Aty)),
-            torch.maximum(linf(q64), admm.l1_grad_scale_raw(qp64)))
-        return linf(Ax - z), linf(Px + q64 + Aty), eps_p, eps_d
-
-    def true_ratio(x, y, z):
-        r_p, r_d, eps_p, eps_d = true_residuals(x, y, z)
-        return torch.maximum(r_p / eps_p, r_d / eps_d)
-
-    def round_fn(x_t, y_t, z_t64, iters, rho, frozen):
-        y_base = mask_dual(y_t, z_t64) if mixed else None
-        Ax = x_t @ A64.mT
-        Px = x_t @ P64.mT
-        if mixed:
-            g = Px + q64 + y_base @ A64
-            # Box rows shift through the bounds; L1/SOC rows keep the
-            # original bounds/lam and use the shifted prox (offset=Ax).
-            l_c = torch.cat([qp64.l[..., :mb] - Ax[..., :mb],
-                             qp64.l[..., mb:]], dim=-1)
-            u_c = torch.cat([qp64.u[..., :mb] - Ax[..., :mb],
-                             qp64.u[..., mb:]], dim=-1)
-            z_off = torch.cat([torch.zeros_like(Ax[..., :mb]),
-                               Ax[..., mb:]], dim=-1)
-            y_warm = (y_t - y_base).to(f32)
-        else:
-            # Box-only: the correction is the original problem in shifted
-            # coordinates, so its dual is a complete dual and replaces.
-            g = Px + q64
-            l_c = qp64.l - Ax
-            u_c = qp64.u - Ax
-            z_off = None
-            y_warm = y_t.to(f32)
-        qp_c = QPData(P=qp.P.to(f32), q=g.to(f32), A=qp.A.to(f32),
-                      l=l_c.to(f32), u=u_c.to(f32), lam=qp.lam.to(f32),
-                      cone=cone)
-        zc0 = (z_t64 - Ax).to(f32)
-        solc = _phase(qp_c, torch.zeros((B, qp.n), dtype=f32,
-                                        device=x_t.device),
-                      zc0, y_warm, s_c, backend, scaling=scaling1,
-                      rho0=rho.to(f32), z_off=z_off, mesh=mesh)
-        x_n = x_t + clean64(solc.x)
-        y_n = (y_base + clean64(solc.y)) if mixed else clean64(solc.y)
-        z_n = Ax + clean64(solc.z)
-        # Round safeguard: accept a lane's round only when it improves
-        # the true scaled residual ratio on the original f64 data;
-        # rejected lanes keep their iterate and freeze.
-        ok = ~frozen & (true_ratio(x_n, y_n, z_n)
-                        < true_ratio(x_t, y_t, z_t64))
-        rstat = torch.where(ok, solc.status, _STALLED)
-        return (_pick(ok, x_n, x_t), _pick(ok, y_n, y_t),
-                _pick(ok, z_n, z_t64), iters + solc.iters,
-                solc.rho.to(rho.dtype), frozen | ~ok), rstat
-
-    carry = (x_t, y_t, z_t64, iters, rho,
-             torch.zeros(B, dtype=torch.bool, device=x_t.device))
+    step = functools.partial(recentered_step, cone=cone, settings=settings,
+                             mesh=mesh)
+    drv = graph.CheckLoop(
+        "solve_shared_recentered", step, dict(raw=_leaves_of(qp)), settings,
+        backend, mesh=mesh, cone=cone, scaling_iters=settings.scaling_iters,
+        hybrid_eps=settings.hybrid_eps)
+    # One Ruiz pass serves phase 1 and every correction round.
+    drv(START)
+    scaling1 = Scaling(**drv.state["sc"])
+    sol = _phase(qp, x0, z0, y0, s1, backend, scaling=scaling1, mesh=mesh,
+                 dtype=f32)
+    drv.set(dict(p1=dict(x=sol.x, y=sol.y, z=sol.z, status=sol.status,
+                         iters=sol.iters, rho=sol.rho,
+                         history=sol.history)))
     for r in range(max(settings.recenter_rounds, 0)):
         # Later rounds are skipped once every lane met the round
         # criterion or froze: a round costs a factorisation and
         # check_every iterations even when it converges at once.
-        if r > 0 and _all_lanes((round_status == _SOLVED) | carry[5], mesh):
+        if r > 0 and not _agreed(drv.state["flags"], mesh)[0]:
             break
-        carry, round_status = round_fn(*carry)
-    x_t, y_t, z_t, iters, rho, _frozen = carry
-
-    # True residuals/status in f64 on the original data.
-    r_p, r_d, eps_p, eps_d = true_residuals(x_t, y_t, z_t)
-    solved = (r_p <= eps_p) & (r_d <= eps_d)
-    status = torch.where(p1_inf, sol.status,
-                         torch.where(solved, _SOLVED,
-                                     int(Status.MAX_ITER)).to(torch.int32))
-    d = qp.dtype
-
-    if _all_lanes(solved | p1_inf, mesh):
-        return Solution(
-            x=x_t.to(d), z=z_t.to(d), y=y_t.to(d), status=status,
-            iters=iters, r_prim=r_p.to(d), r_dual=r_d.to(d),
-            obj=objective(qp64, x_t, z_t).to(d), rho=rho.to(d),
-            history=sol.history.to(d))
-
-    # f64 fallback for targets below the f32 dual floor: a warm-started,
-    # capped last-digit refiner (native f64 on the device) that exits on
-    # a plateau whatever the caller's stall_checks.
-    s64 = settings.replace(precision="single", warm_start=True,
-                           recenter_rounds=0,
-                           stall_checks=max(settings.stall_checks, 16),
-                           max_iter=min(settings.max_iter, _F64_MAX_ITER))
-    sol64 = _phase(qp64, x_t, z_t, y_t, s64, backend, mesh=mesh)
-    return Solution(
-        x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
-        status=torch.where(p1_inf, sol.status, sol64.status),
-        iters=iters + sol64.iters,
-        r_prim=sol64.r_prim.to(d), r_dual=sol64.r_dual.to(d),
-        obj=sol64.obj.to(d), rho=sol64.rho.to(d),
-        history=sol64.history.to(d))
+        drv(("setup", r == 0))
+        rnd = drv.state["rnd"]
+        solc = _phase(QPData(**{f: rnd[f] for f in _QP_FIELDS}, cone=cone),
+                      rnd["x0"], rnd["z0"], rnd["y0"], s_c, backend,
+                      scaling=scaling1, rho0=rnd["rho0"],
+                      z_off=rnd.get("z_off"), mesh=mesh)
+        drv.set(dict(solc=dict(x=solc.x, y=solc.y, z=solc.z,
+                               status=solc.status, iters=solc.iters,
+                               rho=solc.rho)))
+        drv(SAFEGUARD)
+    drv(FINAL)
+    if _agreed(drv.state["flags"], mesh)[0]:
+        # f64 fallback for targets below the f32 dual floor: a
+        # warm-started, capped last-digit refiner (native f64 on the
+        # device) that exits on a plateau whatever the caller's
+        # stall_checks.
+        s64 = settings.replace(precision="single", warm_start=True,
+                               recenter_rounds=0,
+                               stall_checks=max(settings.stall_checks, 16),
+                               max_iter=min(settings.max_iter,
+                                            _F64_MAX_ITER))
+        c = drv.state["carry"]
+        sol64 = _phase(qp, c["x"], c["z"], c["y"], s64, backend, mesh=mesh,
+                       dtype=f64)
+        drv.set(dict(f64=_solution_leaves(sol64)))
+        drv(JOIN)
+    out, = drv.result("out")
+    return Solution(**out)
 
 
 def _solve_shared_core(qp, x0, z0, y0, settings: Settings,
@@ -582,19 +785,19 @@ def _solve_shared_core(qp, x0, z0, y0, settings: Settings,
         return _phase(qp, x0, z0, y0, settings, backend, mesh=mesh)
     f64 = torch.float64
     if precision == "double":
-        return _phase(qp.astype(f64), x0.to(f64), z0.to(f64), y0.to(f64),
-                      settings, backend, mesh=mesh)
+        return _phase(qp, x0, z0, y0, settings, backend, mesh=mesh,
+                      dtype=f64)
     if settings.recenter_rounds > 0:
         return _solve_shared_recentered(qp, x0, z0, y0, settings, backend,
                                         mesh)
     # recenter_rounds=0: the classic f32 -> f64 two-phase.
     f32 = torch.float32
-    sol32 = _phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32),
-                   _s32_of_shared(settings), backend, mesh=mesh)
-    sol64 = _phase(qp.astype(f64), clean64(sol32.x), clean64(sol32.z),
+    sol32 = _phase(qp, x0, z0, y0, _s32_of_shared(settings), backend,
+                   mesh=mesh, dtype=f32)
+    sol64 = _phase(qp, clean64(sol32.x), clean64(sol32.z),
                    clean64(sol32.y),
                    settings.replace(precision="single", warm_start=True),
-                   backend, mesh=mesh)
+                   backend, mesh=mesh, dtype=f64)
     p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)
     d = qp.dtype
     return Solution(

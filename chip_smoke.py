@@ -127,15 +127,27 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                and 4 and the config-5 batch at 128 and 1024, each from an
                empty cache and on a rerun: captures, replays, warm-ups,
                capture ms, device operations per graph, and from one
-               profiled run the host's launch calls and the idle share
+               profiled rerun the host's launch calls and the idle share
                (config 4: under GRAPH_HOST_LAUNCHES_PER_ITER an
-               iteration); a replayed check bitwise the eager check from
-               the same state, every variant, for an f64 chunk of config
-               4 and a b128 re-centred round.
+               iteration); a rerun captures and warms nothing. For the
+               batch, whose whole solve_batch_shared is captured
+               segments (prologue, checks with kernel 1 inside their
+               graphs, refactors, epilogue, the re-centred rounds'
+               set-up and safeguard, the f64 residuals): the host's
+               launch calls of a profiled first run too, a rerun under
+               GRAPH_RERUN_HOST_LAUNCHES, graphs that hold kernel 1, the
+               captured solve bitwise the same solve with every segment
+               eager, kernel 1 counted alike in both. A replayed check
+               bitwise the eager check from the same state, every
+               variant, for an f64 chunk of config 4, a b128 re-centred
+               round, consensus_mc_1024's f32 phase and
+               horizon_spike_1024's.
 
 Every solve above runs its checks as captured graphs where the capture
 rule admits its backend ('inv', 'chol', 'banded', 'spike', and the
-row-sharded CG) and mesh (none, or 1 rank).
+row-sharded CG) and mesh (none, or 1 rank). A kernel's launches count
+the times it ran: one per eager launch, and one per replay of a graph
+that holds it.
 Phases 9-17 run no kernel of their own: their backends are plain
 PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
 to (phase 14 runs the fused kernel on its lanes).
@@ -227,6 +239,10 @@ HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
 # prologues and polish) under the captured checks: host launches an
 # iteration.
 GRAPH_HOST_LAUNCHES_PER_ITER = 2.0
+# A rerun of the config-5 batch with the whole solve_batch_shared
+# captured: host launch calls a solve (graph replays, ~14 checks, and
+# the few eager calls around them).
+GRAPH_RERUN_HOST_LAUNCHES = 120
 PEAK_HBM_BYTES = 3.35e12
 # Two solved points of the same problem: each meets the 1e-6 residual
 # criterion; the MPC states carry only a 1e-8 regularisation.
@@ -445,6 +461,7 @@ def _low_thrust_inputs(dev):
     import types
     import torch
     from admm_library_torch import solve
+    from admm_library_torch.core import graph
     from admm_library_torch.parallel import batch
 
     qp, _, settings, _ = _config4(dev)
@@ -456,8 +473,12 @@ def _low_thrust_inputs(dev):
             raise _Captured(a, kw)
         return ops.fused_iterate_shared(*a, **kw)
 
-    # The shared pass reaches the kernel through batch.fused_ops only.
+    # The shared pass reaches the kernel through batch.fused_ops only;
+    # its segments run eagerly here (a captured check's launch is a call
+    # only at its capture), computing what the captured solve computes.
     batch.fused_ops = types.SimpleNamespace(fused_iterate_shared=record)
+    capturable = graph.capturable
+    graph.capturable = lambda *a, **k: False
     try:
         solve(qp.astype(torch.float64), settings)
     except _Captured as c:
@@ -467,6 +488,7 @@ def _low_thrust_inputs(dev):
                            f"{LT_CAPTURE_LAUNCH} kernel launches")
     finally:
         batch.fused_ops = ops
+        graph.capturable = capturable
     kw = dict(kw)
     del kw["k"]
     return args, kw
@@ -2009,9 +2031,23 @@ def phase_checkpoint(dev, sol128):
     return rec
 
 
+def _first_check_state(kind, step, state):
+    """A clone of a loop's initial state, for the batch loop (which
+    starts from raw data) the state after its prologue: the state its
+    first check meets."""
+    import torch
+    from admm_library_torch.core import graph
+    from admm_library_torch.parallel import batch
+    first = graph._map(torch.clone, state)
+    if kind == "run_admm_batch_shared":
+        first = dict(first, **step(first, batch.PROLOGUE))
+    return first
+
+
 class _Loops:
-    """Records (kind, step, initial state) of every graph.CheckLoop built
-    inside the block, the state cloned; the loops run as before."""
+    """Records (kind, step, state at the first check) of every
+    graph.CheckLoop built inside the block (the loop's own step, which
+    runs its pre inside its checks); the loops run as before."""
 
     def __enter__(self):
         import torch
@@ -2019,8 +2055,10 @@ class _Loops:
         self.graph, self.real, self.loops = graph, graph.CheckLoop, []
 
         def spy(kind, step, state, *a, **kw):
-            self.loops.append((kind, step, graph._map(torch.clone, state)))
-            return self.real(kind, step, state, *a, **kw)
+            loop = self.real(kind, step, state, *a, **kw)
+            self.loops.append((kind, loop.step,
+                               _first_check_state(kind, loop.step, state)))
+            return loop
         graph.CheckLoop = spy
         return self
 
@@ -2030,9 +2068,11 @@ class _Loops:
 
 def _replay_is_eager(step, state):
     """Every variant of a check from one state: the eager step on the
-    default stream against the warm-up, the captured graph's first
-    replay and a second replay, each from the same state. Returns
-    {variant: whether all agree bitwise on every updated entry}."""
+    default stream against three runs of it from a cache entry, each
+    from the same state (the entry's first run is its eager warm-up;
+    every variant is captured at its first run after that, then
+    replayed). Returns {variant: whether all agree bitwise on every
+    updated entry}."""
     import torch
     from admm_library_torch.core import graph
     cache = graph.CheckCache()
@@ -2063,7 +2103,7 @@ def _graph_nodes():
     cuda = ctypes.CDLL("libcuda.so.1")
     out = {}
     for i, (key, entry) in enumerate(graph.CACHE.entries.items()):
-        x = entry.buffers["x"]
+        x = entry.buffers.get("x", entry.buffers.get("raw", {}).get("q"))
         label = f"{i}:{key[0]} {str(x.dtype)[6:]} {tuple(x.shape)}"
         for variant, g in entry.graphs.items():
             n = ctypes.c_size_t(0)
@@ -2072,6 +2112,53 @@ def _graph_nodes():
             check(rc == 0, f"graph nodes: cuGraphGetNodes returned {rc}")
             out[f"{label} {variant}"] = n.value
     return out
+
+
+def _batch_graph_fields(fn, qp, s, sol, runs):
+    """For a config-5 batch: the host's launch calls of a profiled first
+    run from an empty cache (beside those of the profiled rerun), the
+    graphs that hold kernel 1, and the same solve with every segment
+    eager (its wall-clock, kernel launches and whether the captured
+    solve is bitwise the same). Leaves the cache warm."""
+    import torch
+    from admm_library_torch.core import graph
+    from admm_library_torch.ops import fused
+    graph.CACHE.clear()
+    first = _profiled(fn, qp, s)
+    kernel_graphs = sum(
+        fused.fused_iterate_shared in e.kernels.get(v, ())
+        for e in graph.CACHE.entries.values() for v in e.graphs)
+    real = graph.capturable
+    graph.capturable = lambda *a, **k: False
+    try:
+        eager, wall, launches = _timed_run(fn, qp, s)
+    finally:
+        graph.capturable = real
+    return dict(
+        first_host_launches=first["host_launches"],
+        first_graph_launches=first["graph_launches"],
+        first_profiled_wall_s=first["profiled_wall_s"],
+        graphs_holding_kernel_1=kernel_graphs,
+        eager_wall_s=wall,
+        eager_launches=launches["fused_iterate_shared"],
+        captured_is_eager_bitwise=_bitwise(sol, eager) and torch.equal(
+            sol.history, eager.history),
+        launches_equal=runs[0]["fused_iterate_shared"]
+        == runs[1]["fused_iterate_shared"]
+        == launches["fused_iterate_shared"])
+
+
+def _check_batch_graph(name, rec):
+    check(rec["graphs_holding_kernel_1"] > 0,
+          f"graph {name}: no check graph holds kernel 1")
+    check(rec["host_launches"] <= GRAPH_RERUN_HOST_LAUNCHES,
+          f"graph {name}: {rec['host_launches']} host launch calls in a "
+          f"rerun, above {GRAPH_RERUN_HOST_LAUNCHES}")
+    check(rec["captured_is_eager_bitwise"],
+          f"graph {name}: the captured solve differs from the eager one")
+    check(rec["launches_equal"] and rec["eager_launches"] > 0,
+          f"graph {name}: kernel 1's count differs between the eager "
+          "solve, the captured first run and the rerun")
 
 
 def phase_graph(dev):
@@ -2112,8 +2199,8 @@ def phase_graph(dev):
         runs = []
         for _ in range(2):
             before = dict(graph.CACHE.stats)
-            sol, wall, _ = _timed_run(fn, qp, s)
-            runs.append(dict(wall_s=wall, **{
+            sol, wall, launches = _timed_run(fn, qp, s)
+            runs.append(dict(wall_s=wall, **launches, **{
                 k: graph.CACHE.stats[k] - before[k] for k in before}))
             if len(runs) == 1:
                 nodes = _graph_nodes()
@@ -2125,14 +2212,19 @@ def phase_graph(dev):
                    first=runs[0], rerun=runs[1],
                    nodes_per_graph=nodes,
                    **_profile_fields(prof, iters, runs[1]["wall_s"]))
+        if name in ("b128", "b1024"):
+            rec.update(_batch_graph_fields(fn, qp, s, sol, runs))
         emit("graph", **rec)
         check(runs[0]["captures"] > 0 and runs[0]["replays"] > 0,
               f"graph {name}: no check was captured and replayed")
-        # A variant met once in the first run was only warmed there; its
-        # capture comes at its second check, in the rerun.
-        check(runs[1]["eager_checks"] == 0,
-              f"graph {name}: the rerun warmed a variant up again")
+        # Every variant met in the first run was captured there (each
+        # entry ran one segment eagerly): a rerun captures and warms
+        # nothing.
+        check(runs[1]["eager_checks"] == 0 and runs[1]["captures"] == 0,
+              f"graph {name}: the rerun warmed or captured a variant")
         check(min(nodes.values()) > 0, f"graph {name}: an empty graph")
+        if name in ("b128", "b1024"):
+            _check_batch_graph(name, rec)
         out[name] = rec
     check(out["config4"]["host_launches_per_iteration"]
           < GRAPH_HOST_LAUNCHES_PER_ITER,
@@ -2149,8 +2241,9 @@ def phase_graph(dev):
     with _Loops() as rec5:
         solve_batch_shared(b[128], s5)
     (_, step4, state4), = rec4.loops
-    step5, state5 = next((step, st) for _, step, st in rec5.loops
-                         if st["qp"]["q"].dim() == 2)
+    step5, state5 = next((step, st) for kind, step, st in rec5.loops
+                         if kind == "run_admm_batch_shared"
+                         and st["qp"]["q"].dim() == 2)
     # The first check of consensus_mc_1024's f32 phase and of
     # horizon_spike_1024's (one loop each: 'single', no iteration run).
     _, _, s0 = _config2(dev)
@@ -2240,7 +2333,8 @@ def main():
         "bound_by": lt_case["bound_by"],
         "library_ms": lt_case["library_ms"],
         "at": "config 4, B=1, n=2000, m=2206, k=25; library: torch.matmul "
-              "products only (cuBLAS, one CUDA graph)"}, {
+              "products only (cuBLAS, one CUDA graph); launches: eager "
+              "launches and replays of the check graphs that hold it"}, {
         "name": "pallas_cg_solve", "route": "cuda",
         "source": "admm_library_torch/csrc/pallas_cg.cu",
         "replaces": "admm_library_tpu/ops/pallas_cg.py:82",

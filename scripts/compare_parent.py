@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The port at two commits, in turns, on one CUDA card: config 3 and
-config 4 through `solve`, the config-5 batch at 128 and 1024 lanes
+"""The port at two commits, in turns, on one CUDA card: configs 1 and 2
+(on 'inv'), 3 and 4 through `solve`, the config-5 batch at 128 and 1024 lanes
 through `solve_batch_shared`, `solve_batch` on 128 config-1 draws, and
 the partitioned and block-backend paths of `chip_smoke.py`: `consensus`
 and `consensus_mc_1024` on a 1x1 mesh, `horizon_sharded_1024` under its
@@ -41,9 +41,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = ("config3", "config4", "b128", "b1024", "solve_batch", "consensus",
-         "consensus_mc_1024", "horizon_f64_plain", "horizon_f32_gate",
-         "horizon_spike_1024", "config2_banded", "rowshard_qp4096")
+PATHS = ("config1", "config2_inv", "config3", "config4", "b128", "b1024",
+         "solve_batch", "consensus", "consensus_mc_1024",
+         "horizon_f64_plain", "horizon_f32_gate", "horizon_spike_1024",
+         "config2_banded", "rowshard_qp4096")
 SAVED = os.path.join(ROOT, "_scratch", "compare_parent")
 # The host's calls that put work on the card, as CUPTI names them.
 HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
@@ -67,6 +68,11 @@ def _path(name, dev):
                                     device=dev)
         return (T.solve, qp.astype(f64),
                 T.Settings(eps_abs=1e-6, eps_rel=1e-6, max_iter=50000))
+    if name == "config1":
+        from admm_library_torch.models.random_qp import (
+            reference_random_box_qp)
+        return (T.solve, reference_random_box_qp(dev).astype(f64),
+                T.Settings(eps_abs=1e-6, eps_rel=1e-6, backend="inv"))
     if name == "config4":
         from admm_library_torch.models.low_thrust import (
             build_low_thrust_socp)
@@ -83,7 +89,8 @@ def _path(name, dev):
                                         device=dev)[0]
         return (T.solve_batch_shared, qp.astype(f64),
                 T.Settings(eps_abs=1e-6, eps_rel=1e-6))
-    if name in ("consensus", "consensus_mc_1024", "config2_banded"):
+    if name in ("consensus", "consensus_mc_1024", "config2_banded",
+                "config2_inv"):
         from admm_library_torch.models.double_integrator import build_mpc_qp
         from admm_library_torch.models.partitioned import (
             partition_mpc, partition_mpc_from_s0, reference_s0)
@@ -107,7 +114,7 @@ def _path(name, dev):
         qp, spec = build_mpc_qp(s0, np.zeros(6), N=50, dim=3, device=dev)
         return (T.solve, qp.astype(f64),
                 T.Settings(eps_abs=1e-6, eps_rel=1e-6, band_block=spec.block,
-                           backend="banded"))
+                           backend=name.split("_")[1]))
     if name.startswith("horizon"):
         from admm_library_torch.models import monte_carlo as mc
         from admm_library_torch.parallel import runtime

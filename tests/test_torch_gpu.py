@@ -861,15 +861,23 @@ def test_checkpoint_loads_onto_the_card(dev, tmp_path):
 # ---- captured checks (core/graph.py) ----
 
 def _recorded_loops(monkeypatch, fn, *args, **kw):
-    """fn(*args, **kw) with every CheckLoop's (kind, step, initial state)
-    recorded; returns (fn's result, the records)."""
+    """fn(*args, **kw) with every CheckLoop's (kind, step, state at its
+    first check) recorded: the loop's own step (with the pre it runs
+    inside its checks) and a clone of its initial state, for the batch
+    loop, which starts from raw data, after its prologue. Returns (fn's
+    result, the records)."""
     from admm_library_torch.core import graph
+    from admm_library_torch.parallel import batch
     loops = []
     real = graph.CheckLoop
 
     def spy(kind, step, state, *a, **k):
-        loops.append((kind, step, graph._map(torch.clone, state)))
-        return real(kind, step, state, *a, **k)
+        loop = real(kind, step, state, *a, **k)
+        first = graph._map(torch.clone, state)
+        if kind == "run_admm_batch_shared":
+            first = dict(first, **loop.step(first, batch.PROLOGUE))
+        loops.append((kind, loop.step, first))
+        return loop
     monkeypatch.setattr(graph, "CheckLoop", spy)
     out = fn(*args, **kw)
     monkeypatch.setattr(graph, "CheckLoop", real)
@@ -881,10 +889,11 @@ _CHECK_VARIANTS = [(False, False), (False, True), (True, False),
 
 
 def _replay_is_eager(step, state, variants=_CHECK_VARIANTS):
-    """Every variant of `step` from `state`: the eager step on the
-    default stream, the warm-up on the capture stream, the captured
-    graph's first replay and a second replay, each from the same state,
-    agree bitwise on every entry the step updates."""
+    """Every variant of `step` from `state`, three times each from the
+    same state: the entry's first run eager (the warm-up), then each
+    variant captured the first time it is met and replayed after. Each
+    run agrees bitwise with the eager step on the default stream on
+    every entry the step updates. Returns the cache entry."""
     from admm_library_torch.core import graph
     cache = graph.CheckCache()
     entry = cache.entry("case", step, state)
@@ -899,8 +908,10 @@ def _replay_is_eager(step, state, variants=_CHECK_VARIANTS):
             for got in runs:
                 assert torch.equal(got[key], value), (variant, key)
     v = len(variants)
-    assert cache.stats["captures"] == v and cache.stats["replays"] == 2 * v
-    assert cache.stats["eager_checks"] == v
+    assert cache.stats["captures"] == v
+    assert cache.stats["replays"] == 3 * v - 1
+    assert cache.stats["eager_checks"] == 1
+    return entry
 
 
 def test_replayed_check_is_the_eager_check_config4_f64_chunk(
@@ -934,7 +945,8 @@ def test_replayed_check_is_the_eager_check_b128_round(dev, monkeypatch):
                                qp32.astype(torch.float64),
                                Settings(eps_abs=1e-6, eps_rel=1e-6))
     rounds = [(step, st) for kind, step, st in loops
-              if st["qp"]["q"].dim() == 2]
+              if kind == "run_admm_batch_shared"
+              and st["qp"]["q"].dim() == 2]
     step, state = rounds[0]
     assert state["x"].dtype == torch.float32 and state["x"].shape[0] == 128
     _replay_is_eager(step, state)
@@ -1042,6 +1054,174 @@ def test_captured_solves_are_the_eager_solves(dev, monkeypatch):
     assert fused.fused_iterate_shared.launches > 0
 
 
+def _mixed_batch(dev):
+    """_small_l1_soc shared by 3 lanes whose box bounds differ: the
+    rounds' dual base and shifted prox run."""
+    one = _small_l1_soc(dev)
+    shift = torch.zeros((3, one.m), dtype=one.dtype, device=dev)
+    shift[:, :one.cone.m_box] = torch.tensor(
+        [[0.0], [0.05], [-0.1]], dtype=one.dtype, device=dev)
+    return QPData(P=one.P, q=one.q, A=one.A, l=one.l + shift,
+                  u=one.u + shift, lam=one.lam, cone=one.cone)
+
+
+@pytest.mark.parametrize("case", ["b128_hybrid", "mixed_hybrid"])
+def test_captured_batch_solve_is_the_eager_solve(case, dev, monkeypatch):
+    """solve_batch_shared as captured segments (prologue, checks with
+    kernel 1 inside, refactors, epilogue, the rounds' set-up and
+    safeguard, the f64 residuals) against the same solve with every
+    segment eager, bitwise; a rerun replays and captures and warms
+    nothing."""
+    from admm_library_torch.core import graph
+    if case == "b128_hybrid":
+        qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128), device=dev)[
+            0].astype(torch.float64)
+        s = Settings(eps_abs=1e-6, eps_rel=1e-6)
+    else:
+        qp, s = _mixed_batch(dev), Settings(backend="inv", rho=10.0)
+    fused.fused_iterate_shared.launches = 0
+    eager, captured, stats = _eager_and_captured(monkeypatch,
+                                                 solve_batch_shared, qp, s)
+    fields = ("x", "z", "y", "status", "iters", "r_prim", "r_dual", "obj",
+              "rho", "history")
+    for f in fields:
+        assert torch.equal(getattr(eager, f), getattr(captured, f)), f
+    assert stats["eager_checks"] == len(graph.CACHE.entries)
+    before = dict(graph.CACHE.stats)
+    again = solve_batch_shared(qp, s)
+    for f in fields:
+        assert torch.equal(getattr(again, f), getattr(captured, f)), f
+    assert graph.CACHE.stats["captures"] == before["captures"]
+    assert graph.CACHE.stats["eager_checks"] == before["eager_checks"]
+    if case == "b128_hybrid":
+        assert fused.fused_iterate_shared.launches > 0
+
+
+def test_check_graph_with_kernel_1_is_the_eager_pre_and_check(
+        dev, monkeypatch):
+    """Config 5's phase-1 loop at batch 128 (f32, 'inv'): each check
+    variant with the fused kernel's launch inside its graph replays
+    bitwise the eager kernel launch and check, and every captured check
+    holds the kernel."""
+    from admm_library_torch.core import graph
+    qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128), device=dev)[0]
+    _, loops = _recorded_loops(monkeypatch, solve_batch_shared,
+                               qp.astype(torch.float64),
+                               Settings(eps_abs=1e-6, eps_rel=1e-6,
+                                        max_iter=0))
+    step, state = next((step, st) for kind, step, st in loops
+                       if kind == "run_admm_batch_shared")
+    assert isinstance(step, graph._PreStep)
+    assert state["x"].dtype == torch.float32
+    entry = _replay_is_eager(step, state)
+    for variant in _CHECK_VARIANTS:
+        assert entry.kernels[variant] == [fused.fused_iterate_shared]
+
+
+def test_first_meeting_capture_is_the_eager_segment(dev, monkeypatch):
+    """A new entry runs its first segment (the prologue) eagerly and
+    captures it for later; every other segment is captured the first
+    time it is met: a check with kernel 1 and a refactor, then the
+    prologue replayed on the entry's next loop, each bitwise the eager
+    segment from the same state."""
+    from admm_library_torch.core import graph
+    from admm_library_torch.parallel import batch
+    qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(3),
+                                  batch=16, N=10, dim=2, device=dev)
+    raw = []
+    real = graph.CheckLoop
+
+    def spy(kind, step, state, *a, **k):
+        loop = real(kind, step, state, *a, **k)
+        raw.append((kind, loop.step, graph._map(torch.clone, state)))
+        return loop
+    with monkeypatch.context() as m:
+        m.setattr(graph, "CheckLoop", spy)
+        solve_batch_shared(qp.astype(torch.float64),
+                           Settings(rho=10.0, max_iter=0))
+    step, state = next((st, s0) for kind, st, s0 in raw
+                       if kind == "run_admm_batch_shared")
+    cache = graph.CheckCache()
+    entry = cache.entry("case", step, state)
+    plain = graph._map(torch.clone, state)
+    for i, variant in enumerate([batch.PROLOGUE, (False, True),
+                                 batch.REFACTOR, batch.PROLOGUE]):
+        if i == 3:                      # a new loop of the same key
+            entry.load(state)
+            plain = graph._map(torch.clone, state)
+        plain.update(step(plain, variant))
+        entry.run(variant)
+        for path, t in graph._leaves(plain):
+            got = entry.buffers
+            for k in path:
+                got = got[k]
+            assert torch.equal(got, t), (variant, path)
+        assert cache.stats["eager_checks"] == 1
+        assert cache.stats["captures"] == min(i + 1, 3)
+    assert cache.stats["replays"] == 3
+    torch.cuda.synchronize()
+
+
+def test_launch_counter_counts_replays(dev, monkeypatch):
+    """Kernel 1's count is the number of times it ran: inside a graph
+    one per replay, not one per capture. The captured b128 solve and
+    its rerun count what the eager solve counts, and the rerun's all
+    come from replays."""
+    from admm_library_torch.core import graph
+    qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128), device=dev)[
+        0].astype(torch.float64)
+    s = Settings(eps_abs=1e-6, eps_rel=1e-6)
+    counts = []
+    with monkeypatch.context() as m:
+        m.setattr(graph, "capturable", lambda *a, **k: False)
+        fused.fused_iterate_shared.launches = 0
+        solve_batch_shared(qp, s)
+        counts.append(fused.fused_iterate_shared.launches)
+    graph.CACHE.clear()
+    for _ in range(2):
+        fused.fused_iterate_shared.launches = 0
+        before = dict(graph.CACHE.stats)
+        solve_batch_shared(qp, s)
+        counts.append(fused.fused_iterate_shared.launches)
+    assert counts[0] > 0 and counts == [counts[0]] * 3
+    assert graph.CACHE.stats["captures"] == before["captures"]
+    held = sum(len(e.kernels.get(v, ())) for e in graph.CACHE.entries.values()
+               for v in e.graphs)
+    assert held > 0
+
+
+def test_an_added_entry_outlives_the_replays_of_earlier_graphs(dev):
+    """An entry that a captured segment adds gets a buffer outside the
+    entry's graph pool: replaying a graph captured before it, whose
+    scratch the pool freed as the new entry was made, leaves it as it
+    was. The segment that adds it is captured twice, and kept once."""
+    from admm_library_torch.core import graph
+    n = 1 << 20
+
+    def step(state, variant):
+        x = state["x"]
+        if variant == ("scratch",):
+            t = torch.full_like(x, 7.0)
+            return dict(x=x + (t - 7.0))
+        if variant == ("add",):
+            return dict(k=x * 2.0)
+        return dict(x=x + 1.0)
+    cache = graph.CheckCache()
+    state = {"x": torch.arange(n, dtype=torch.float32, device=dev)}
+    loop = graph.CheckLoop("probe", step, state, Settings(), "inv",
+                           cache=cache)
+    for variant in [("start",), ("scratch",), ("add",), ("scratch",),
+                    ("scratch",)]:
+        loop(variant)
+    want = (torch.arange(n, dtype=torch.float32, device=dev) + 1.0) * 2.0
+    assert torch.equal(loop.state["k"], want)
+    assert torch.equal(loop.state["x"], want / 2.0)
+    assert cache.stats["captures"] == 3
+    assert cache.stats["eager_checks"] == 1
+    assert cache.stats["replays"] == 4
+    torch.cuda.synchronize()
+
+
 def test_capture_refuses_an_eager_only_backend(dev):
     """capture=True for a backend outside the rule raises; nothing falls
     back to an eager check in silence."""
@@ -1056,7 +1236,8 @@ def test_capture_refuses_an_eager_only_backend(dev):
 
 def test_a_failed_capture_raises(dev):
     """A step that reads the device inside capture raises at its capture
-    (the second check of its variant), not later and not silently."""
+    (right after the entry's eager first check), not later and not
+    silently."""
     from admm_library_torch.core import graph
 
     def reading(state, variant):
@@ -1068,9 +1249,9 @@ def test_a_failed_capture_raises(dev):
              "flags": torch.ones(2, dtype=torch.bool, device=dev)}
     loop = graph.CheckLoop("probe", reading, state, Settings(), "inv",
                            cache=cache)
-    loop((False, False))                    # the eager warm-up
     with pytest.raises(RuntimeError):
-        loop((False, False))
+        loop((False, False))                # warm-up, then its capture
+    assert cache.stats["eager_checks"] == 1
     assert cache.stats["captures"] == 0
     torch.cuda.synchronize()
 
@@ -1135,7 +1316,8 @@ def test_replayed_partitioned_check_is_the_eager_check(name, dev,
     want = {"consensus": "run_consensus", "consensus_mc": "run_consensus_mc",
             "horizon": "run_horizon"}.get(name, "run_admm_batch_shared")
     assert want in kinds
-    for kind, step, state in loops[:3]:
+    checked = [rec for rec in loops if rec[0] != "solve_shared_recentered"]
+    for kind, step, state in checked[:3]:
         _replay_is_eager(step, state)
 
 

@@ -133,9 +133,11 @@ class _Recorder:
         def spy(kind, step, state, settings, backend, mesh=None, pre=None,
                 capture=None, cache=None, **static):
             key = graph.check_key(kind, backend, settings, state, **static)
-            self.loops.append((kind, step, dict(state), key))
-            return real(kind, step, state, settings, backend, mesh=mesh,
+            loop = real(kind, step, state, settings, backend, mesh=mesh,
                         pre=pre, capture=capture, cache=cache, **static)
+            # The loop's own step, which runs the pre inside each check.
+            self.loops.append((kind, loop.step, dict(state), key))
+            return loop
         monkeypatch.setattr(graph, "CheckLoop", spy)
 
 
@@ -154,11 +156,14 @@ def _run_without_host_read(step, state, variants=VARIANTS):
 
 
 def _loop_state(monkeypatch, run, *args, **kw):
-    """(step, initial state) of the loop that `run` builds, from a run
-    of max_iter 0."""
+    """(step, state at its first check) of the loop that `run` builds,
+    from a run of max_iter 0: the initial state, after the prologue for
+    the batch loop, which starts from its raw data."""
     rec = _Recorder(monkeypatch)
     run(*args, **kw)
-    (_, step, state, _), = rec.loops
+    (kind, step, state, _), = rec.loops
+    if kind == "run_admm_batch_shared":
+        state = dict(state, **step(state, batch.PROLOGUE))
     return step, state
 
 
@@ -213,7 +218,9 @@ def test_check_makes_no_host_read(loop, dtype, rows, monkeypatch):
         qp, sc = _shared(rows, dtype)
         step, state = _loop_state(monkeypatch, batch.run_admm_batch_shared,
                                   qp, sc, s, *_zeros(qp, 4), "inv")
-        assert step.keywords["fused"] and "xn" in state
+        # The fused kernel runs inside the check.
+        assert isinstance(step, graph._PreStep)
+        assert step.step.keywords["fused"]
     _run_without_host_read(step, state)
 
 

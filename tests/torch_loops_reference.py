@@ -6,6 +6,11 @@ and rebinding, one iterate at a time: `run_admm`, `run_admm_lanes` and
 tests/test_torch_graph.py, test_torch_graph_partitioned.py and
 test_torch_graph_rowshard.py hold the package's loops, whose checks are
 carry-to-carry steps (core/graph.py), bitwise to these on the CPU.
+`_ref_solve_batch_shared` is the whole shared-batch solve (Ruiz
+scaling, phases, re-centred rounds, f64 fallback) as host code around
+`_ref_run_admm_batch_shared`: tests/test_torch_graph_solve.py holds
+`solve_batch_shared`, whose work between host reads is segments of its
+loops, bitwise to it.
 """
 import torch
 
@@ -32,14 +37,20 @@ from admm_library_torch.parallel.rowshard import (
 from admm_library_torch.parallel.runtime import DATA_AXIS, Mesh
 from admm_library_torch.ops.kkt import _CG_CHECK
 from admm_library_torch.ops.prox import project_cone
-from admm_library_torch.core.scaling import ruiz_equilibrate
-from admm_library_torch.problem import QPData, mv, vm
+from admm_library_torch.core.scaling import ruiz_equilibrate, scale_qp
+from admm_library_torch.api import resolve_backend
+from admm_library_torch.ops.prox import project_soc_block
+from admm_library_torch.precision import clean64
+from admm_library_torch.problem import QPData, mv, objective, vm
 from admm_library_torch.settings import Settings
-from admm_library_torch.solution import Status
+from admm_library_torch.solution import Solution, Status
 
 _UNSOLVED = int(Status.UNSOLVED)
 _STALLED = int(Status.STALLED)
 _SOLVED = int(Status.SOLVED)
+_PINF = int(Status.PRIMAL_INFEASIBLE)
+_DINF = int(Status.DUAL_INFEASIBLE)
+_F64_MAX_ITER = 8000
 
 
 def _ref_run_admm(qp: QPData, scaling: Scaling, settings: Settings,
@@ -458,6 +469,306 @@ def _ref_run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
         r_prim=torch.where(unsolved, rp_best, r_prim),
         r_dual=torch.where(unsolved, rd_best, r_dual), hist=hist)
 
+
+# ---- solve_batch_shared as it stood before its prologue, refactors,
+# rounds and epilogue became captured segments: host code around
+# `_ref_run_admm_batch_shared`, one eager kernel at a time. ----
+
+def _ref_all_lanes(mask, mesh: Mesh | None) -> bool:
+    """True when mask holds on every lane of every rank."""
+    return not _agreed((~mask).any()[None], mesh)[0]
+
+
+def _ref_ruiz(qp, settings, mesh):
+    """Ruiz scaling of this rank's lanes equal to the one of the whole
+    batch: a per-lane q enters the cost scale through a max over every
+    lane, so that max is taken over the data axis too."""
+    reduce_max = None
+    if mesh is not None and qp.q.dim() > 1:
+        def reduce_max(t):
+            return _data_max(t, mesh)
+    return ruiz_equilibrate(qp, settings.scaling_iters, reduce_max)
+
+
+def _ref_phase(qp, x0, z0, y0, settings, backend, scaling=None,
+               rho0=None, z_off=None, mesh=None):
+    if scaling is not None:
+        # Precomputed scaling (re-centred rounds keep phase 1's P/A, so
+        # the Ruiz loop would recompute identical factors).
+        scaling = scaling.astype(qp.dtype)
+        qps = scale_qp(qp, scaling)
+    else:
+        qps, scaling = _ref_ruiz(qp, settings, mesh)
+    if settings.warm_start:
+        xs = scaling.scale_x(x0)
+        zs = scaling.scale_z(z0)
+        ys = scaling.scale_y(y0)
+    else:
+        xs, zs, ys = x0, z0, y0
+    if z_off is not None:
+        # Shifted-prox offsets live in z-space; they keep their own
+        # (f64) dtype — ops/prox upcasts there.
+        z_off = scaling.e.to(z_off.dtype) * z_off
+    carry = _ref_run_admm_batch_shared(
+        qps, scaling, settings, xs, zs, ys, backend, rho0=rho0, z_off=z_off,
+        mesh=mesh)
+    x = scaling.unscale_x(carry.x)
+    z = scaling.unscale_z(carry.z)
+    y = scaling.unscale_y(carry.y)
+    return Solution(
+        x=x, z=z, y=y, status=carry.status, iters=carry.iters_lane,
+        r_prim=carry.r_prim, r_dual=carry.r_dual, obj=objective(qp, x, z),
+        rho=carry.rho_bar, history=carry.hist)
+
+
+def _ref_s32_of_shared(settings: Settings) -> Settings:
+    """f32-phase settings: relaxed eps and f32 condition-number caps.
+    rho_soc_scale is stripped here (in raw coordinates the boost wrecks
+    f32 conditioning); the re-centred rounds re-apply it."""
+    return settings.replace(
+        precision="single",
+        eps_abs=max(settings.hybrid_eps, settings.eps_abs),
+        eps_rel=max(settings.hybrid_eps, settings.eps_rel),
+        sigma=max(settings.sigma, 1e-5),
+        rho_soc_scale=1.0,
+        rho_eq_scale=min(settings.rho_eq_scale, 1e2))
+
+
+def _ref_solve_shared_recentered(qp: QPData, x0, z0, y0,
+                                 settings: Settings, backend: str,
+                                 mesh=None) -> Solution:
+    """Hybrid precision via f32 re-centring (all cone types).
+
+    Round 0 solves in f32 to the f32 residual plateau. Each refinement
+    round re-solves the same QP with data shifted around the accumulated
+    (x, y): g = Px + q (f64) becomes the correction's q, box bounds
+    shift by -Ax; L1/SOC rows keep their bounds and evaluate the shifted
+    prox with an f64 offset = Ax. The correction lives at the residual
+    scale, so f32 iterations reach the 1e-6 target. A capped,
+    warm-started f64 phase runs only for lanes the rounds left unsolved.
+    Its host branches (skip the later rounds, skip the f64 phase) are
+    agreed over the mesh.
+    """
+    f32, f64 = torch.float32, torch.float64
+    s1 = _ref_s32_of_shared(settings)
+    qp64 = qp.astype(f64)
+    # One Ruiz pass serves phase 1 and every correction round.
+    _, scaling1 = _ref_ruiz(qp.astype(f32), s1, mesh)
+    sol = _ref_phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32),
+                     s1, backend, scaling=scaling1, mesh=mesh)
+    p1_inf = (sol.status == _PINF) | (sol.status == _DINF)
+    x_t = clean64(sol.x)
+    y_t = clean64(sol.y)
+    z_t64 = clean64(sol.z)
+    iters = sol.iters
+    rho = sol.rho
+
+    # Correction rounds: absolute eps at the target tolerance.
+    s_c = s1.replace(eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
+                     rho_soc_scale=settings.rho_soc_scale)
+    B = x_t.shape[0]
+    cone = qp.cone
+    mb, ml = cone.m_box, cone.m_l1
+    mixed = (ml + cone.m_soc) > 0
+    act_tol = 10.0 * max(settings.hybrid_eps, settings.eps_abs)
+    A64, P64, q64 = qp64.A, qp64.P, qp64.q
+
+    def mask_dual(y, z):
+        """Dual base for re-centring — the part of the accumulated dual
+        the correction's linear term absorbs (g_c includes Aᵀy_base, and
+        the round solves for the O(residual) remainder):
+          box:  y within act_tol of a bound, else exactly 0;
+          L1:   0 (∂(λ|z|) is bounded, so the round's dual replaces);
+          SOC:  the projection of y onto the normal cone at the current
+                primal — 0 in the interior, the component along the
+                normal ray on the boundary, the polar part at the tip.
+        """
+        scale = 1.0 + z.abs()
+        near_l = torch.isfinite(qp64.l) & (z - qp64.l <= act_tol * scale)
+        near_u = torch.isfinite(qp64.u) & (qp64.u - z <= act_tol * scale)
+        parts = [torch.where((near_l | near_u)[..., :mb], y[..., :mb], 0.0)]
+        if ml:
+            parts.append(torch.zeros_like(y[..., mb:mb + ml]))
+        if cone.m_soc:
+            d = cone.soc_dims[0]
+            shp = z[..., mb + ml:].shape[:-1] + (cone.n_soc, d)
+            zb = z[..., mb + ml:].reshape(shp)
+            yb = y[..., mb + ml:].reshape(shp)
+            t, u = zb[..., 0], zb[..., 1:]
+            yt, yu = yb[..., 0], yb[..., 1:]
+            nu = torch.linalg.vector_norm(u, dim=-1)
+            sc = act_tol * (1.0 + t.abs() + nu)
+            interior = nu <= t - sc
+            tip = (nu <= sc) & (t <= sc)
+            # Boundary outward normal ray n = (−1, u/‖u‖)/√2:
+            # base = <y, n>₊ n.
+            safe = torch.clamp(nu, min=torch.finfo(z.dtype).tiny)
+            cross = (yu * u).sum(-1) / safe - yt
+            s_ray = 0.5 * torch.clamp(cross, min=0.0)
+            ray_t = -s_ray
+            ray_u = s_ray[..., None] * (u / safe[..., None])
+            # Tip: polar-cone part via Moreau (y − Π_SOC(y)).
+            pt, pu = project_soc_block(yt, yu)
+            tip_t, tip_u = yt - pt, yu - pu
+            bt = torch.where(interior, 0.0, torch.where(tip, tip_t, ray_t))
+            bu = torch.where(interior[..., None], 0.0,
+                             torch.where(tip[..., None], tip_u, ray_u))
+            base = torch.cat([bt[..., None], bu], dim=-1)
+            parts.append(base.reshape(z[..., mb + ml:].shape))
+        return torch.cat(parts, dim=-1)
+
+    linf = admm.linf
+
+    def true_residuals(x, y, z):
+        """(r_p, r_d, eps_p, eps_d) per lane on the original f64 data,
+        with the solver loop's eps_d reference (incl. the L1 term)."""
+        Ax = x @ A64.mT
+        Px = x @ P64.mT
+        Aty = y @ A64
+        eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(
+            linf(Ax), linf(z))
+        eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+            torch.maximum(linf(Px), linf(Aty)),
+            torch.maximum(linf(q64), admm.l1_grad_scale_raw(qp64)))
+        return linf(Ax - z), linf(Px + q64 + Aty), eps_p, eps_d
+
+    def true_ratio(x, y, z):
+        r_p, r_d, eps_p, eps_d = true_residuals(x, y, z)
+        return torch.maximum(r_p / eps_p, r_d / eps_d)
+
+    def round_fn(x_t, y_t, z_t64, iters, rho, frozen):
+        y_base = mask_dual(y_t, z_t64) if mixed else None
+        Ax = x_t @ A64.mT
+        Px = x_t @ P64.mT
+        if mixed:
+            g = Px + q64 + y_base @ A64
+            # Box rows shift through the bounds; L1/SOC rows keep the
+            # original bounds/lam and use the shifted prox (offset=Ax).
+            l_c = torch.cat([qp64.l[..., :mb] - Ax[..., :mb],
+                             qp64.l[..., mb:]], dim=-1)
+            u_c = torch.cat([qp64.u[..., :mb] - Ax[..., :mb],
+                             qp64.u[..., mb:]], dim=-1)
+            z_off = torch.cat([torch.zeros_like(Ax[..., :mb]),
+                               Ax[..., mb:]], dim=-1)
+            y_warm = (y_t - y_base).to(f32)
+        else:
+            # Box-only: the correction is the original problem in shifted
+            # coordinates, so its dual is a complete dual and replaces.
+            g = Px + q64
+            l_c = qp64.l - Ax
+            u_c = qp64.u - Ax
+            z_off = None
+            y_warm = y_t.to(f32)
+        qp_c = QPData(P=qp.P.to(f32), q=g.to(f32), A=qp.A.to(f32),
+                      l=l_c.to(f32), u=u_c.to(f32), lam=qp.lam.to(f32),
+                      cone=cone)
+        zc0 = (z_t64 - Ax).to(f32)
+        solc = _ref_phase(qp_c, torch.zeros((B, qp.n), dtype=f32,
+                                            device=x_t.device),
+                          zc0, y_warm, s_c, backend, scaling=scaling1,
+                          rho0=rho.to(f32), z_off=z_off, mesh=mesh)
+        x_n = x_t + clean64(solc.x)
+        y_n = (y_base + clean64(solc.y)) if mixed else clean64(solc.y)
+        z_n = Ax + clean64(solc.z)
+        # Round safeguard: accept a lane's round only when it improves
+        # the true scaled residual ratio on the original f64 data;
+        # rejected lanes keep their iterate and freeze.
+        ok = ~frozen & (true_ratio(x_n, y_n, z_n)
+                        < true_ratio(x_t, y_t, z_t64))
+        rstat = torch.where(ok, solc.status, _STALLED)
+        return (_pick(ok, x_n, x_t), _pick(ok, y_n, y_t),
+                _pick(ok, z_n, z_t64), iters + solc.iters,
+                solc.rho.to(rho.dtype), frozen | ~ok), rstat
+
+    carry = (x_t, y_t, z_t64, iters, rho,
+             torch.zeros(B, dtype=torch.bool, device=x_t.device))
+    for r in range(max(settings.recenter_rounds, 0)):
+        # Later rounds are skipped once every lane met the round
+        # criterion or froze: a round costs a factorisation and
+        # check_every iterations even when it converges at once.
+        if r > 0 and _ref_all_lanes((round_status == _SOLVED) | carry[5],
+                                    mesh):
+            break
+        carry, round_status = round_fn(*carry)
+    x_t, y_t, z_t, iters, rho, _frozen = carry
+
+    # True residuals/status in f64 on the original data.
+    r_p, r_d, eps_p, eps_d = true_residuals(x_t, y_t, z_t)
+    solved = (r_p <= eps_p) & (r_d <= eps_d)
+    status = torch.where(p1_inf, sol.status,
+                         torch.where(solved, _SOLVED,
+                                     int(Status.MAX_ITER)).to(torch.int32))
+    d = qp.dtype
+
+    if _ref_all_lanes(solved | p1_inf, mesh):
+        return Solution(
+            x=x_t.to(d), z=z_t.to(d), y=y_t.to(d), status=status,
+            iters=iters, r_prim=r_p.to(d), r_dual=r_d.to(d),
+            obj=objective(qp64, x_t, z_t).to(d), rho=rho.to(d),
+            history=sol.history.to(d))
+
+    # f64 fallback for targets below the f32 dual floor: a warm-started,
+    # capped last-digit refiner (native f64 on the device) that exits on
+    # a plateau whatever the caller's stall_checks.
+    s64 = settings.replace(precision="single", warm_start=True,
+                           recenter_rounds=0,
+                           stall_checks=max(settings.stall_checks, 16),
+                           max_iter=min(settings.max_iter, _F64_MAX_ITER))
+    sol64 = _ref_phase(qp64, x_t, z_t, y_t, s64, backend, mesh=mesh)
+    return Solution(
+        x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
+        status=torch.where(p1_inf, sol.status, sol64.status),
+        iters=iters + sol64.iters,
+        r_prim=sol64.r_prim.to(d), r_dual=sol64.r_dual.to(d),
+        obj=sol64.obj.to(d), rho=sol64.rho.to(d),
+        history=sol64.history.to(d))
+
+
+def _ref_solve_shared_core(qp, x0, z0, y0, settings: Settings,
+                           backend: str, mesh=None) -> Solution:
+    precision = settings.precision
+    if precision == "single":
+        return _ref_phase(qp, x0, z0, y0, settings, backend, mesh=mesh)
+    f64 = torch.float64
+    if precision == "double":
+        return _ref_phase(qp.astype(f64), x0.to(f64), z0.to(f64),
+                          y0.to(f64), settings, backend, mesh=mesh)
+    if settings.recenter_rounds > 0:
+        return _ref_solve_shared_recentered(qp, x0, z0, y0, settings,
+                                            backend, mesh)
+    # recenter_rounds=0: the classic f32 -> f64 two-phase.
+    f32 = torch.float32
+    sol32 = _ref_phase(qp.astype(f32), x0.to(f32), z0.to(f32), y0.to(f32),
+                       _ref_s32_of_shared(settings), backend, mesh=mesh)
+    sol64 = _ref_phase(qp.astype(f64), clean64(sol32.x), clean64(sol32.z),
+                       clean64(sol32.y),
+                       settings.replace(precision="single", warm_start=True),
+                       backend, mesh=mesh)
+    p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)
+    d = qp.dtype
+    return Solution(
+        x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
+        status=torch.where(p1_inf, sol32.status, sol64.status),
+        iters=sol32.iters + sol64.iters,
+        r_prim=sol64.r_prim.to(d), r_dual=sol64.r_dual.to(d),
+        obj=sol64.obj.to(d), rho=sol64.rho.to(d), history=sol64.history)
+
+
+def _ref_solve_batch_shared(qp: QPData, settings: Settings = Settings(),
+                            x0=None, z0=None, y0=None,
+                            mesh: Mesh | None = None) -> Solution:
+    if qp.l.dim() < 2:
+        raise ValueError("solve_batch_shared expects batched l/u (B, m)")
+    dtype, dev = qp.dtype, qp.device
+    B = qp.l.shape[0]
+    if x0 is None:
+        x0 = torch.zeros((B, qp.n), dtype=dtype, device=dev)
+    if z0 is None:
+        z0 = torch.zeros((B, qp.m), dtype=dtype, device=dev)
+    if y0 is None:
+        y0 = torch.zeros_like(z0)
+    backend = resolve_backend(settings, dev, qp.n)
+    return _ref_solve_shared_core(qp, x0, z0, y0, settings, backend, mesh)
 
 
 def _ref_record(hist, ptr, it, r_p, r_d):
