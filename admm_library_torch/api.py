@@ -16,21 +16,30 @@ pipelines:
 
 `solve_batch` runs `_solve_core` (single, double, or the two-phase
 hybrid; no polish, no re-centred rounds) over a leading lane axis in one
-lockstep loop (core.admm.run_admm_lanes).
+lockstep loop (core.admm.run_phase).
 
 Every stage runs on the problem's device; the f64 stages use the
-device's native f64.
+device's native f64. The programs that the JAX package compiles run as
+segments of `core.graph.CheckLoop`s, on the card one CUDA graph replay
+each: a phase (`_solve_one_phase`: cast, Ruiz scaling, factor, checks,
+refactors, unscale; the second phase of `_solve_core` also takes the
+first's iterates and joins the two), the staged path's rounds
+(`rounds_step`), `polish` and the warm-start check. The host reads the
+device only where the JAX package does (`# host sync` there): a flag a
+check, and the branches of `_recentered_rounds`, `_f64_continuation`,
+`_solve_staged` and `solve`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 
-from .core import admm
-from .core.polish import polish
-from .core.scaling import ruiz_equilibrate
+from .core import admm, graph
+from .core.admm import QP_FIELDS, qp_leaves
+from .core.polish import POLISH, polish_step
 from .ops.prox import project_cone
 from .precision import clean64
 from .problem import QPData, objective
@@ -68,33 +77,25 @@ def _int32(v, device):
 
 
 def _solve_one_phase(qp: QPData, x0, z0, y0, settings: Settings,
-                     backend: str, z_off=None, rho0=None) -> Solution:
-    """Ruiz-scale, run `run_admm` in qp's dtype, unscale.
+                     backend: str, z_off=None, rho0=None, *, dtype=None,
+                     p1=None) -> Solution:
+    """One phase from raw data (core.admm.run_phase), the counterpart of
+    the JAX package's `_phase_jit`, `_phase_off_jit` and
+    `_phase_rho_jit`: cast to `dtype` (default qp's), Ruiz-scaled,
+    solved, unscaled, each a segment of one loop.
 
     z_off: unscaled shifted-prox offset for the L1/SOC rows (it keeps
-    its own dtype); rho0: warm rho-bar as a Python float.
+    its own dtype); rho0: warm rho-bar (a float or a tensor); p1 (a
+    Solution): the first phase where this is a hybrid solve's second,
+    which cleans the first phase's iterates and returns the joined
+    result in qp's dtype.
     """
-    qps, scaling = ruiz_equilibrate(qp, settings.scaling_iters)
-    if settings.warm_start:
-        xs = scaling.scale_x(x0)
-        zs = scaling.scale_z(z0)
-        ys = scaling.scale_y(y0)
-    else:
-        xs, zs, ys = x0, z0, y0
-    if z_off is not None:
-        z_off = scaling.scale_z(z_off)      # offsets live in z-space
-    lanes = qp.P.dim() == 3
-    run = admm.run_admm_lanes if lanes else admm.run_admm
-    carry = run(qps, scaling, settings, xs, zs, ys, backend, z_off=z_off,
-                rho0=rho0)
-    x = scaling.unscale_x(carry.x)
-    z = scaling.unscale_z(carry.z)
-    y = scaling.unscale_y(carry.y)
-    return Solution(
-        x=x, z=z, y=y, status=carry.status,
-        iters=carry.it if lanes else _int32(carry.it, qp.device),
-        r_prim=carry.r_prim, r_dual=carry.r_dual, obj=objective(qp, x, z),
-        rho=carry.rho_bar, history=carry.hist)
+    loop, _ = admm.run_phase(
+        qp, x0, z0, y0, settings, backend, dtype=dtype, rho0=rho0,
+        z_off=z_off,
+        p1=None if p1 is None else dict(status=p1.status, iters=p1.iters))
+    out, = loop.result("out")
+    return Solution(**out)
 
 
 def _s32_of(settings: Settings) -> Settings:
@@ -116,19 +117,15 @@ def _cast(sol: Solution, dtype: torch.dtype, **kw) -> Solution:
     fields in `kw` replaced first."""
     sol = dataclasses.replace(sol, **kw)
     return dataclasses.replace(
-        sol, **{f: getattr(sol, f).to(dtype)
-                for f in ("x", "z", "y", "r_prim", "r_dual", "obj", "rho",
-                          "history")})
+        sol, **{f: getattr(sol, f).to(dtype) for f in admm.FLOAT_LEAVES})
 
 
 def _finish(sol: Solution, sol32: Solution, out_dtype) -> Solution:
     """Combine phase results: cast out, add the iteration counts, keep
     a phase-1 infeasibility verdict."""
-    p1_inf = ((sol32.status == _INFEASIBLE[0])
-              | (sol32.status == _INFEASIBLE[1]))
-    return _cast(sol, out_dtype,
-                 status=torch.where(p1_inf, sol32.status, sol.status),
-                 iters=sol32.iters + sol.iters)
+    return Solution(**admm.join_phases(
+        sol.leaves(), dict(status=sol32.status, iters=sol32.iters),
+        out_dtype))
 
 
 def _solve_core(qp: QPData, x0, z0, y0, settings: Settings,
@@ -136,20 +133,80 @@ def _solve_core(qp: QPData, x0, z0, y0, settings: Settings,
     """One problem, or a lockstep batch of independent ones (every leaf
     with a leading lane axis), by precision strategy: 'single' in qp's
     dtype, 'double' in f64, 'hybrid' as an f32 phase to hybrid_eps and
-    a warm-started f64 phase to the target."""
+    a warm-started f64 phase to the target, the counterpart of the JAX
+    package's `_solve_jit`. The phases pass their iterates on the
+    device: no host read between them."""
     f32, f64 = torch.float32, torch.float64
     if settings.precision == "single":
         return _solve_one_phase(qp, x0, z0, y0, settings, backend)
     if settings.precision == "double":
-        return _solve_one_phase(qp.astype(f64), x0.to(f64), z0.to(f64),
-                                y0.to(f64), settings, backend)
-    sol32 = _solve_one_phase(qp.astype(f32), x0.to(f32), z0.to(f32),
-                             y0.to(f32), _s32_of(settings), backend)
-    sol64 = _solve_one_phase(
-        qp.astype(f64), clean64(sol32.x), clean64(sol32.z),
-        clean64(sol32.y),
-        settings.replace(precision="single", warm_start=True), backend)
-    return _finish(sol64, sol32, qp.dtype)
+        return _solve_one_phase(qp, x0, z0, y0, settings, backend,
+                                dtype=f64)
+    sol32 = _solve_one_phase(qp, x0, z0, y0, _s32_of(settings), backend,
+                             dtype=f32)
+    return _solve_one_phase(
+        qp, sol32.x, sol32.z, sol32.y,
+        settings.replace(precision="single", warm_start=True), backend,
+        dtype=f64, p1=sol32)
+
+
+# The segments of `_recentered_rounds`' loop.
+SETUP, JOIN, FINAL = ("setup",), ("join",), ("final",)
+
+
+def rounds_step(state, variant, *, cone, settings: Settings):
+    """A segment of `_recentered_rounds` on its state: the f64 problem
+    'qp64', the accumulated point 'carry' (x, y, z in f64, iterations,
+    rho), the first phase's history 'hist0', a round's solution 'solc'.
+
+    SETUP: the true residuals at the carry ('res') and the round's
+    shifted f32 problem 'rnd' (its warm start and f64 offset), with
+    'Ax'; flags (solved, min(eps_p, eps_d)) in f64. JOIN: the round's
+    solution added to the carry, and the polish candidate 'cand'. FINAL:
+    the result 'out' at the carry, SOLVED where its true residuals meet
+    the criterion; flags (solved,)."""
+    f32, f64 = torch.float32, torch.float64
+    qp64 = QPData(**state["qp64"], cone=cone)
+    c = state["carry"]
+    if variant == JOIN:
+        solc, Ax = state["solc"], state["Ax"]
+        x = c["x"] + clean64(solc["x"])
+        y = clean64(solc["y"])
+        z = Ax + clean64(solc["z"])
+        iters = c["iters"] + solc["iters"]
+        rho = solc["rho"].to(f64)
+        return dict(
+            carry=dict(x=x, y=y, z=z, iters=iters, rho=rho),
+            cand=dict(x=x, z=z, y=y, status=torch.zeros_like(iters),
+                      iters=iters, r_prim=state["res"]["r_p"],
+                      r_dual=state["res"]["r_d"],
+                      obj=objective(qp64, x, z), rho=rho,
+                      history=state["hist0"]))
+    x_t, y_t, z_t = c["x"], c["y"], c["z"]
+    Ax, Px, r_p, r_d, eps_p, eps_d, ok = admm.unscaled_criterion(
+        qp64, x_t, z_t, y_t, settings.eps_abs, settings.eps_rel)
+    if variant == FINAL:
+        status = torch.where(ok, _SOLVED, int(Status.MAX_ITER)).to(
+            torch.int32)
+        return dict(flags=ok[None], out=dict(
+            x=x_t, z=z_t, y=y_t, status=status, iters=c["iters"],
+            r_prim=r_p, r_dual=r_d, obj=objective(qp64, x_t, z_t),
+            rho=c["rho"], history=state["hist0"]))
+    # g = Px + q only (no Aᵀy tilt): the correction problem is then
+    # exactly the original in shifted coordinates, so its dual is a
+    # complete dual of the original. Duals are warm-started and
+    # replaced, never summed: summed partial duals leave junk on
+    # inactive rows that tilts x off the optimum.
+    mb = cone.m_box
+    l_c = torch.cat([qp64.l[:mb] - Ax[:mb], qp64.l[mb:]])
+    u_c = torch.cat([qp64.u[:mb] - Ax[:mb], qp64.u[mb:]])
+    rnd = dict(P=qp64.P.to(f32), q=(Px + qp64.q).to(f32), A=qp64.A.to(f32),
+               l=l_c.to(f32), u=u_c.to(f32), lam=qp64.lam.to(f32),
+               x0=torch.zeros(qp64.n, dtype=f32, device=x_t.device),
+               z0=(z_t - Ax).to(f32), y0=y_t.to(f32),
+               z_off=torch.cat([torch.zeros_like(Ax[:mb]), Ax[mb:]]))
+    return dict(Ax=Ax, res=dict(r_p=r_p, r_d=r_d), rnd=rnd,
+                flags=torch.stack([ok.to(f64), torch.minimum(eps_p, eps_d)]))
 
 
 def _recentered_rounds(qp: QPData, qp64: QPData, sol0: Solution,
@@ -162,26 +219,30 @@ def _recentered_rounds(qp: QPData, qp64: QPData, sol0: Solution,
     lam and evaluate the shifted prox with an f64 offset = Ax. True
     residuals are evaluated in f64 on the original data; the rounds stop
     once those meet the criterion, or once `try_polish` (called after
-    every round) returns SOLVED.
+    every round) returns SOLVED. The work between the rounds is the
+    segments of a loop of its own (`rounds_step`); the host reads the
+    round's criterion and eps, each polish status and the final test, as
+    the JAX package does. `qp64` is `qp` in f64: the rounds' f32 data is
+    cast from it.
     """
-    f32 = torch.float32
-    dev = qp.device
-    mb = qp.cone.m_box
-    x_t, y_t, z_t = sol0.x, sol0.y, sol0.z
-    iters = _int32(0, dev)
-    rho = sol0.rho
+    cone = qp.cone
     # Correction problems are feasible by construction and mix shifted
     # and original rows, so infeasibility certificates mean nothing
     # there.
     s_c = _s32_of(settings).replace(
         eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
         eps_pinf=0.0, eps_dinf=0.0)
-
+    state = dict(qp64=qp_leaves(qp64), hist0=sol0.history, carry=dict(
+        x=sol0.x, y=sol0.y, z=sol0.z, rho=sol0.rho,
+        iters=torch.zeros((), dtype=torch.int32, device=qp.device)))
+    drv = graph.CheckLoop(
+        "recentered_rounds",
+        functools.partial(rounds_step, cone=cone, settings=settings), state,
+        settings, backend, cone=cone)
     solved = False
-    r_p, r_d = sol0.r_prim, sol0.r_dual
     for _ in range(settings.recenter_rounds):
-        Ax, Px, r_p, r_d, eps_p, eps_d, ok = admm.unscaled_criterion(
-            qp64, x_t, z_t, y_t, settings.eps_abs, settings.eps_rel)
+        drv(SETUP)
+        ok, eps_round = drv.state["flags"].tolist()     # host sync
         solved = bool(ok)
         if solved:
             break
@@ -189,51 +250,31 @@ def _recentered_rounds(qp: QPData, qp64: QPData, sol0: Solution,
         # eps_rel term scales with the total norms: demanding the raw
         # eps_abs at the correction's scale costs ~100x the iterations.
         # Quantised to a power of two, as in the reference.
-        eps_round = float(torch.minimum(eps_p, eps_d))
         eps_q = 2.0 ** math.floor(math.log2(max(eps_round,
                                                 settings.eps_abs)))
         s_round = s_c.replace(eps_abs=eps_q, eps_rel=0.0)
         if settings.recenter_max_iter > 0:
             s_round = s_round.replace(max_iter=min(
                 settings.max_iter, settings.recenter_max_iter))
-        # g = Px + q only (no Aᵀy tilt): the correction problem is then
-        # exactly the original in shifted coordinates, so its dual is a
-        # complete dual of the original. Duals are warm-started and
-        # replaced, never summed: summed partial duals leave junk on
-        # inactive rows that tilts x off the optimum.
-        l_c = torch.cat([qp64.l[:mb] - Ax[:mb], qp64.l[mb:]])
-        u_c = torch.cat([qp64.u[:mb] - Ax[:mb], qp64.u[mb:]])
-        off = torch.cat([torch.zeros_like(Ax[:mb]), Ax[mb:]])
-        qp_c = QPData(P=qp.P.to(f32), q=(Px + qp64.q).to(f32),
-                      A=qp.A.to(f32), l=l_c.to(f32), u=u_c.to(f32),
-                      lam=qp.lam.to(f32), cone=qp.cone)
-        sol_c = _solve_one_phase(qp_c, torch.zeros_like(qp_c.q),
-                                 (z_t - Ax).to(f32), y_t.to(f32), s_round,
-                                 backend, z_off=off)
-        x_t = x_t + clean64(sol_c.x)
-        y_t = clean64(sol_c.y)
-        z_t = Ax + clean64(sol_c.z)
-        iters = iters + sol_c.iters
-        rho = sol_c.rho.to(torch.float64)
+        rnd = drv.state["rnd"]
+        sol_c = _solve_one_phase(
+            QPData(**{f: rnd[f] for f in QP_FIELDS}, cone=cone), rnd["x0"],
+            rnd["z0"], rnd["y0"], s_round, backend, z_off=rnd["z_off"])
+        drv.set(dict(solc=dict(x=sol_c.x, y=sol_c.y, z=sol_c.z,
+                               iters=sol_c.iters, rho=sol_c.rho)))
+        drv(JOIN)
         # Polish from the partly converged round: on min-fuel LPs the
         # active set locks in long before the first-order tail ends.
         if try_polish is not None:
-            cand = Solution(
-                x=x_t, z=z_t, y=y_t, status=_int32(0, dev), iters=iters,
-                r_prim=r_p, r_dual=r_d, obj=objective(qp64, x_t, z_t),
-                rho=rho, history=sol0.history)
-            pol = try_polish(cand)
-            if int(pol.status) == _SOLVED:
-                return dataclasses.replace(pol, iters=iters), True
+            cand, = drv.result("cand")
+            pol = try_polish(Solution(**cand))
+            if int(pol.status) == _SOLVED:              # host sync
+                return dataclasses.replace(pol, iters=cand["iters"]), True
+    drv(FINAL)
     if not solved:
-        _, _, r_p, r_d, _, _, ok = admm.unscaled_criterion(
-            qp64, x_t, z_t, y_t, settings.eps_abs, settings.eps_rel)
-        solved = bool(ok)
-    status = _int32(int(Status.SOLVED if solved else Status.MAX_ITER), dev)
-    return Solution(
-        x=x_t, z=z_t, y=y_t, status=status, iters=iters, r_prim=r_p,
-        r_dual=r_d, obj=objective(qp64, x_t, z_t), rho=rho,
-        history=sol0.history), solved
+        solved = bool(drv.state["flags"].tolist()[0])   # host sync
+    out, = drv.result("out")
+    return Solution(**out), solved
 
 
 def _f64_continuation(qp: QPData, sol: Solution, settings: Settings,
@@ -250,11 +291,14 @@ def _f64_continuation(qp: QPData, sol: Solution, settings: Settings,
     `chunk` iterations, for at most one more max_iter budget.
 
     The stall exit is off inside a chunk (chatter would freeze a
-    transient). rho carries across chunks as a Python float (run_admm's
-    rho0). With Settings.polish, a polish attempt (act_tol 1e-4) follows
-    every chunk, and the first SOLVED candidate ends the run. Otherwise
-    the run ends when a chunk ends other than MAX_ITER or the budget is
+    transient). rho carries across chunks on the device (the phase's
+    'rho0' state entry: every chunk replays one loop). With
+    Settings.polish, a polish attempt (act_tol 1e-4) follows every
+    chunk, and the first SOLVED candidate ends the run. Otherwise the
+    run ends when a chunk ends other than MAX_ITER or the budget is
     spent, and returns the best chunk-end point by max(r_prim, r_dual).
+    The host reads each chunk's count, polish status, score and status,
+    as the JAX package does.
 
     Unlike the reference, the run does not stop after two chunks without
     a new best: chunk-end residuals chatter by an order of magnitude on
@@ -265,10 +309,9 @@ def _f64_continuation(qp: QPData, sol: Solution, settings: Settings,
     dtype, dev = qp.dtype, qp.device
     qp64 = qp.astype(torch.float64)
     x, z, y = clean64(sol.x), clean64(sol.z), clean64(sol.y)
-    rho = float(sol.rho.max())
-    if not (rho > 0.0 and math.isfinite(rho)):
-        rho = settings.rho
-    iters = int(sol.iters)
+    rho = sol.rho.max().to(torch.float64)
+    rho = torch.where((rho > 0.0) & torch.isfinite(rho), rho, settings.rho)
+    iters = int(sol.iters)                                  # host sync
     used = 0
     out = sol
     s_chunk = settings.replace(
@@ -277,16 +320,16 @@ def _f64_continuation(qp: QPData, sol: Solution, settings: Settings,
     best = float("inf")
     while used < settings.max_iter:
         ph = _solve_one_phase(qp64, x, z, y, s_chunk, backend, rho0=rho)
-        done_it = int(ph.iters)
+        done_it = int(ph.iters)                             # host sync
         used += done_it
         iters += done_it
         if settings.polish:
             pol = polish(qp64, ph, settings.eps_abs, settings.eps_rel,
-                         act_tol=1e-4)
-            if int(pol.status) == _SOLVED:
+                         act_tol=1e-4, backend=backend)
+            if int(pol.status) == _SOLVED:                  # host sync
                 return _cast(pol, dtype, iters=_int32(iters, dev),
                              rho=ph.rho, history=ph.history)
-        score = float(torch.maximum(ph.r_prim, ph.r_dual))
+        score = float(torch.maximum(ph.r_prim, ph.r_dual))  # host sync
         if score < best or int(ph.status) == _SOLVED:
             best = score
             out = dataclasses.replace(ph, iters=_int32(iters, dev))
@@ -295,7 +338,7 @@ def _f64_continuation(qp: QPData, sol: Solution, settings: Settings,
         if int(ph.status) != int(Status.MAX_ITER) or done_it == 0:
             break
         x, z, y = ph.x, ph.z, ph.y
-        rho = float(ph.rho.max())
+        rho = ph.rho.max()
     # Every floating leaf in qp's dtype, history included (the reference
     # leaves history in f64).
     return _cast(out, dtype)
@@ -319,14 +362,50 @@ def _warm_check(qp64: QPData, x0, z0, y0, eps_abs: float, eps_rel: float):
     return r_p, r_d, ok & (gap <= eps_p), objective(qp64, x0, z0)
 
 
+# The one segment of the warm-start check's loop.
+WARM_CHECK = ("warm_check",)
+
+
+def warm_check_step(state, variant, *, cone, eps_abs: float,
+                    eps_rel: float, dtype):
+    """`_warm_check` of the warm start 'x0', 'z0', 'y0' on the problem
+    'raw', both in f64, as a loop's segment (the counterpart of the JAX
+    package's `_warm_check_jit`): flags (solved,) and 'out' the
+    residuals and objective in `dtype`."""
+    f64 = torch.float64
+    r_p, r_d, ok, obj = _warm_check(
+        QPData(**state["raw"], cone=cone).astype(f64),
+        *(state[k].to(f64) for k in ("x0", "z0", "y0")), eps_abs, eps_rel)
+    return dict(flags=ok[None], out=dict(
+        r_prim=r_p.to(dtype), r_dual=r_d.to(dtype), obj=obj.to(dtype)))
+
+
+def polish(qp64: QPData, sol: Solution, eps_abs: float, eps_rel: float,
+           act_tol: float = 1e-4, backend: str = "chol") -> Solution:
+    """core.polish.polish of `sol` on the f64 problem `qp64` as the one
+    segment of a loop (kind 'polish', keyed on eps_abs, eps_rel, act_tol
+    and the shapes), the counterpart of the JAX package's `_polish_jit`:
+    one CUDA graph replay on the card where `graph.capturable` allows
+    `backend`, the solve's KKT backend."""
+    loop = graph.CheckLoop(
+        "polish", functools.partial(polish_step, cone=qp64.cone,
+                                    eps_abs=eps_abs, eps_rel=eps_rel,
+                                    act_tol=act_tol),
+        dict(qp64=qp_leaves(qp64), sol=sol.leaves()), None, backend,
+        cone=qp64.cone, eps_abs=eps_abs, eps_rel=eps_rel, act_tol=act_tol)
+    loop(POLISH)
+    out, = loop.result("out")
+    return Solution(**out)
+
+
 def _solve_staged(qp: QPData, x0, z0, y0, settings: Settings,
                   backend: str) -> Solution:
     """The staged hybrid path: f32 phase → polish at 10·hybrid_eps →
     re-centred f32 rounds (polish after each) → f64 phase → polish."""
     f32, f64 = torch.float32, torch.float64
     dtype = qp.dtype
-    sol32 = _solve_one_phase(qp.astype(f32), x0.to(f32), z0.to(f32),
-                             y0.to(f32), _s32_of(settings), backend)
+    sol32 = _solve_one_phase(qp, x0, z0, y0, _s32_of(settings), backend,
+                             dtype=f32)
     qp64 = qp.astype(f64)
     sol32_64 = Solution(
         x=clean64(sol32.x), z=clean64(sol32.z), y=clean64(sol32.y),
@@ -337,11 +416,11 @@ def _solve_staged(qp: QPData, x0, z0, y0, settings: Settings,
 
     def do_polish(sol_p, act_tol):
         return polish(qp64, sol_p, settings.eps_abs, settings.eps_rel,
-                      act_tol=act_tol)
+                      act_tol=act_tol, backend=backend)
 
     if settings.polish:
         pol = do_polish(sol32_64, 10.0 * settings.hybrid_eps)
-        if int(pol.status) == _SOLVED:
+        if int(pol.status) == _SOLVED:                      # host sync
             return _finish(pol, sol32, dtype)
 
     if settings.recenter_rounds > 0:
@@ -352,7 +431,7 @@ def _solve_staged(qp: QPData, x0, z0, y0, settings: Settings,
         if solved_r:
             if settings.polish:
                 pol = do_polish(sol_r, 1e-4)
-                if int(pol.status) == _SOLVED:
+                if int(pol.status) == _SOLVED:              # host sync
                     return _finish(
                         dataclasses.replace(pol, iters=sol_r.iters), sol32,
                         dtype)
@@ -399,16 +478,20 @@ def solve(qp: QPData, settings: Settings = Settings(),
     backend = resolve_backend(settings, dev, qp.n)
 
     if warm_given and settings.warm_start:
-        f64 = torch.float64
-        r_p, r_d, ok, obj = _warm_check(
-            qp.astype(f64), x0.to(f64), z0.to(f64), y0.to(f64),
-            settings.eps_abs, settings.eps_rel)
-        if bool(ok):
+        chk = graph.CheckLoop(
+            "warm_check", functools.partial(
+                warm_check_step, cone=cone, eps_abs=settings.eps_abs,
+                eps_rel=settings.eps_rel, dtype=dtype),
+            dict(raw=qp_leaves(qp), x0=x0, z0=z0, y0=y0), None, backend,
+            cone=cone, eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
+            dtype=dtype)
+        chk(WARM_CHECK)
+        if chk.state["flags"].tolist()[0]:                  # host sync
+            out, = chk.result("out")
             return Solution(
                 x=x0, z=z0, y=y0, status=_int32(_SOLVED, dev),
-                iters=_int32(0, dev),
-                r_prim=r_p.to(dtype), r_dual=r_d.to(dtype),
-                obj=obj.to(dtype),
+                iters=_int32(0, dev), r_prim=out["r_prim"],
+                r_dual=out["r_dual"], obj=out["obj"],
                 rho=torch.tensor(settings.rho, dtype=dtype, device=dev),
                 history=torch.zeros((0, 3), dtype=dtype, device=dev))
 
@@ -435,7 +518,7 @@ def solve(qp: QPData, settings: Settings = Settings(),
     # Box-only problems return without reading the status; only SOC
     # problems, whose f32 machinery can fail wholesale, continue in f64.
     if not cone.m_soc or int(sol.status) in (_SOLVED, *_INFEASIBLE):
-        return sol
+        return sol                                          # host sync
     return _f64_continuation(qp, sol, settings, backend)
 
 

@@ -15,9 +15,11 @@ with g the product-cone indicator/penalty (ops/prox). One iteration
 
 Iterates are lane-batched rows: x (B, n), z and y (B, m), against one
 shared (P, A) or, for a batch of independent problems, against one
-(P, A) per lane (problem.mv / vm take both). Everything here works on
-the Ruiz-scaled problem; residuals and termination use unscaled
-quantities through the Scaling vectors.
+(P, A) per lane (problem.mv / vm take both). The iterations and checks
+work on the Ruiz-scaled problem; residuals and termination use unscaled
+quantities through the Scaling vectors. `run_phase` runs a whole phase
+from the raw data (cast, Ruiz scaling, factor, checks, refactors,
+unscale) as the segments of one loop (core/graph.py).
 """
 from __future__ import annotations
 
@@ -28,11 +30,12 @@ import torch
 
 from ..ops import kkt
 from ..ops.prox import project_cone
-from ..problem import QPData, is_equality_row, mv, vm
+from ..precision import clean64
+from ..problem import QPData, is_equality_row, mv, objective, vm
 from ..settings import Settings
 from ..solution import Status
 from . import graph
-from .scaling import Scaling
+from .scaling import Scaling, ruiz_equilibrate
 
 _UNSOLVED = int(Status.UNSOLVED)
 
@@ -430,73 +433,6 @@ def admm_check(state, variant, *, cone, settings: Settings, backend: str,
     return out
 
 
-def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
-             x0, z0, y0, backend: str, z_off=None, rho0=None) -> AdmmCarry:
-    """Solve one scaled problem: a host loop over residual checks
-    (`admm_check`), each of which reads one small tensor from the device
-    (liveness and the refactor flag). On the card each check is a CUDA
-    graph replay where `graph.capturable` allows (core/graph.py).
-
-    Every check runs check_every iterations, then the restarted
-    averaging, the termination and infeasibility tests, the NaN
-    tripwire, the stall exit and, on its cadence, the adaptive rho
-    (a refactorisation, or for the matrix-free 'cg' backend only a new
-    rho in the operator). A run that ends UNSOLVED reports MAX_ITER.
-    z_off: optional scaled shifted-prox offset for L1/SOC rows.
-    rho0: optional initial rho-bar (warm rho).
-    """
-    dtype, dev = qp.dtype, qp.device
-    cone = qp.cone
-    eq_mask = is_equality_row(qp)
-    rho_bar = torch.as_tensor(settings.rho if rho0 is None else rho0,
-                              dtype=dtype, device=dev)
-
-    def factor(rho_bar):
-        rv = rho_vec_of(rho_bar, eq_mask, settings, cone)
-        return kkt.factor_condensed(qp.P, qp.A, settings.sigma, rv, backend,
-                                    settings.band_block,
-                                    settings.spike_parts)
-
-    slots = max(settings.history, 0)
-    big = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    state = problem_state(qp, scaling, factor(rho_bar), eq_mask, z_off)
-    state.update(carry_state(
-        x0, z0, y0, rho_bar,
-        torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev), big,
-        torch.zeros((), dtype=torch.int32, device=dev),
-        torch.full((slots, 3), -1.0, dtype=dtype, device=dev)))
-    restart_checks = restart_cadence_checks(settings)
-    step = functools.partial(admm_check, cone=cone, settings=settings,
-                             backend=backend, restart_checks=restart_checks)
-    loop = graph.CheckLoop("run_admm", step, state, settings, backend,
-                           cone=cone, restart_checks=restart_checks)
-
-    k = settings.check_every
-    it = 0
-    alive = True
-    while alive and it < settings.max_iter:
-        loop(check_variant(it // k, settings, restart_checks))
-        it += k
-        # The one device-to-host read of this check.
-        alive, do = loop.state["flags"].tolist()
-        if do:
-            rho_bar = loop.state["new_rho"]
-            if backend == "cg":
-                # Matrix-free: rho enters the operator, no refactorisation.
-                fac = dict(loop.state["fac"],
-                           rho=rho_vec_of(rho_bar, eq_mask, settings, cone))
-            else:
-                fac = factor(rho_bar)
-            loop.set(dict(rho_bar=rho_bar, fac=fac))
-
-    x, z, y, rho_bar, fac, status, r_prim, r_dual, hist = loop.result(
-        "x", "z", "y", "rho_bar", "fac", "status", "r_prim", "r_dual",
-        "hist")
-    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER), status)
-    return AdmmCarry(x=x, z=z, y=y, rho_bar=rho_bar, fac=fac, it=it,
-                     status=status, r_prim=r_prim, r_dual=r_dual, hist=hist)
-
-
 def _select(mask, new, old):
     """Per-lane select between two tensors that lead with the lane axis."""
     return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)),
@@ -584,57 +520,225 @@ def lanes_check(state, variant, *, cone, settings: Settings, backend: str,
     return out
 
 
-def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
-                   x0, z0, y0, backend: str, z_off=None,
-                   rho0=None) -> AdmmCarry:
-    """`run_admm` over B independent scaled problems in lockstep: every
-    leaf of `qp` leads with the lane axis (P (B, n, n), A (B, m, n)),
-    and so do the iterates.
+# The named segments of a phase loop besides its checks.
+PROLOGUE, REFACTOR, EPILOGUE = ("prologue",), ("refactor",), ("epilogue",)
+# Settings the prologue reads besides graph.CHECK_FIELDS: they enter the
+# loop's key.
+PROLOGUE_FIELDS = ("scaling_iters", "warm_start", "rho", "band_block",
+                   "spike_parts")
+QP_FIELDS = ("P", "q", "A", "l", "u", "lam")
+_PINF = int(Status.PRIMAL_INFEASIBLE)
+_DINF = int(Status.DUAL_INFEASIBLE)
+# The floating leaves of a Solution.
+FLOAT_LEAVES = ("x", "z", "y", "r_prim", "r_dual", "obj", "rho", "history")
 
-    Each lane has its own rho-bar, KKT factor, restart averaging, stall
-    counter, adaptive-rho decision, status and residual history. A lane
-    runs while its status is UNSOLVED and freezes once it leaves it: its
-    state stays as it was from then on, and its `it` counts only the
-    iterations it ran. The host loop runs while any lane is live and
-    reads one small tensor per check (`lanes_check`, a CUDA graph replay
-    on the card where `graph.capturable` allows). When any live lane
-    changes rho, every lane is refactored and each takes the new factor
-    only if its own rho changed (the matrix-free 'cg' factor just takes
-    the new rho vectors). Returns an AdmmCarry whose rho_bar, it,
-    status, r_prim and r_dual are (B,) and hist (B, slots, 3).
-    """
-    dtype, dev = qp.dtype, qp.device
-    cone = qp.cone
-    B = qp.P.shape[0]
-    eq_mask = is_equality_row(qp)
-    rho_bar = torch.as_tensor(settings.rho if rho0 is None else rho0,
-                              dtype=dtype, device=dev).expand(B).clone()
 
-    def rho_vec(rho_bar):
-        return rho_vec_of(rho_bar[:, None], eq_mask, settings, cone)
+def qp_leaves(qp: QPData) -> dict:
+    return {f: getattr(qp, f) for f in QP_FIELDS}
 
-    def factor(rho_bar):
-        return kkt.factor_condensed(qp.P, qp.A, settings.sigma,
-                                    rho_vec(rho_bar), backend,
-                                    settings.band_block,
-                                    settings.spike_parts)
 
+def _rho_vec(rho_bar, eq_mask, settings: Settings, cone, lanes: bool):
+    return rho_vec_of(rho_bar[:, None] if lanes else rho_bar, eq_mask,
+                      settings, cone)
+
+
+def factor(P, A, rho_bar, eq_mask, settings: Settings, backend: str, cone,
+           lanes: bool = False):
+    """The KKT factor of rho-bar (one value, or one a lane with
+    `lanes`)."""
+    return kkt.factor_condensed(
+        P, A, settings.sigma, _rho_vec(rho_bar, eq_mask, settings, cone,
+                                       lanes),
+        backend, settings.band_block, settings.spike_parts)
+
+
+def phase_prologue(state, *, cone, settings: Settings, backend: str, dtype,
+                   scale: str, lanes: bool):
+    """A phase's start from its raw entries (problem 'raw', warm start
+    'x0', 'z0', 'y0', and where given the scaling 'sc', the warm rho-bar
+    'rho0' and the unscaled shifted-prox offset 'z_off0'), cast to
+    `dtype` (the warm start of a second phase, which holds the first's
+    'p1', through precision.clean64): the scaled problem (`scale`
+    'ruiz': Ruiz equilibration; 'scaled': the data is already scaled by
+    'sc'), the scaled warm start and offset, the equality rows, rho, the
+    KKT factor and the starting carry."""
+    qp = QPData(**state["raw"], cone=cone).astype(dtype)
+    if "p1" in state:
+        x0, z0, y0 = (clean64(state[k]) for k in ("x0", "z0", "y0"))
+    else:
+        x0, z0, y0 = (state[k].to(dtype) for k in ("x0", "z0", "y0"))
+    z_off = state.get("z_off0")
+    if scale == "scaled":
+        qps, scaling = qp, Scaling(**state["sc"])
+        xs, zs, ys = x0, z0, y0
+    else:
+        qps, scaling = ruiz_equilibrate(qp, settings.scaling_iters)
+        if settings.warm_start:
+            xs = scaling.scale_x(x0)
+            zs = scaling.scale_z(z0)
+            ys = scaling.scale_y(y0)
+        else:
+            xs, zs, ys = x0, z0, y0
+        if z_off is not None:
+            z_off = scaling.scale_z(z_off)  # offsets live in z-space
+    dev = x0.device
+    eq_mask = is_equality_row(qps)
+    rho_bar = (state["rho0"] if "rho0" in state else
+               torch.full((), settings.rho, dtype=dtype, device=dev))
     slots = max(settings.history, 0)
-    state = problem_state(qp, scaling, factor(rho_bar), eq_mask, z_off)
-    state.update(carry_state(
-        x0, z0, y0, rho_bar,
-        torch.full((B,), _UNSOLVED, dtype=torch.int32, device=dev),
-        torch.full((B,), float("inf"), dtype=dtype, device=dev),
-        torch.zeros(B, dtype=torch.int32, device=dev),
-        torch.full((B, slots, 3), -1.0, dtype=dtype, device=dev)))
-    state.update(iters=torch.zeros(B, dtype=torch.int32, device=dev),
-                 do_t=torch.zeros(B, dtype=torch.bool, device=dev))
-    restart_checks = restart_cadence_checks(settings)
-    step = functools.partial(lanes_check, cone=cone, settings=settings,
-                             backend=backend, restart_checks=restart_checks)
-    loop = graph.CheckLoop("run_admm_lanes", step, state, settings, backend,
-                           cone=cone, restart_checks=restart_checks)
+    lead = (qps.P.shape[0],) if lanes else ()
+    if lanes:
+        rho_bar = rho_bar.expand(lead).clone()
+    out = problem_state(qps, scaling, factor(qps.P, qps.A, rho_bar, eq_mask,
+                                             settings, backend, cone, lanes),
+                        eq_mask, z_off)
+    out.update(carry_state(
+        xs, zs, ys, rho_bar,
+        torch.full(lead, _UNSOLVED, dtype=torch.int32, device=dev),
+        torch.full(lead, float("inf"), dtype=dtype, device=dev),
+        torch.zeros(lead, dtype=torch.int32, device=dev),
+        torch.full(lead + (slots, 3), -1.0, dtype=dtype, device=dev)))
+    if lanes:
+        out.update(iters=torch.zeros(lead, dtype=torch.int32, device=dev),
+                   do_t=torch.zeros(lead, dtype=torch.bool, device=dev))
+    return out
 
+
+def phase_refactor(state, *, cone, settings: Settings, backend: str,
+                   lanes: bool):
+    """The factor of the rho the last check proposed ('new_rho'); lanes
+    take it only where their own rho test fired ('do_t'). The matrix-free
+    'cg' factor takes the new rho vectors only."""
+    eq_mask, fac = state["eq_mask"], state["fac"]
+    if lanes:
+        do_t = state["do_t"]
+        rho_bar = torch.where(do_t, state["new_rho"], state["rho_bar"])
+    else:
+        rho_bar = state["new_rho"]
+    if backend == "cg":
+        fac = dict(fac, rho=_rho_vec(rho_bar, eq_mask, settings, cone,
+                                     lanes))
+    else:
+        d = state["qp"]
+        new_fac = factor(d["P"], d["A"], rho_bar, eq_mask, settings,
+                         backend, cone, lanes)
+        fac = ({key: _select(do_t, new_fac[key], fac[key]) for key in fac}
+               if lanes else new_fac)
+    return dict(rho_bar=rho_bar, fac=fac)
+
+
+def join_phases(out: dict, p1: dict, out_dtype) -> dict:
+    """Two phases' result: the second phase's leaves `out` cast to
+    `out_dtype`, a first-phase infeasibility verdict kept, the
+    iterations of both phases summed (`p1` holds the first phase's
+    'status' and 'iters')."""
+    p1_inf = (p1["status"] == _PINF) | (p1["status"] == _DINF)
+    out = {k: v.to(out_dtype) if k in FLOAT_LEAVES else v
+           for k, v in out.items()}
+    out.update(status=torch.where(p1_inf, p1["status"], out["status"]),
+               iters=p1["iters"] + out["iters"])
+    return out
+
+
+def phase_epilogue(state, *, cone, dtype, scale: str, lanes: bool):
+    """'out': the Solution's leaves, UNSOLVED reported as MAX_ITER;
+    unless the loop was given scaled data (`scale` 'scaled'), the
+    iterates unscaled and the objective on the raw data; where the loop
+    holds a first phase's 'p1', the two phases joined in the raw data's
+    dtype (`join_phases`)."""
+    status = state["status"]
+    out = dict(status=torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
+                                  status),
+               iters=(state["iters"] if lanes
+                      else state["it"].to(torch.int32)),
+               r_prim=state["r_prim"], r_dual=state["r_dual"],
+               rho=state["rho_bar"], history=state["hist"])
+    x, z, y = state["x"], state["z"], state["y"]
+    if scale != "scaled":
+        scaling = Scaling(**state["scaling"])
+        x = scaling.unscale_x(x)
+        z = scaling.unscale_z(z)
+        y = scaling.unscale_y(y)
+        out["obj"] = objective(QPData(**state["raw"], cone=cone).astype(dtype),
+                               x, z)
+    out.update(x=x, z=z, y=y)
+    if "p1" in state:
+        out = join_phases(out, state["p1"], state["raw"]["P"].dtype)
+    return dict(out=out)
+
+
+def phase_step(state, variant, *, cone, settings: Settings, backend: str,
+               restart_checks: int, dtype, scale: str, lanes: bool):
+    """A segment of a phase loop: PROLOGUE, REFACTOR, EPILOGUE, or the
+    check `variant` = (restart, rho_test) (`admm_check`, or
+    `lanes_check` for a batch of independent problems)."""
+    if variant == PROLOGUE:
+        return phase_prologue(state, cone=cone, settings=settings,
+                              backend=backend, dtype=dtype, scale=scale,
+                              lanes=lanes)
+    if variant == REFACTOR:
+        return phase_refactor(state, cone=cone, settings=settings,
+                              backend=backend, lanes=lanes)
+    if variant == EPILOGUE:
+        return phase_epilogue(state, cone=cone, dtype=dtype, scale=scale,
+                              lanes=lanes)
+    check = lanes_check if lanes else admm_check
+    return check(state, variant, cone=cone, settings=settings,
+                 backend=backend, restart_checks=restart_checks)
+
+
+def run_phase(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
+              dtype=None, scaling=None, rho0=None, z_off=None, p1=None):
+    """One ADMM phase from raw data, the counterpart of the JAX package's
+    compiled `_solve_one_phase`: PROLOGUE, a host loop over residual
+    checks with a REFACTOR wherever a check asks for one, EPILOGUE. Each
+    is a segment of one `graph.CheckLoop` (`phase_step`), on the card a
+    CUDA graph replay where `graph.capturable` allows; each check reads
+    one small tensor from the device (liveness and the refactor flag).
+
+    Every check runs check_every iterations, then the restarted
+    averaging, the termination and infeasibility tests, the NaN
+    tripwire, the stall exit and, on its cadence, the adaptive rho. A
+    run that ends UNSOLVED reports MAX_ITER. `qp` with a lane axis on
+    every leaf (P (B, n, n), A (B, m, n)) runs B independent problems in
+    lockstep (`lanes_check`): each lane with its own rho, factor,
+    restart averaging, stall counter, status and history; a lane that
+    leaves UNSOLVED freezes with its own iteration count, and the loop
+    runs while any lane is live.
+
+    dtype: the phase's dtype (default qp's); scaling: where given, qp is
+    already scaled by it (no Ruiz, the iterates stay scaled); rho0: warm
+    rho-bar (a float or a tensor: held in the state, so a loop keeps its
+    key whatever the value); z_off: shifted-prox offset for L1/SOC rows
+    (unscaled, or scaled with `scaling`); p1: the first phase's 'status'
+    and 'iters' where this is the second phase of a hybrid solve: its
+    warm start (the first phase's iterates) goes through clean64, and
+    the epilogue joins the two phases in qp's dtype. Returns (the loop,
+    the iterations it ran); the loop's state 'out' holds the Solution's
+    leaves.
+    """
+    lanes = qp.P.dim() == 3
+    dtype = qp.dtype if dtype is None else dtype
+    cone = qp.cone
+    state = dict(raw=qp_leaves(qp), x0=x0, z0=z0, y0=y0)
+    if scaling is not None:
+        state["sc"] = dict(d=scaling.d, e=scaling.e, c=scaling.c)
+    if rho0 is not None:
+        state["rho0"] = torch.as_tensor(rho0, dtype=dtype, device=qp.device)
+    if z_off is not None:
+        state["z_off0"] = z_off
+    if p1 is not None:
+        state["p1"] = dict(status=p1["status"], iters=p1["iters"])
+    restart_checks = restart_cadence_checks(settings)
+    static = dict(cone=cone, restart_checks=restart_checks, dtype=dtype,
+                  scale="ruiz" if scaling is None else "scaled")
+    step = functools.partial(phase_step, settings=settings, backend=backend,
+                             lanes=lanes, **static)
+    loop = graph.CheckLoop(
+        "run_admm_lanes" if lanes else "run_admm", step, state, settings,
+        backend, **static,
+        **{f: getattr(settings, f) for f in PROLOGUE_FIELDS})
+    loop(PROLOGUE)
     k = settings.check_every
     it = 0
     alive = True
@@ -644,22 +748,38 @@ def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
         # The one device-to-host read of this check.
         alive, do = loop.state["flags"].tolist()
         if do:
-            do_t = loop.state["do_t"]
-            rho_bar = torch.where(do_t, loop.state["new_rho"],
-                                  loop.state["rho_bar"])
-            fac = loop.state["fac"]
-            if backend == "cg":
-                # Matrix-free: rho enters the operator, no refactorisation.
-                fac = dict(fac, rho=rho_vec(rho_bar))
-            else:
-                new_fac = factor(rho_bar)
-                fac = {key: _select(do_t, new_fac[key], fac[key])
-                       for key in fac}
-            loop.set(dict(rho_bar=rho_bar, fac=fac))
+            loop(REFACTOR)
+    loop(EPILOGUE)
+    return loop, it
 
-    x, z, y, rho_bar, fac, iters, status, r_prim, r_dual, hist = loop.result(
-        "x", "z", "y", "rho_bar", "fac", "iters", "status", "r_prim",
-        "r_dual", "hist")
-    status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER), status)
-    return AdmmCarry(x=x, z=z, y=y, rho_bar=rho_bar, fac=fac, it=iters,
-                     status=status, r_prim=r_prim, r_dual=r_dual, hist=hist)
+
+def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
+             x0, z0, y0, backend: str, z_off=None, rho0=None) -> AdmmCarry:
+    """Solve one scaled problem (`run_phase` on data already scaled by
+    `scaling`, iterates left scaled). z_off: optional scaled
+    shifted-prox offset for L1/SOC rows; rho0: optional initial rho-bar
+    (warm rho)."""
+    loop, it = run_phase(qp, x0, z0, y0, settings, backend, scaling=scaling,
+                         rho0=rho0, z_off=z_off)
+    return _carry(loop, it)
+
+
+def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
+                   x0, z0, y0, backend: str, z_off=None,
+                   rho0=None) -> AdmmCarry:
+    """`run_admm` over B independent scaled problems in lockstep: every
+    leaf of `qp` leads with the lane axis (P (B, n, n), A (B, m, n)),
+    and so do the iterates (`run_phase`). Returns an AdmmCarry whose
+    rho_bar, it, status, r_prim and r_dual are (B,) and hist (B,
+    slots, 3)."""
+    loop, _ = run_phase(qp, x0, z0, y0, settings, backend, scaling=scaling,
+                        rho0=rho0, z_off=z_off)
+    return _carry(loop, None)
+
+
+def _carry(loop, it) -> AdmmCarry:
+    out, fac = loop.result("out", "fac")
+    return AdmmCarry(x=out["x"], z=out["z"], y=out["y"], rho_bar=out["rho"],
+                     fac=fac, it=out["iters"] if it is None else it,
+                     status=out["status"], r_prim=out["r_prim"],
+                     r_dual=out["r_dual"], hist=out["history"])

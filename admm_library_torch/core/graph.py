@@ -3,11 +3,12 @@
 
 The JAX package runs a whole phase as one XLA program, a
 `lax.while_loop` whose body runs `check_every` iterations and the
-residual check. Here the host loop of `core.admm.run_admm`,
-`run_admm_lanes`, `parallel.batch.run_admm_batch_shared` and of the
-partitioned drivers (`parallel.consensus.run_consensus`,
-`consensus_mc.run_consensus_mc`, `horizon._run_horizon`) stays, and on
-the card each of its checks is one CUDA graph replay. The host still
+residual check. Here the host loop of `core.admm.run_phase` (one
+problem or a lockstep batch of independent ones),
+`parallel.batch.run_admm_batch_shared` and of the partitioned drivers
+(`parallel.consensus.run_consensus`, `consensus_mc.run_consensus_mc`,
+`horizon._run_horizon`) stays, and on the card each of its checks is
+one CUDA graph replay. The host still
 reads one small flag tensor a check. `parallel.rowshard.
 solve_rowsharded` replays a few graphs an iteration instead: its CG
 stops on a flag the host reads every ops/kkt._CG_CHECK steps.
@@ -20,13 +21,16 @@ test (`(restart, rho_test)`), which selects one of up to four graphs. A
 variant may also name a segment that the host sequences, with host
 reads between segments: `parallel.rowshard`'s loop runs ("cg", steps)
 blocks of its CG, ("tail",) iteration ends and ("check", restart,
-rho_test) checks, one graph each; `parallel.batch`'s loop runs a
-("prologue",) (scaling, factor and starting carry from the raw data),
-its checks, ("refactor",) segments and an ("epilogue",) (the best
-iterate and the unscale), and the re-centred driver above it its own
-round segments. A segment may add entries to the state: its updates
-hold new keys, which get buffers of their own, allocated outside every
-graph's pool (a segment that adds entries is captured twice). A loop's
+rho_test) checks, one graph each; `parallel.batch`'s loop and
+`core.admm.run_phase` run a ("prologue",) (cast, scaling, factor and
+starting carry from the raw data), their checks, ("refactor",) segments
+and an ("epilogue",) (the unscale and the objective), and the drivers
+above them (the shared batch's re-centred rounds, `api`'s staged
+rounds) their own round segments; `api`'s polish and warm-start check
+are loops of one segment each. A segment may add entries to the
+state: its updates hold new keys, which get buffers of their own,
+allocated outside every graph's pool (a segment that adds entries is
+captured twice). A loop's
 static arguments enter the key as plain hashable values (a mesh by its
 shape and coordinates, never by identity). A step makes no host read and
 keeps no host counter: what it counts lives in the state.
@@ -152,10 +156,12 @@ def count_launch(kernel) -> None:
 
 def check_key(kind: str, backend: str, settings, state, **static):
     """The cache key of a loop: its kind, backend, the CHECK_FIELDS of
-    its settings, the path, shape, dtype and device of every state
+    its settings (none for a loop whose step reads no Settings, given
+    `settings` None), the path, shape, dtype and device of every state
     tensor, and the static arguments of its step (cone, restart_checks,
     ...), which must be hashable."""
     return (kind, backend,
+            () if settings is None else
             tuple(getattr(settings, f) for f in CHECK_FIELDS),
             tuple((p, tuple(t.shape), t.dtype, t.device)
                   for p, t in _leaves(state)),

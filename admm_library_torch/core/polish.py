@@ -241,9 +241,11 @@ def polish(qp: QPData, sol: Solution, eps_abs: float, eps_rel: float,
     # The status reflects THIS eps, not the caller's earlier (possibly
     # relaxed) criterion: only infeasibility and numerical-error
     # verdicts pass through; an unconverged point reports MAX_ITER.
-    passthrough = torch.isin(
-        sol.status, torch.tensor(_PASSTHROUGH, dtype=sol.status.dtype,
-                                 device=sol.status.device))
+    # Compared code by code: a tensor of the codes would be a copy from
+    # the host, which a captured segment cannot hold.
+    pinf, dinf, numerr = _PASSTHROUGH
+    passthrough = ((sol.status == pinf) | (sol.status == dinf)
+                   | (sol.status == numerr))
     status = torch.where(
         solved_now, int(Status.SOLVED),
         torch.where(passthrough, sol.status, int(Status.MAX_ITER))
@@ -253,3 +255,18 @@ def polish(qp: QPData, sol: Solution, eps_abs: float, eps_rel: float,
         r_prim=torch.where(accepted, r_p1, r_p0),
         r_dual=torch.where(accepted, r_d1, r_d0),
         obj=objective(qp, x_f, z_f), rho=sol.rho, history=sol.history)
+
+
+# The one segment of a polish loop (api.polish).
+POLISH = ("polish",)
+
+
+def polish_step(state, variant, *, cone, eps_abs: float, eps_rel: float,
+                act_tol: float):
+    """`polish` of the solution 'sol' on the f64 problem 'qp64' (both
+    dicts of their leaves), as a loop's segment: 'out' holds the
+    polished Solution's leaves. Makes no host read."""
+    pol = polish(QPData(**state["qp64"], cone=cone), Solution(**state["sol"]),
+                 eps_abs, eps_rel, act_tol=act_tol)
+    return dict(out=pol.leaves())
+

@@ -34,7 +34,6 @@ the identity, so the result is bitwise the solve without a mesh.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -42,9 +41,10 @@ import torch
 
 from ..api import resolve_backend
 from ..core import admm, graph
+# The named segments of the batch loop besides its checks: a phase's.
+from ..core.admm import EPILOGUE, PROLOGUE, REFACTOR
 from ..core.scaling import Scaling, ruiz_equilibrate, scale_qp
 from ..ops import fused as fused_ops
-from ..ops import kkt
 from ..ops.prox import project_soc_block
 from ..precision import clean64
 from ..problem import QPData, objective
@@ -220,25 +220,6 @@ def batch_check(state, variant, *, cone, settings: Settings, backend: str,
     return out
 
 
-# The named segments of the batch loop besides its checks.
-PROLOGUE, REFACTOR, EPILOGUE = ("prologue",), ("refactor",), ("epilogue",)
-# Settings the prologue reads besides graph.CHECK_FIELDS: they enter the
-# loop's key.
-_PROLOGUE_FIELDS = ("scaling_iters", "warm_start", "rho", "band_block",
-                    "spike_parts")
-_QP_FIELDS = ("P", "q", "A", "l", "u", "lam")
-
-
-def _leaves_of(qp: QPData) -> dict:
-    return {f: getattr(qp, f) for f in _QP_FIELDS}
-
-
-def _factor(P, A, rho_bar, eq_mask, settings: Settings, backend: str, cone):
-    rv = admm.rho_vec_of(rho_bar, eq_mask, settings, cone)
-    return kkt.factor_condensed(P, A, settings.sigma, rv, backend,
-                                settings.band_block, settings.spike_parts)
-
-
 def batch_prologue(state, *, cone, settings: Settings, backend: str, dtype,
                    scale: str, mesh: Mesh | None):
     """The loop's start from its raw entries ('raw' problem, warm start
@@ -282,7 +263,7 @@ def batch_prologue(state, *, cone, settings: Settings, backend: str, dtype,
     big = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     slots = max(settings.history, 0)
     out = admm.problem_state(
-        qps, scaling, _factor(qps.P, qps.A, rho_bar, eq_mask, settings,
+        qps, scaling, admm.factor(qps.P, qps.A, rho_bar, eq_mask, settings,
                               backend, cone), eq_mask, z_off)
     out.update(admm.carry_state(
         xs, zs, ys, rho_bar,
@@ -303,7 +284,7 @@ def batch_refactor(state, *, cone, settings: Settings, backend: str):
             rho_bar, state["eq_mask"], settings, cone))
     else:
         d = state["qp"]
-        fac = _factor(d["P"], d["A"], rho_bar, state["eq_mask"], settings,
+        fac = admm.factor(d["P"], d["A"], rho_bar, state["eq_mask"], settings,
                       backend, cone)
     return dict(rho_bar=rho_bar, fac=fac)
 
@@ -388,7 +369,7 @@ def _run_batch(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
         and dtype == torch.float32
         and z_off is None
         and (cone.m_soc == 0 or cone.soc_uniform))
-    state = dict(raw=_leaves_of(qp), x0=x0, z0=z0, y0=y0)
+    state = dict(raw=admm.qp_leaves(qp), x0=x0, z0=z0, y0=y0)
     if scaling is not None:
         state["sc"] = dict(d=scaling.d, e=scaling.e, c=scaling.c)
     if rho0 is not None:
@@ -405,7 +386,7 @@ def _run_batch(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
         pre=_fused_pre(settings, cone) if fused else None,
         cone=cone, restart_checks=restart_checks, fused=fused,
         dtype=dtype, scale=scale,
-        **{f: getattr(settings, f) for f in _PROLOGUE_FIELDS})
+        **{f: getattr(settings, f) for f in admm.PROLOGUE_FIELDS})
     loop(PROLOGUE)
     k = settings.check_every
     it = 0
@@ -561,10 +542,6 @@ def _true_ratio(qp64, settings, x, y, z):
 # The segments of the re-centred driver.
 START, SAFEGUARD, FINAL, JOIN = ("start",), ("safeguard",), ("final",), \
     ("join",)
-
-
-def _solution_leaves(sol: Solution) -> dict:
-    return {f.name: getattr(sol, f.name) for f in dataclasses.fields(sol)}
 
 
 def recentered_step(state, variant, *, cone, settings: Settings,
@@ -731,9 +708,9 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     step = functools.partial(recentered_step, cone=cone, settings=settings,
                              mesh=mesh)
     drv = graph.CheckLoop(
-        "solve_shared_recentered", step, dict(raw=_leaves_of(qp)), settings,
-        backend, mesh=mesh, cone=cone, scaling_iters=settings.scaling_iters,
-        hybrid_eps=settings.hybrid_eps)
+        "solve_shared_recentered", step, dict(raw=admm.qp_leaves(qp)),
+        settings, backend, mesh=mesh, cone=cone,
+        scaling_iters=settings.scaling_iters, hybrid_eps=settings.hybrid_eps)
     # One Ruiz pass serves phase 1 and every correction round.
     drv(START)
     scaling1 = Scaling(**drv.state["sc"])
@@ -750,7 +727,7 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
             break
         drv(("setup", r == 0))
         rnd = drv.state["rnd"]
-        solc = _phase(QPData(**{f: rnd[f] for f in _QP_FIELDS}, cone=cone),
+        solc = _phase(QPData(**{f: rnd[f] for f in admm.QP_FIELDS}, cone=cone),
                       rnd["x0"], rnd["z0"], rnd["y0"], s_c, backend,
                       scaling=scaling1, rho0=rnd["rho0"],
                       z_off=rnd.get("z_off"), mesh=mesh)
@@ -772,7 +749,7 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
         c = drv.state["carry"]
         sol64 = _phase(qp, c["x"], c["z"], c["y"], s64, backend, mesh=mesh,
                        dtype=f64)
-        drv.set(dict(f64=_solution_leaves(sol64)))
+        drv.set(dict(f64=sol64.leaves()))
         drv(JOIN)
     out, = drv.result("out")
     return Solution(**out)

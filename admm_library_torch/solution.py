@@ -41,6 +41,11 @@ class Solution:
     rho: torch.Tensor
     history: torch.Tensor
 
+    def leaves(self) -> dict:
+        """The fields by name: the state a captured segment takes."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
     @property
     def solved(self):
         return self.status == int(Status.SOLVED)

@@ -243,6 +243,13 @@ GRAPH_HOST_LAUNCHES_PER_ITER = 2.0
 # captured: host launch calls a solve (graph replays, ~14 checks, and
 # the few eager calls around them).
 GRAPH_RERUN_HOST_LAUNCHES = 120
+# Host launch calls of a rerun of solve with its phases, polish, rounds
+# and warm-start check captured: config 3 (the staged path: 24 checks,
+# four phases' prologues, refactors and epilogues, up to four polishes,
+# two rounds' set-up and join, ~20 eager calls) and config 4 (the B=1
+# shared pass, ~58 calls, then ~7 continuation chunks of ~80 checks and
+# a few segments each).
+GRAPH_HOST_LAUNCHES = {"config3": 200, "config4": 1500}
 PEAK_HBM_BYTES = 3.35e12
 # Two solved points of the same problem: each meets the 1e-6 residual
 # criterion; the MPC states carry only a 1e-8 regularisation.
@@ -2032,32 +2039,34 @@ def phase_checkpoint(dev, sol128):
 
 
 def _first_check_state(kind, step, state):
-    """A clone of a loop's initial state, for the batch loop (which
-    starts from raw data) the state after its prologue: the state its
-    first check meets."""
+    """A clone of a loop's initial state, for the loops that start from
+    raw data (the batch loop and the phases) the state after their
+    prologue: the state its first check meets."""
     import torch
-    from admm_library_torch.core import graph
-    from admm_library_torch.parallel import batch
+    from admm_library_torch.core import admm, graph
     first = graph._map(torch.clone, state)
-    if kind == "run_admm_batch_shared":
-        first = dict(first, **step(first, batch.PROLOGUE))
+    if kind in ("run_admm", "run_admm_lanes", "run_admm_batch_shared"):
+        first = dict(first, **step(first, admm.PROLOGUE))
     return first
 
 
 class _Loops:
     """Records (kind, step, state at the first check) of every
     graph.CheckLoop built inside the block (the loop's own step, which
-    runs its pre inside its checks); the loops run as before."""
+    runs its pre inside its checks), and in `raw` its initial state; the
+    loops run as before."""
 
     def __enter__(self):
         import torch
         from admm_library_torch.core import graph
         self.graph, self.real, self.loops = graph, graph.CheckLoop, []
+        self.raw = []       # (kind, step, initial state) of each loop
 
         def spy(kind, step, state, *a, **kw):
             loop = self.real(kind, step, state, *a, **kw)
             self.loops.append((kind, loop.step,
                                _first_check_state(kind, loop.step, state)))
+            self.raw.append((kind, loop.step, state))
             return loop
         graph.CheckLoop = spy
         return self
@@ -2092,6 +2101,29 @@ def _replay_is_eager(step, state):
     return out
 
 
+def _segment_replay_is_eager(step, state, variant):
+    """One named segment from `state`: the eager step on the default
+    stream against three runs of it from a cache entry, each from the
+    same state (the entry's first run its eager warm-up, then captured
+    and replayed twice). Whether all agree bitwise on every leaf the
+    step writes."""
+    import torch
+    from admm_library_torch.core import graph
+    cache = graph.CheckCache()
+    entry = cache.entry("case", step, state)
+    want = list(graph._leaves(step(graph._map(torch.clone, state),
+                                   variant)))
+    ok = True
+    for _ in range(3):
+        entry.load(state)
+        entry.run(variant)
+        got = dict(graph._leaves(entry.buffers))
+        ok &= all(torch.equal(got[path], v) for path, v in want)
+    ok &= cache.stats["replays"] == 2
+    cache.clear()
+    return ok
+
+
 def _graph_nodes():
     """Nodes of every graph in the default cache (its captured template,
     kept by `graph.CACHE.keep_graphs`, read with libcuda's
@@ -2104,6 +2136,8 @@ def _graph_nodes():
     out = {}
     for i, (key, entry) in enumerate(graph.CACHE.entries.items()):
         x = entry.buffers.get("x", entry.buffers.get("raw", {}).get("q"))
+        if x is None:       # polish, the staged rounds: their first leaf
+            x = next(t for _, t in graph._leaves(entry.buffers))
         label = f"{i}:{key[0]} {str(x.dtype)[6:]} {tuple(x.shape)}"
         for variant, g in entry.graphs.items():
             n = ctypes.c_size_t(0)
@@ -2162,23 +2196,33 @@ def _check_batch_graph(name, rec):
 
 
 def phase_graph(dev):
-    """The captured checks (core/graph.py) on configs 3 and 4 and the
-    config-5 batch at 128 and 1024: captures, replays, warm-ups and
-    capture ms per solve from an empty cache and on a rerun, nodes per
-    graph, host launches and idle share from one profiled run; a replayed
-    check bitwise the eager check from the same state for an f64 chunk of
-    config 4, a b128 re-centred round, the consensus-MC f32 phase at 1024
-    scenarios and the 'spike' batch at 1024 lanes."""
+    """The captured segments (core/graph.py) on configs 3 and 4, the
+    config-5 batch at 128 and 1024, solve_batch on 128 config-1 draws
+    and config 1 through solve at 'single' and 'double': captures,
+    replays, warm-ups and capture ms per solve from an empty cache and
+    on a rerun (which must capture and warm nothing), nodes per graph,
+    host launches and idle share from one profiled run, and a bar on
+    config 3's and config 4's host launch calls; a replayed check
+    bitwise the eager check from the same state for an f64 chunk of
+    config 4, a b128 re-centred round, the consensus-MC f32 phase at
+    1024 scenarios and the 'spike' batch at 1024 lanes, and a replayed
+    segment bitwise the eager one for config 3's f32 phase prologue and
+    a config-4 polish."""
+    import dataclasses
+    import functools
     import torch
-    from admm_library_torch import (Settings, Status, solve,
-                                    solve_batch_shared)
+    from admm_library_torch import (QPData, Settings, Status, solve,
+                                    solve_batch, solve_batch_shared)
     from admm_library_torch import api
-    from admm_library_torch.core import graph
+    from admm_library_torch.core import admm, graph
+    from admm_library_torch.core.polish import POLISH, polish_step
     import numpy as np
     from admm_library_torch.models import low_thrust as lt
     from admm_library_torch.models import monte_carlo as mc
     from admm_library_torch.models.partitioned import (
         partition_mpc_from_s0, reference_s0)
+    from admm_library_torch.models.random_qp import (
+        random_box_qp, reference_random_box_qp)
     from admm_library_torch.parallel import consensus_mc, runtime
 
     qp3, _, _ = _config3(dev)
@@ -2187,12 +2231,24 @@ def phase_graph(dev):
     b = {B: mc.monte_carlo_mpc_from_s0(mc.reference_s0(B), device=dev)[0]
          .astype(torch.float64) for B in (128, 1024)}
     s5 = Settings(eps_abs=EPS, eps_rel=EPS)
+    gen = torch.Generator().manual_seed(0)
+    lanes = [random_box_qp(gen, device=dev).astype(torch.float64)
+             for _ in range(BATCH_LANES)]
+    qp1b = QPData(**{f: torch.stack([getattr(q, f) for q in lanes])
+                     for f in ("P", "q", "A", "l", "u", "lam")},
+                  cone=lanes[0].cone)
+    qp1 = reference_random_box_qp(dev).astype(torch.float64)
+    s1 = Settings(eps_abs=EPS, eps_rel=EPS, backend="inv")
     paths = {
         "config3": (solve, qp3.astype(torch.float64),
                     Settings(eps_abs=EPS, eps_rel=EPS, max_iter=50000)),
         "config4": (solve, qp4, s4),
         "b128": (solve_batch_shared, b[128], s5),
-        "b1024": (solve_batch_shared, b[1024], s5)}
+        "b1024": (solve_batch_shared, b[1024], s5),
+        "solve_batch": (solve_batch, qp1b, Settings(
+            eps_abs=BATCH_EPS, eps_rel=BATCH_EPS, max_iter=20000)),
+        "config1_single": (solve, qp1, s1.replace(precision="single")),
+        "config1_double": (solve, qp1, s1.replace(precision="double"))}
     out = {}
     for name, (fn, qp, s) in paths.items():
         graph.CACHE.clear()
@@ -2230,6 +2286,10 @@ def phase_graph(dev):
           < GRAPH_HOST_LAUNCHES_PER_ITER,
           f"graph config4: {out['config4']['host_launches_per_iteration']:.2f}"
           " host launches an iteration")
+    for name, bar in GRAPH_HOST_LAUNCHES.items():
+        check(out[name]["host_launches"] <= bar,
+              f"graph {name}: {out[name]['host_launches']} host launch "
+              f"calls a solve, above {bar}")
 
     # A replayed check is the eager check, from the same state.
     entry = lt.reference_continuation_entry(dev)
@@ -2272,10 +2332,33 @@ def phase_graph(dev):
             "b128_round": _replay_is_eager(step5, state5),
             "consensus_mc_1024_f32": _replay_is_eager(step_mc, state_mc),
             "horizon_spike_1024_f32": _replay_is_eager(step_sp, state_sp)}
-    emit("graph", replay_is_eager_bitwise=same)
+    # A named segment replayed is the eager segment: config 3's f32
+    # phase prologue (cast, Ruiz, factor, carry from the raw f64 data)
+    # and a config-4 polish at the continuation's entry.
+    with _Loops() as rec3:
+        solve(qp3.astype(torch.float64), Settings(
+            eps_abs=EPS, eps_rel=EPS, max_iter=0, polish=False,
+            recenter_rounds=0))
+    step3, raw3 = next((step, graph._map(torch.clone, st)) for kind, step, st
+                       in rec3.raw if kind == "run_admm"
+                       and step.keywords["dtype"] == torch.float32)
+    pol4 = functools.partial(polish_step, cone=qp4.cone, eps_abs=s4.eps_abs,
+                             eps_rel=s4.eps_rel, act_tol=1e-4)
+    state_pol4 = dict(qp64=admm.qp_leaves(qp4), sol={
+        f.name: getattr(entry, f.name) for f in dataclasses.fields(entry)})
+    segments = {
+        "config3_f32_prologue": _segment_replay_is_eager(
+            step3, raw3, admm.PROLOGUE),
+        "config4_polish": _segment_replay_is_eager(pol4, state_pol4,
+                                                   POLISH)}
+    emit("graph", replay_is_eager_bitwise=same,
+         segment_replay_is_eager_bitwise=segments)
     for case, variants in same.items():
         check(all(variants.values()),
               f"graph {case}: a replayed check differs from the eager one")
+    for case, ok in segments.items():
+        check(ok, f"graph {case}: a replayed segment differs from the "
+              "eager one")
     return out
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The port at two commits, in turns, on one CUDA card: configs 1 and 2
-(on 'inv'), 3 and 4 through `solve`, the config-5 batch at 128 and 1024 lanes
+"""The port at two commits, in turns, on one CUDA card: configs 1 (at
+hybrid, single and double precision) and 2 (on 'inv'), 3 and 4 through
+`solve`, the config-5 batch at 128 and 1024 lanes
 through `solve_batch_shared`, `solve_batch` on 128 config-1 draws, and
 the partitioned and block-backend paths of `chip_smoke.py`: `consensus`
 and `consensus_mc_1024` on a 1x1 mesh, `horizon_sharded_1024` under its
@@ -41,7 +42,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = ("config1", "config2_inv", "config3", "config4", "b128", "b1024",
+PATHS = ("config1", "config1_single", "config1_double", "config2_inv",
+         "config3", "config4", "b128", "b1024",
          "solve_batch", "consensus", "consensus_mc_1024",
          "horizon_f64_plain", "horizon_f32_gate", "horizon_spike_1024",
          "config2_banded", "rowshard_qp4096")
@@ -68,11 +70,14 @@ def _path(name, dev):
                                     device=dev)
         return (T.solve, qp.astype(f64),
                 T.Settings(eps_abs=1e-6, eps_rel=1e-6, max_iter=50000))
-    if name == "config1":
+    if name.startswith("config1"):
         from admm_library_torch.models.random_qp import (
             reference_random_box_qp)
+        precision = {"config1": "hybrid", "config1_single": "single",
+                     "config1_double": "double"}[name]
         return (T.solve, reference_random_box_qp(dev).astype(f64),
-                T.Settings(eps_abs=1e-6, eps_rel=1e-6, backend="inv"))
+                T.Settings(eps_abs=1e-6, eps_rel=1e-6, backend="inv",
+                           precision=precision))
     if name == "config4":
         from admm_library_torch.models.low_thrust import (
             build_low_thrust_socp)

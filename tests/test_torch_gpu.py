@@ -860,22 +860,25 @@ def test_checkpoint_loads_onto_the_card(dev, tmp_path):
 
 # ---- captured checks (core/graph.py) ----
 
+# The loops that start from raw data with a prologue before their checks.
+_PHASE_LOOPS = ("run_admm", "run_admm_lanes", "run_admm_batch_shared")
+
+
 def _recorded_loops(monkeypatch, fn, *args, **kw):
     """fn(*args, **kw) with every CheckLoop's (kind, step, state at its
     first check) recorded: the loop's own step (with the pre it runs
-    inside its checks) and a clone of its initial state, for the batch
-    loop, which starts from raw data, after its prologue. Returns (fn's
+    inside its checks) and a clone of its initial state, for the phase
+    loops, which start from raw data, after their prologue. Returns (fn's
     result, the records)."""
     from admm_library_torch.core import graph
-    from admm_library_torch.parallel import batch
     loops = []
     real = graph.CheckLoop
 
     def spy(kind, step, state, *a, **k):
         loop = real(kind, step, state, *a, **k)
         first = graph._map(torch.clone, state)
-        if kind == "run_admm_batch_shared":
-            first = dict(first, **loop.step(first, batch.PROLOGUE))
+        if kind in _PHASE_LOOPS:
+            first = dict(first, **loop.step(first, admm.PROLOGUE))
         loops.append((kind, loop.step, first))
         return loop
     monkeypatch.setattr(graph, "CheckLoop", spy)
@@ -1405,3 +1408,173 @@ def test_captured_rowsharded_solve_is_the_eager_solve(name, dev,
     assert graph.CACHE.stats["captures"] == before["captures"]
     assert graph.CACHE.stats["eager_checks"] == before["eager_checks"]
     assert graph.CACHE.stats["replays"] > before["replays"]
+
+
+# ---- The single-problem programs as captured segments (api.py,
+# core/admm.run_phase, core/polish.polish_step). ----
+
+def _recorded_segments(monkeypatch, fn, *args):
+    """fn(*args) with (kind, step, variant, a clone of the state before
+    it) of every segment any CheckLoop runs. Returns the records."""
+    from admm_library_torch.core import graph
+    runs = []
+    real = graph.CheckLoop.__call__
+
+    def call(loop, variant):
+        runs.append((loop.kind, loop.step, variant,
+                     graph._map(torch.clone, loop.state)))
+        return real(loop, variant)
+    with monkeypatch.context() as m:
+        m.setattr(graph.CheckLoop, "__call__", call)
+        fn(*args)
+    return runs
+
+
+def _segment_replay_is_eager(step, state, variant):
+    """One segment from `state`: the eager step on the default stream
+    against three runs of it from a cache entry, each from the same
+    state (the entry's first run its eager warm-up, the segment captured
+    there, then replayed twice); bitwise on every leaf the step
+    writes."""
+    from admm_library_torch.core import graph
+    cache = graph.CheckCache()
+    entry = cache.entry("case", step, state)
+    want = list(graph._leaves(step(graph._map(torch.clone, state),
+                                   variant)))
+    for _ in range(3):
+        entry.load(state)
+        entry.run(variant)
+        got = dict(graph._leaves(entry.buffers))
+        for path, value in want:
+            assert torch.equal(got[path], value), (variant, path)
+    assert cache.stats["captures"] == 1 and cache.stats["replays"] == 2
+    assert cache.stats["eager_checks"] == 1
+
+
+def _config3_f64(dev):
+    from admm_library_torch.models.clohessy_wiltshire import (
+        build_cw_rendezvous)
+    rng = np.random.default_rng(0)                  # bench_cw, seed 0
+    s0 = np.array([100.0, -1000.0, 20.0, 0.1, 0.5, -0.05])
+    s0[:3] += rng.uniform(-20, 20, 3)
+    qp, _ = build_cw_rendezvous(s0, N=20, dtype=torch.float32, device=dev)
+    return qp.astype(torch.float64)
+
+
+def _config4_f64(dev):
+    from admm_library_torch.models.low_thrust import build_low_thrust_socp
+    qp, spec = build_low_thrust_socp(
+        np.array([500.0, -2000.0, 100.0, 0.0, 1.0, -0.1]), N=200,
+        device=dev)
+    return qp.astype(torch.float64), Settings(
+        eps_abs=1e-6, eps_rel=5e-8, band_block=spec.block, max_iter=50000,
+        rho_soc_scale=100.0, stall_checks=16, backend="inv")
+
+
+def _pick_segment(runs, kind, variant, dtype=None, joined=False):
+    """(step, state) of the first `variant` of a loop of `kind` (of the
+    phase dtype `dtype` where given; with `joined`, of a hybrid solve's
+    second phase, whose state holds the first's 'p1')."""
+    return next((step, state) for k, step, v, state in runs
+                if k == kind and v == variant
+                and dtype in (None, step.keywords.get("dtype"))
+                and joined == ("p1" in state))
+
+
+def test_replayed_phase_prologue_is_eager_config3_f32(dev, monkeypatch):
+    """The staged path's f32 phase prologue of config 3 (cast, Ruiz,
+    factor, carry from the raw f64 data): replay == eager, bitwise."""
+    from admm_library_torch import solve
+    runs = _recorded_segments(monkeypatch, solve, _config3_f64(dev),
+                              Settings(eps_abs=1e-6, eps_rel=1e-6,
+                                       max_iter=50000))
+    step, state = _pick_segment(runs, "run_admm", admm.PROLOGUE,
+                                dtype=torch.float32)
+    assert state["raw"]["P"].dtype == torch.float64
+    _segment_replay_is_eager(step, state, admm.PROLOGUE)
+
+
+def test_replayed_lanes_refactor_is_eager(dev, monkeypatch):
+    """A lanes refactor of solve_batch (rho 100x off, so lanes take the
+    new factor where their own test fired): replay == eager, bitwise."""
+    from admm_library_torch import solve_batch
+    one = _small_l1_soc(dev)
+    qp = QPData(**{f: torch.stack([getattr(one, f)] * 3)
+                   for f in ("P", "q", "A", "l", "u", "lam")},
+                cone=one.cone)
+    qp = QPData(P=qp.P, q=qp.q * torch.tensor(
+        [[1.0], [0.5], [2.0]], dtype=qp.dtype, device=dev), A=qp.A,
+        l=qp.l, u=qp.u, lam=qp.lam, cone=qp.cone)
+    runs = _recorded_segments(monkeypatch, solve_batch, qp,
+                              Settings(check_every=5, rho=10.0,
+                                       adaptive_rho_interval=10,
+                                       restart_every=15, history=3,
+                                       backend="chol"))
+    step, state = _pick_segment(runs, "run_admm_lanes", admm.REFACTOR)
+    assert bool(state["do_t"].any())
+    _segment_replay_is_eager(step, state, admm.REFACTOR)
+
+
+def test_replayed_soc_polish_is_eager_config4(dev):
+    """Polish of config 4 (n=2000, 200 SOC(4) blocks) at the reference's
+    continuation entry, as the continuation calls it: replay == eager,
+    bitwise."""
+    import dataclasses
+    import functools
+    from admm_library_torch.core.admm import qp_leaves
+    from admm_library_torch.core.polish import POLISH, polish_step
+    from admm_library_torch.models import low_thrust as lt
+    qp64, s = _config4_f64(dev)
+    entry = lt.reference_continuation_entry(dev)
+    step = functools.partial(polish_step, cone=qp64.cone,
+                             eps_abs=s.eps_abs, eps_rel=s.eps_rel,
+                             act_tol=1e-4)
+    state = dict(qp64=qp_leaves(qp64), sol={
+        f.name: getattr(entry, f.name) for f in dataclasses.fields(entry)})
+    _segment_replay_is_eager(step, state, POLISH)
+
+
+def test_replayed_hybrid_join_is_eager(dev, monkeypatch):
+    """`_solve_core`'s join on config 1 at hybrid precision: the second
+    phase's prologue (the first phase's f32 iterates cleaned into f64)
+    and its epilogue (the two phases joined): replay == eager,
+    bitwise."""
+    from admm_library_torch import api
+    from admm_library_torch.models.random_qp import reference_random_box_qp
+    qp = reference_random_box_qp(dev).astype(torch.float64)
+    zeros = [torch.zeros(w, dtype=qp.dtype, device=dev)
+             for w in (qp.n, qp.m, qp.m)]
+    runs = _recorded_segments(monkeypatch, api._solve_core, qp, *zeros,
+                              Settings(eps_abs=1e-6, eps_rel=1e-6), "inv")
+    for variant in (admm.PROLOGUE, admm.EPILOGUE):
+        step, state = _pick_segment(runs, "run_admm", variant, joined=True)
+        _segment_replay_is_eager(step, state, variant)
+
+
+@pytest.mark.parametrize("path", ["config3", "continuation_chunk"])
+def test_a_rerun_captures_nothing(path, dev):
+    """A rerun of solve on config 3 (the staged path: phases, polish,
+    rounds) and of a config-4 continuation chunk with its polish, on a
+    warm cache: every segment replays, none is warmed up or captured,
+    and the result is bitwise the first run's."""
+    from admm_library_torch import api, solve
+    from admm_library_torch.core import graph
+    from admm_library_torch.models import low_thrust as lt
+    if path == "config3":
+        fn, args = solve, (_config3_f64(dev), Settings(
+            eps_abs=1e-6, eps_rel=1e-6, max_iter=50000))
+    else:
+        qp64, s = _config4_f64(dev)
+        fn, args = api._f64_continuation, (
+            qp64, lt.reference_continuation_entry(dev),
+            s.replace(max_iter=2000), "inv")
+    graph.CACHE.clear()
+    first = fn(*args)
+    before = dict(graph.CACHE.stats)
+    again = fn(*args)
+    stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
+    assert stats["captures"] == 0 and stats["eager_checks"] == 0
+    assert stats["replays"] > 0
+    for f in ("x", "z", "y", "status", "iters"):
+        assert torch.equal(getattr(first, f), getattr(again, f)), f
+

@@ -158,11 +158,11 @@ def _run_without_host_read(step, state, variants=VARIANTS):
 def _loop_state(monkeypatch, run, *args, **kw):
     """(step, state at its first check) of the loop that `run` builds,
     from a run of max_iter 0: the initial state, after the prologue for
-    the batch loop, which starts from its raw data."""
+    the loops that start from their raw data."""
     rec = _Recorder(monkeypatch)
     run(*args, **kw)
     (kind, step, state, _), = rec.loops
-    if kind == "run_admm_batch_shared":
+    if kind in ("run_admm", "run_admm_lanes", "run_admm_batch_shared"):
         state = dict(state, **step(state, batch.PROLOGUE))
     return step, state
 

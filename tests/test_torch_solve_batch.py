@@ -137,22 +137,20 @@ def test_mixed_batch_lanes_equal_their_own_solve(precision):
 
 
 def test_solve_batch_is_one_lockstep_loop(monkeypatch):
-    """The batch runs through run_admm_lanes, once per precision phase,
-    and never through the single-problem loop."""
+    """The batch runs through the lanes loop (core.admm.run_phase, kind
+    run_admm_lanes), once per precision phase, and never through the
+    single-problem loop."""
+    from admm_library_torch.core import graph
     calls = []
-    lanes = tadmm.run_admm_lanes
+    real = graph.CheckLoop
 
-    def spy(qp, *a, **k):
-        calls.append(qp.P.shape[0])
-        return lanes(qp, *a, **k)
+    def spy(kind, step, state, *a, **k):
+        calls.append((kind, state["x0"].shape[0]))
+        return real(kind, step, state, *a, **k)
 
-    def forbidden(*a, **k):
-        raise AssertionError("run_admm called for a lane")
-
-    monkeypatch.setattr(tadmm, "run_admm_lanes", spy)
-    monkeypatch.setattr(tadmm, "run_admm", forbidden)
+    monkeypatch.setattr(graph, "CheckLoop", spy)
     sol = T.solve_batch(_mixed_batch(), T.Settings())
-    assert calls == [3, 3]
+    assert calls == [("run_admm_lanes", 3)] * 2
     assert sol.iters.shape == (3,)
 
 

@@ -10,8 +10,16 @@ carry-to-carry steps (core/graph.py), bitwise to these on the CPU.
 scaling, phases, re-centred rounds, f64 fallback) as host code around
 `_ref_run_admm_batch_shared`: tests/test_torch_graph_solve.py holds
 `solve_batch_shared`, whose work between host reads is segments of its
-loops, bitwise to it.
+loops, bitwise to it. `_ref_solve` and `_ref_solve_batch` are `solve`
+and `solve_batch` (phases, staged path, re-centred rounds, f64
+continuation, polish, warm-start check) as host code around
+`_ref_run_admm`, `_ref_run_admm_lanes`, `core.polish.polish` and
+`_ref_solve_batch_shared`: tests/test_torch_graph_api.py holds the
+package's, whose work between host reads is segments, bitwise to them.
 """
+import dataclasses
+import math
+
 import torch
 
 from admm_library_torch.core.admm import (
@@ -19,6 +27,7 @@ from admm_library_torch.core.admm import (
     is_equality_row, iterate_block, residuals, restart_cadence_checks,
     rho_vec_of, scaled_resid_ratio, status_of)
 from admm_library_torch.core import admm
+from admm_library_torch.core.polish import polish
 from admm_library_torch.core.scaling import Scaling
 from admm_library_torch.ops import fused as fused_ops
 from admm_library_torch.ops import kkt
@@ -1446,3 +1455,425 @@ def _ref_solve_rowsharded(qp: QPData, mesh: Mesh,
         y=scaling.unscale_y(y), status=status,
         iters=torch.tensor(it, dtype=torch.int32, device=dev),
         r_prim=r_p, r_dual=r_d, rho=rho_bar, cg_steps=cg_steps)
+
+
+# ---- solve and solve_batch as they stood before their phases, polish,
+# rounds and warm-start check became captured segments: host code around
+# `_ref_run_admm`, `_ref_run_admm_lanes` and `_ref_solve_batch_shared`,
+# one eager kernel at a time. ----
+
+_INFEASIBLE = (_PINF, _DINF)
+
+
+def _ref_int32(v, device):
+    return torch.tensor(v, dtype=torch.int32, device=device)
+
+
+def _ref_solve_one_phase(qp: QPData, x0, z0, y0, settings: Settings,
+                     backend: str, z_off=None, rho0=None) -> Solution:
+    """Ruiz-scale, run `run_admm` in qp's dtype, unscale.
+
+    z_off: unscaled shifted-prox offset for the L1/SOC rows (it keeps
+    its own dtype); rho0: warm rho-bar as a Python float.
+    """
+    qps, scaling = ruiz_equilibrate(qp, settings.scaling_iters)
+    if settings.warm_start:
+        xs = scaling.scale_x(x0)
+        zs = scaling.scale_z(z0)
+        ys = scaling.scale_y(y0)
+    else:
+        xs, zs, ys = x0, z0, y0
+    if z_off is not None:
+        z_off = scaling.scale_z(z_off)      # offsets live in z-space
+    lanes = qp.P.dim() == 3
+    run = _ref_run_admm_lanes if lanes else _ref_run_admm
+    carry = run(qps, scaling, settings, xs, zs, ys, backend, z_off=z_off,
+                rho0=rho0)
+    x = scaling.unscale_x(carry.x)
+    z = scaling.unscale_z(carry.z)
+    y = scaling.unscale_y(carry.y)
+    return Solution(
+        x=x, z=z, y=y, status=carry.status,
+        iters=carry.it if lanes else _ref_int32(carry.it, qp.device),
+        r_prim=carry.r_prim, r_dual=carry.r_dual, obj=objective(qp, x, z),
+        rho=carry.rho_bar, history=carry.hist)
+
+
+def _ref_s32_of(settings: Settings) -> Settings:
+    """f32-phase settings: relaxed eps and condition-number caps (the
+    equality-rho boost times rho over sigma must stay well under
+    1/eps_f32, or the f32 factorisation fails; sigma does not move the
+    ADMM fixed point)."""
+    return settings.replace(
+        precision="single",
+        eps_abs=max(settings.hybrid_eps, settings.eps_abs),
+        eps_rel=max(settings.hybrid_eps, settings.eps_rel),
+        sigma=max(settings.sigma, 1e-5),
+        rho_eq_scale=min(settings.rho_eq_scale, 1e2),
+        polish=False)
+
+
+def _ref_cast(sol: Solution, dtype: torch.dtype, **kw) -> Solution:
+    """sol with every floating leaf in `dtype` (history included),
+    fields in `kw` replaced first."""
+    sol = dataclasses.replace(sol, **kw)
+    return dataclasses.replace(
+        sol, **{f: getattr(sol, f).to(dtype)
+                for f in ("x", "z", "y", "r_prim", "r_dual", "obj", "rho",
+                          "history")})
+
+
+def _ref_finish(sol: Solution, sol32: Solution, out_dtype) -> Solution:
+    """Combine phase results: cast out, add the iteration counts, keep
+    a phase-1 infeasibility verdict."""
+    p1_inf = ((sol32.status == _INFEASIBLE[0])
+              | (sol32.status == _INFEASIBLE[1]))
+    return _ref_cast(sol, out_dtype,
+                 status=torch.where(p1_inf, sol32.status, sol.status),
+                 iters=sol32.iters + sol.iters)
+
+
+def _ref_solve_core(qp: QPData, x0, z0, y0, settings: Settings,
+                backend: str) -> Solution:
+    """One problem, or a lockstep batch of independent ones (every leaf
+    with a leading lane axis), by precision strategy: 'single' in qp's
+    dtype, 'double' in f64, 'hybrid' as an f32 phase to hybrid_eps and
+    a warm-started f64 phase to the target."""
+    f32, f64 = torch.float32, torch.float64
+    if settings.precision == "single":
+        return _ref_solve_one_phase(qp, x0, z0, y0, settings, backend)
+    if settings.precision == "double":
+        return _ref_solve_one_phase(qp.astype(f64), x0.to(f64), z0.to(f64),
+                                y0.to(f64), settings, backend)
+    sol32 = _ref_solve_one_phase(qp.astype(f32), x0.to(f32), z0.to(f32),
+                             y0.to(f32), _ref_s32_of(settings), backend)
+    sol64 = _ref_solve_one_phase(
+        qp.astype(f64), clean64(sol32.x), clean64(sol32.z),
+        clean64(sol32.y),
+        settings.replace(precision="single", warm_start=True), backend)
+    return _ref_finish(sol64, sol32, qp.dtype)
+
+
+def _ref_recentered_rounds(qp: QPData, qp64: QPData, sol0: Solution,
+                       settings: Settings, backend: str, try_polish=None):
+    """Up to recenter_rounds f32 correction solves around the f64 point
+    sol0; returns (Solution in f64, solved).
+
+    Each round re-solves the same problem in shifted coordinates: box
+    rows shift exactly (bounds − Ax), L1/SOC rows keep their bounds and
+    lam and evaluate the shifted prox with an f64 offset = Ax. True
+    residuals are evaluated in f64 on the original data; the rounds stop
+    once those meet the criterion, or once `try_polish` (called after
+    every round) returns SOLVED.
+    """
+    f32 = torch.float32
+    dev = qp.device
+    mb = qp.cone.m_box
+    x_t, y_t, z_t = sol0.x, sol0.y, sol0.z
+    iters = _ref_int32(0, dev)
+    rho = sol0.rho
+    # Correction problems are feasible by construction and mix shifted
+    # and original rows, so infeasibility certificates mean nothing
+    # there.
+    s_c = _ref_s32_of(settings).replace(
+        eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
+        eps_pinf=0.0, eps_dinf=0.0)
+
+    solved = False
+    r_p, r_d = sol0.r_prim, sol0.r_dual
+    for _ in range(settings.recenter_rounds):
+        Ax, Px, r_p, r_d, eps_p, eps_d, ok = admm.unscaled_criterion(
+            qp64, x_t, z_t, y_t, settings.eps_abs, settings.eps_rel)
+        solved = bool(ok)
+        if solved:
+            break
+        # Each round only has to meet the ORIGINAL mixed criterion, whose
+        # eps_rel term scales with the total norms: demanding the raw
+        # eps_abs at the correction's scale costs ~100x the iterations.
+        # Quantised to a power of two, as in the reference.
+        eps_round = float(torch.minimum(eps_p, eps_d))
+        eps_q = 2.0 ** math.floor(math.log2(max(eps_round,
+                                                settings.eps_abs)))
+        s_round = s_c.replace(eps_abs=eps_q, eps_rel=0.0)
+        if settings.recenter_max_iter > 0:
+            s_round = s_round.replace(max_iter=min(
+                settings.max_iter, settings.recenter_max_iter))
+        # g = Px + q only (no Aᵀy tilt): the correction problem is then
+        # exactly the original in shifted coordinates, so its dual is a
+        # complete dual of the original. Duals are warm-started and
+        # replaced, never summed: summed partial duals leave junk on
+        # inactive rows that tilts x off the optimum.
+        l_c = torch.cat([qp64.l[:mb] - Ax[:mb], qp64.l[mb:]])
+        u_c = torch.cat([qp64.u[:mb] - Ax[:mb], qp64.u[mb:]])
+        off = torch.cat([torch.zeros_like(Ax[:mb]), Ax[mb:]])
+        qp_c = QPData(P=qp.P.to(f32), q=(Px + qp64.q).to(f32),
+                      A=qp.A.to(f32), l=l_c.to(f32), u=u_c.to(f32),
+                      lam=qp.lam.to(f32), cone=qp.cone)
+        sol_c = _ref_solve_one_phase(qp_c, torch.zeros_like(qp_c.q),
+                                 (z_t - Ax).to(f32), y_t.to(f32), s_round,
+                                 backend, z_off=off)
+        x_t = x_t + clean64(sol_c.x)
+        y_t = clean64(sol_c.y)
+        z_t = Ax + clean64(sol_c.z)
+        iters = iters + sol_c.iters
+        rho = sol_c.rho.to(torch.float64)
+        # Polish from the partly converged round: on min-fuel LPs the
+        # active set locks in long before the first-order tail ends.
+        if try_polish is not None:
+            cand = Solution(
+                x=x_t, z=z_t, y=y_t, status=_ref_int32(0, dev), iters=iters,
+                r_prim=r_p, r_dual=r_d, obj=objective(qp64, x_t, z_t),
+                rho=rho, history=sol0.history)
+            pol = try_polish(cand)
+            if int(pol.status) == _SOLVED:
+                return dataclasses.replace(pol, iters=iters), True
+    if not solved:
+        _, _, r_p, r_d, _, _, ok = admm.unscaled_criterion(
+            qp64, x_t, z_t, y_t, settings.eps_abs, settings.eps_rel)
+        solved = bool(ok)
+    status = _ref_int32(int(Status.SOLVED if solved else Status.MAX_ITER), dev)
+    return Solution(
+        x=x_t, z=z_t, y=y_t, status=status, iters=iters, r_prim=r_p,
+        r_dual=r_d, obj=objective(qp64, x_t, z_t), rho=rho,
+        history=sol0.history), solved
+
+
+def _ref_f64_continuation(qp: QPData, sol: Solution, settings: Settings,
+                      backend: str, chunk: int = 2000) -> Solution:
+    """Chunked, warm-started f64 endgame for an SOC problem that the
+    shared pass left unsolved.
+
+    Degenerate min-fuel SOCPs (cost linear in the cone's t, most blocks
+    at the tip at the optimum) defeat every f32 stage: the f32 phase
+    chatters far above the hand-off and the re-centred rounds are built
+    around a point too far out for their tip/boundary classification.
+    Plain f64 ADMM with the SOC-row rho boost does converge, so this
+    continues in f64 on the problem's device, warm-started, in chunks of
+    `chunk` iterations, for at most one more max_iter budget.
+
+    The stall exit is off inside a chunk (chatter would freeze a
+    transient). rho carries across chunks as a Python float (run_admm's
+    rho0). With Settings.polish, a polish attempt (act_tol 1e-4) follows
+    every chunk, and the first SOLVED candidate ends the run. Otherwise
+    the run ends when a chunk ends other than MAX_ITER or the budget is
+    spent, and returns the best chunk-end point by max(r_prim, r_dual).
+
+    Unlike the reference, the run does not stop after two chunks without
+    a new best: chunk-end residuals chatter by an order of magnitude on
+    these problems, so that test ends runs that are converging (the JAX
+    package on the CPU quits config 4 at 10,525 iterations with MAX_ITER;
+    its own chunks, run on, land SOLVED at 16,525).
+    """
+    dtype, dev = qp.dtype, qp.device
+    qp64 = qp.astype(torch.float64)
+    x, z, y = clean64(sol.x), clean64(sol.z), clean64(sol.y)
+    rho = float(sol.rho.max())
+    if not (rho > 0.0 and math.isfinite(rho)):
+        rho = settings.rho
+    iters = int(sol.iters)
+    used = 0
+    out = sol
+    s_chunk = settings.replace(
+        precision="single", warm_start=True, polish=False,
+        recenter_rounds=0, max_iter=chunk, stall_checks=0)
+    best = float("inf")
+    while used < settings.max_iter:
+        ph = _ref_solve_one_phase(qp64, x, z, y, s_chunk, backend, rho0=rho)
+        done_it = int(ph.iters)
+        used += done_it
+        iters += done_it
+        if settings.polish:
+            pol = polish(qp64, ph, settings.eps_abs, settings.eps_rel,
+                         act_tol=1e-4)
+            if int(pol.status) == _SOLVED:
+                return _ref_cast(pol, dtype, iters=_ref_int32(iters, dev),
+                             rho=ph.rho, history=ph.history)
+        score = float(torch.maximum(ph.r_prim, ph.r_dual))
+        if score < best or int(ph.status) == _SOLVED:
+            best = score
+            out = dataclasses.replace(ph, iters=_ref_int32(iters, dev))
+        else:
+            out = dataclasses.replace(out, iters=_ref_int32(iters, dev))
+        if int(ph.status) != int(Status.MAX_ITER) or done_it == 0:
+            break
+        x, z, y = ph.x, ph.z, ph.y
+        rho = float(ph.rho.max())
+    # Every floating leaf in qp's dtype, history included (the reference
+    # leaves history in f64).
+    return _ref_cast(out, dtype)
+
+
+def _ref_warm_check(qp64: QPData, x0, z0, y0, eps_abs: float, eps_rel: float):
+    """f64 check of a user's warm start against the stopping criterion:
+    (r_prim, r_dual, solved, objective).
+
+    Besides the primal and dual residuals, solved requires
+    ‖z0 − Π(z0 + y0)‖∞ ≤ eps_p, with Π the cone prox at unit penalty.
+    That holds exactly when z0 lies in the constraint set and y0 in the
+    subdifferential of the cone term at z0 (box, L1 and SOC rows alike).
+    Without it a point with r_prim = r_dual = 0 but z0 outside its
+    bounds would pass.
+    """
+    _, _, r_p, r_d, eps_p, _, ok = admm.unscaled_criterion(
+        qp64, x0, z0, y0, eps_abs, eps_rel)
+    gap = admm.linf(z0 - project_cone(z0 + y0, qp64.l, qp64.u, qp64.lam,
+                                      qp64.cone))
+    return r_p, r_d, ok & (gap <= eps_p), objective(qp64, x0, z0)
+
+
+def _ref_solve_staged(qp: QPData, x0, z0, y0, settings: Settings,
+                  backend: str) -> Solution:
+    """The staged hybrid path: f32 phase → polish at 10·hybrid_eps →
+    re-centred f32 rounds (polish after each) → f64 phase → polish."""
+    f32, f64 = torch.float32, torch.float64
+    dtype = qp.dtype
+    sol32 = _ref_solve_one_phase(qp.astype(f32), x0.to(f32), z0.to(f32),
+                             y0.to(f32), _ref_s32_of(settings), backend)
+    qp64 = qp.astype(f64)
+    sol32_64 = Solution(
+        x=clean64(sol32.x), z=clean64(sol32.z), y=clean64(sol32.y),
+        status=sol32.status, iters=_ref_int32(0, qp.device),
+        r_prim=sol32.r_prim.to(f64), r_dual=sol32.r_dual.to(f64),
+        obj=sol32.obj.to(f64), rho=sol32.rho.to(f64),
+        history=sol32.history.to(f64))
+
+    def do_polish(sol_p, act_tol):
+        return polish(qp64, sol_p, settings.eps_abs, settings.eps_rel,
+                      act_tol=act_tol)
+
+    if settings.polish:
+        pol = do_polish(sol32_64, 10.0 * settings.hybrid_eps)
+        if int(pol.status) == _SOLVED:
+            return _ref_finish(pol, sol32, dtype)
+
+    if settings.recenter_rounds > 0:
+        tp = ((lambda cand: do_polish(cand, 1e-4))
+              if settings.polish else None)
+        sol_r, solved_r = _ref_recentered_rounds(qp, qp64, sol32_64, settings,
+                                             backend, try_polish=tp)
+        if solved_r:
+            if settings.polish:
+                pol = do_polish(sol_r, 1e-4)
+                if int(pol.status) == _SOLVED:
+                    return _ref_finish(
+                        dataclasses.replace(pol, iters=sol_r.iters), sol32,
+                        dtype)
+            return _ref_finish(sol_r, sol32, dtype)
+        sol32_64 = sol_r            # warm-start the f64 phase from it
+
+    s64 = settings.replace(precision="single", warm_start=True,
+                           polish=False)
+    sol64 = _ref_solve_one_phase(qp64, sol32_64.x, sol32_64.z, sol32_64.y, s64,
+                             backend)
+    if settings.polish:
+        sol64 = dataclasses.replace(do_polish(sol64, 1e-4),
+                                    iters=sol64.iters)
+    return _ref_finish(sol64, sol32, dtype)
+
+
+def _ref_solve(qp: QPData, settings: Settings = Settings(),
+          x0=None, z0=None, y0=None) -> Solution:
+    """Solve one QP/SOCP, optionally warm-started from an unscaled
+    (x0, z0, y0).
+
+    A warm start that already meets the stopping criterion is returned
+    as SOLVED at 0 iterations. 'single' and 'double' precision run one
+    phase of run_admm. 'hybrid' (the default) runs box-only and SOC
+    problems through solve_batch_shared at batch 1 (at least 4 rounds
+    for SOC), and an SOC problem left unsolved there through
+    `_f64_continuation`; L1 problems and recenter_rounds=0 take the
+    staged path (module docstring).
+    """
+    if (qp.P.dim() != 2 or qp.A.dim() != 2 or qp.q.dim() != 1
+            or qp.l.dim() != 1 or qp.u.dim() != 1):
+        raise ValueError(
+            "solve takes one problem (P (n, n), A (m, n), q (n,), l and u "
+            "(m,)); for a batch that shares (P, A) use solve_batch_shared")
+    cone = qp.cone
+    dtype, dev = qp.dtype, qp.device
+    warm_given = x0 is not None and z0 is not None and y0 is not None
+    if x0 is None:
+        x0 = torch.zeros(qp.n, dtype=dtype, device=dev)
+    if z0 is None:
+        z0 = torch.zeros(qp.m, dtype=dtype, device=dev)
+    if y0 is None:
+        y0 = torch.zeros_like(z0)
+    backend = resolve_backend(settings, dev, qp.n)
+
+    if warm_given and settings.warm_start:
+        f64 = torch.float64
+        r_p, r_d, ok, obj = _ref_warm_check(
+            qp.astype(f64), x0.to(f64), z0.to(f64), y0.to(f64),
+            settings.eps_abs, settings.eps_rel)
+        if bool(ok):
+            return Solution(
+                x=x0, z=z0, y=y0, status=_ref_int32(_SOLVED, dev),
+                iters=_ref_int32(0, dev),
+                r_prim=r_p.to(dtype), r_dual=r_d.to(dtype),
+                obj=obj.to(dtype),
+                rho=torch.tensor(settings.rho, dtype=dtype, device=dev),
+                history=torch.zeros((0, 3), dtype=dtype, device=dev))
+
+    if settings.precision != "hybrid":
+        return _ref_solve_core(qp, x0, z0, y0, settings, backend)
+    if settings.recenter_rounds == 0 or (cone.m_l1 and not cone.m_soc):
+        return _ref_solve_staged(qp, x0, z0, y0, settings, backend)
+
+    qpb = QPData(P=qp.P, q=qp.q, A=qp.A, l=qp.l[None], u=qp.u[None],
+                 lam=qp.lam, cone=cone)
+    s_del = settings
+    if cone.m_soc:
+        # SOC corrections converge geometrically per round; the default
+        # 2 rounds can stop just above an absolute target.
+        s_del = settings.replace(
+            recenter_rounds=max(settings.recenter_rounds, 4))
+    solb = _ref_solve_batch_shared(qpb, s_del, x0=x0[None], z0=z0[None],
+                              y0=y0[None])
+    sol = Solution(
+        x=solb.x[0], z=solb.z[0], y=solb.y[0], status=solb.status[0],
+        iters=solb.iters[0], r_prim=solb.r_prim[0], r_dual=solb.r_dual[0],
+        obj=solb.obj[0], rho=solb.rho, history=solb.history)
+    # Box-only problems return without reading the status; only SOC
+    # problems, whose f32 machinery can fail wholesale, continue in f64.
+    if not cone.m_soc or int(sol.status) in (_SOLVED, *_INFEASIBLE):
+        return sol
+    return _ref_f64_continuation(qp, sol, settings, backend)
+
+
+def _ref_solve_batch(qp_batch: QPData, settings: Settings = Settings(),
+                x0=None, z0=None, y0=None) -> Solution:
+    """Solve a batch of independent problems: every leaf of `qp_batch`
+    carries a leading lane axis (P (B, n, n), A (B, m, n), q (B, n),
+    l and u (B, m), lam (B, m_l1)); x0, z0, y0 likewise when given.
+
+    One lockstep loop over the lanes (core.admm.run_admm_lanes) runs
+    `_solve_core`'s pipeline, each lane with its own scaling, rho,
+    factor and status; a lane that exits freezes with its own honest
+    iteration count, and the loop runs to the slowest lane. There is no
+    polish and no re-centred rounds, unlike `solve`. Lanes that share
+    (P, A) are solved faster by `solve_batch_shared` (one shared factor).
+    """
+    if qp_batch.P.dim() != 3 or qp_batch.A.dim() != 3:
+        raise ValueError(
+            "solve_batch takes a batch of problems (P (B, n, n), A (B, m, "
+            "n), q (B, n), l and u (B, m)); for one problem use solve")
+    B, n, m = qp_batch.P.shape[0], qp_batch.n, qp_batch.m
+    dtype, dev = qp_batch.dtype, qp_batch.device
+    for name, shape in (("A", (B, m, n)), ("q", (B, n)), ("l", (B, m)),
+                        ("u", (B, m)), ("lam", (B, qp_batch.cone.m_l1))):
+        if tuple(getattr(qp_batch, name).shape) != shape:
+            raise ValueError(f"solve_batch: {name} has shape "
+                             f"{tuple(getattr(qp_batch, name).shape)}, "
+                             f"expected {shape}")
+    backend = resolve_backend(settings, dev, n)
+    if backend == "pallas_cg":
+        raise ValueError(
+            "backend 'pallas_cg' takes one shared M per launch; solve "
+            "lanes that share (P, A) with solve_batch_shared")
+    if x0 is None:
+        x0 = torch.zeros((B, n), dtype=dtype, device=dev)
+    if z0 is None:
+        z0 = torch.zeros((B, m), dtype=dtype, device=dev)
+    if y0 is None:
+        y0 = torch.zeros_like(z0)
+    return _ref_solve_core(qp_batch, x0, z0, y0, settings, backend)
