@@ -9,9 +9,11 @@ problem or a lockstep batch of independent ones),
 (`parallel.consensus.run_consensus`, `consensus_mc.run_consensus_mc`,
 `horizon._run_horizon`) stays, and on the card each of its checks is
 one CUDA graph replay. The host still
-reads one small flag tensor a check. `parallel.rowshard.
-solve_rowsharded` replays a few graphs an iteration instead: its CG
-stops on a flag the host reads every ops/kkt._CG_CHECK steps.
+reads one small flag tensor a check. On the matrix-free CGs
+(`parallel.rowshard.solve_rowsharded`, and the phases of `run_phase`
+and the batch loop on 'cg') a loop replays a few graphs an iteration
+instead: the CG stops on a flag the host reads every
+ops/kkt._CG_CHECK steps.
 
 A check is `step(state, variant) -> updates`: `state` is a dict of
 tensors (one level of nested dicts allowed: the problem data, the
@@ -24,7 +26,9 @@ blocks of its CG, ("tail",) iteration ends and ("check", restart,
 rho_test) checks, one graph each; `parallel.batch`'s loop and
 `core.admm.run_phase` run a ("prologue",) (cast, scaling, factor and
 starting carry from the raw data), their checks, ("refactor",) segments
-and an ("epilogue",) (the unscale and the objective), and the drivers
+and an ("epilogue",) (the unscale and the objective), on 'cg' each
+check's iterations before it as ("head", first), ("cg", steps) and
+("tail", first) segments (core.admm.CG_SEGMENTS), and the drivers
 above them (the shared batch's re-centred rounds, `api`'s staged
 rounds) their own round segments; `api`'s polish and warm-start check
 are loops of one segment each. A segment may add entries to the
@@ -36,8 +40,9 @@ shape and coordinates, never by identity). A step makes no host read and
 keeps no host counter: what it counts lives in the state.
 
 `CheckLoop` runs a loop's checks. Where `capturable` says no (CPU
-tensors, an eager-only backend, a mesh axis of size > 1) it applies
-each step's updates to a plain dict, the plain version of this module.
+tensors, an eager-only backend or loop, a mesh axis of size > 1) it
+applies each step's updates to a plain dict, the plain version of this
+module.
 Where it says yes, the state lives in static buffers owned by an entry
 of a `CheckCache`, keyed by `check_key`; a later loop with the same key
 copies its data and starting carry into them. An entry's very first
@@ -62,17 +67,27 @@ import time
 import torch
 
 # Backends whose check has no host read: one product ('inv'), two
-# triangular solves ('chol'), or block sweeps whose trip counts are
-# static shapes ('banded': two sweeps over the N blocks; 'spike': batched
+# triangular solves ('chol'), block sweeps whose trip counts are static
+# shapes ('banded': two sweeps over the N blocks; 'spike': batched
 # interior products and a sweep over the separator blocks; a check of
-# config 2 on 'banded' is a graph of ~61,000 nodes); and the matrix-free
-# CG of parallel/rowshard ('rowshard_cg'), whose loop runs as segments
-# that the host sequences: blocks of ops/kkt._CG_CHECK steps between
-# reads of its stop flag, iteration tails and checks. The KKT backends
-# 'cg' (its loop condition read inside a check, every _CG_CHECK steps)
-# and 'pallas_cg' (kernel 2's launches counted in Python) stay eager.
-CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike",
+# config 2 on 'banded' is a graph of ~61,000 nodes), one launch of
+# kernel 2 an iteration ('pallas_cg', counted at each replay); and the
+# matrix-free CGs, whose loops run as segments that the host sequences:
+# blocks of ops/kkt._CG_CHECK steps between reads of the CG's stop flag
+# (parallel/rowshard's 'rowshard_cg'; ops/kkt's 'cg' in the loops of
+# CG_LOOPS only).
+CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike", "pallas_cg", "cg",
                      "rowshard_cg")
+
+# The loops in which 'cg' is captured: the phases of `api.solve`,
+# `solve_batch` and `solve_batch_shared` (core.admm.run_phase,
+# parallel.batch._run_batch), which run its CG as host-sequenced
+# segments, and the other loops of those solves, which run no CG. The
+# consensus drivers' checks call ops/kkt.cg_solve, whose host reads sit
+# inside the check: they stay eager on 'cg'.
+CG_LOOPS = ("run_admm", "run_admm_lanes", "run_admm_batch_shared",
+            "solve_shared_recentered", "recentered_rounds", "polish",
+            "warm_check")
 
 # Entries of the default cache; the oldest is dropped beyond this.
 CACHE_SIZE = 16
@@ -88,13 +103,15 @@ CHECK_FIELDS = (
     "stall_checks", "history")
 
 
-def capturable(device, backend: str, mesh=None) -> bool:
-    """Whether the checks of a loop on `device` with `backend` and
-    `mesh` are captured: a CUDA device, a backend of CAPTURED_BACKENDS,
-    and no mesh axis of size > 1 (collectives and `runtime.agree` stay
-    eager; a 1-rank mesh makes no call and is captured like none)."""
+def capturable(device, backend: str, mesh=None, kind=None) -> bool:
+    """Whether the checks of a loop of `kind` on `device` with `backend`
+    and `mesh` are captured: a CUDA device, a backend of
+    CAPTURED_BACKENDS ('cg' only for a kind of CG_LOOPS), and no mesh
+    axis of size > 1 (collectives and `runtime.agree` stay eager; a
+    1-rank mesh makes no call and is captured like none)."""
     return (torch.device(device).type == "cuda"
             and backend in CAPTURED_BACKENDS
+            and (backend != "cg" or kind in CG_LOOPS)
             and (mesh is None or all(s == 1 for s in mesh.shape.values())))
 
 
@@ -310,7 +327,14 @@ class CheckCache:
 
     def stream(self, device):
         if device not in self.streams:
-            self.streams[device] = torch.cuda.Stream(device)
+            stream = torch.cuda.Stream(device)
+            # The stream's cuBLAS handle and workspace, made here: a
+            # segment captured before any eager product on this stream
+            # would make them inside its capture, which fails (the 'cg'
+            # backend's first CG head; its prologue runs no product).
+            with torch.cuda.stream(stream):
+                torch.cuda.current_blas_handle()
+            self.streams[device] = stream
         return self.streams[device]
 
     def clear(self):
@@ -335,7 +359,7 @@ class CheckLoop:
     def __init__(self, kind, step, state, settings, backend, mesh=None,
                  pre=None, capture=None, cache=None, **static):
         dev = next(t for _, t in _leaves(state)).device
-        allowed = capturable(dev, backend, mesh)
+        allowed = capturable(dev, backend, mesh, kind)
         if capture and not allowed:
             raise ValueError(f"a check on {dev} with backend {backend!r} "
                              "and this mesh is not captured")

@@ -33,10 +33,12 @@ import torch
 from ..problem import mv, vm
 from . import banded as banded_ops
 from . import spike as spike_ops
+from . import pallas_cg
 from .pallas_cg import pallas_cg_solve
 
 # Lockstep CG reads its loop condition from the device every this many
-# steps; extra steps with every lane frozen leave x unchanged.
+# steps (`cg_blocks`); extra steps with every lane frozen leave x
+# unchanged.
 _CG_CHECK = 8
 
 
@@ -62,8 +64,10 @@ def factor_condensed(P, A, sigma, rho_vec, backend: str, band_block: int = 0,
     ('banded') or the spike_factor leaves ('spike'); M alone
     ('pallas_cg'); or the operator pieces P, A, rho, sigma ('cg')."""
     if backend == "cg":
+        # A fill, not a host-to-device copy: a captured prologue holds it.
         return {"P": P, "A": A, "rho": rho_vec,
-                "sigma": torch.tensor(sigma, dtype=P.dtype, device=P.device)}
+                "sigma": torch.full((), sigma, dtype=P.dtype,
+                                    device=P.device)}
     M = condensed_matrix(P, A, sigma, rho_vec)
     if backend == "pallas_cg":
         # CG needs exact symmetry, which the product's rounding need not
@@ -122,18 +126,33 @@ def _matvec_M(fac, v):
     return mv(fac["P"], v) + fac["sigma"] * v + vm(fac["rho"] * Av, fac["A"])
 
 
-def cg_solve(fac, rhs, x0=None, tol: float = 1e-9, max_iter: int = 200):
-    """Lockstep conjugate gradient on M x = rhs, all lanes of rhs's
-    leading dims together; a lane freezes once ‖r‖² ≤ tol²·max(‖rhs‖², 1).
-    Runs until every lane froze or max_iter steps."""
+def cg_blocks(max_iter: int):
+    """The step counts of the blocks of one CG solve: `_CG_CHECK` steps
+    each, the last one shorter where max_iter is not a multiple."""
+    full, rest = divmod(max_iter, _CG_CHECK)
+    return [_CG_CHECK] * full + ([rest] if rest else [])
+
+
+def cg_start(fac, rhs, x0=None, tol: float = 1e-9):
+    """The start of a lockstep CG solve of M x = rhs: the state dict (x,
+    r, p, rs, tol2) that `cg_steps` advances."""
     x = torch.zeros_like(rhs) if x0 is None else x0
     r = rhs - _matvec_M(fac, x)
-    p = r
-    rs = (r * r).sum(-1)
-    tol2 = (tol * tol) * torch.clamp((rhs * rhs).sum(-1), min=1.0)
-    for it in range(max_iter):
-        if it % _CG_CHECK == 0 and not bool((rs > tol2).any()):
-            break
+    return dict(x=x, r=r, p=r, rs=(r * r).sum(-1),
+                tol2=(tol * tol) * torch.clamp((rhs * rhs).sum(-1), min=1.0))
+
+
+def cg_live(cg):
+    """The CG's stop flag as the host reads it before a block: a 0-d
+    bool, true while a lane's residual is above its tolerance."""
+    return (cg["rs"] > cg["tol2"]).any()
+
+
+def cg_steps(fac, cg, steps: int):
+    """`steps` lockstep CG steps from the state dict `cg`; a lane freezes
+    once ‖r‖² ≤ tol²·max(‖rhs‖², 1) (its alpha and beta are 0)."""
+    x, r, p, rs, tol2 = (cg[k] for k in ("x", "r", "p", "rs", "tol2"))
+    for _ in range(steps):
         Mp = _matvec_M(fac, p)
         pMp = (p * Mp).sum(-1)
         active = rs > tol2
@@ -144,7 +163,31 @@ def cg_solve(fac, rhs, x0=None, tol: float = 1e-9, max_iter: int = 200):
         beta = torch.where(active, rs_new / torch.where(rs > 0, rs, 1.0), 0.0)
         p = r + beta[..., None] * p
         rs = torch.where(active, rs_new, rs)
-    return x
+    return dict(x=x, r=r, p=p, rs=rs, tol2=tol2)
+
+
+def cg_solve(fac, rhs, x0=None, tol: float = 1e-9, max_iter: int = 200):
+    """Lockstep conjugate gradient on M x = rhs, all lanes of rhs's
+    leading dims together; a lane freezes once ‖r‖² ≤ tol²·max(‖rhs‖², 1).
+    Runs the blocks of `cg_blocks(max_iter)` while the host's read of
+    `cg_live` before each says a lane is still above its tolerance: a
+    NaN residual counts as frozen. `core.admm` runs the same blocks as
+    segments of its loop."""
+    cg = cg_start(fac, rhs, x0, tol)
+    for steps in cg_blocks(max_iter):
+        if not bool(cg_live(cg)):
+            break
+        cg = cg_steps(fac, cg, steps)
+    return cg["x"]
+
+
+def prepare(backend: str, rows: int, n: int, dtype, device) -> None:
+    """The host-side set-up that a backend's solves of `rows` right-hand
+    sides of length n in `dtype` on `device` need before a capture meets
+    them: for 'pallas_cg' the kernel library and its launch plan
+    (`pallas_cg.prepare`); nothing for the others."""
+    if backend == "pallas_cg":
+        pallas_cg.prepare(rows, n, dtype, device)
 
 
 def solve_condensed(fac, rhs, backend: str, refine_steps: int = 0,

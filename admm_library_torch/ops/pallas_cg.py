@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ..core import graph
 from . import _build
 
 # The lane tiles and cluster sizes the kernels are compiled for: the
@@ -249,6 +250,21 @@ def device_plan(B: int, n: int, itemsize: int, index: int):
                 lambda C, t: _max_clusters(index, C, t, n, itemsize))
 
 
+def prepare(B: int, n: int, dtype, device) -> None:
+    """Load the kernel library and resolve `device_plan` for a (B, n)
+    solve in `dtype` on `device`, on the host: a loop whose checks launch
+    the kernel calls this before its first segment, so that no capture
+    meets the build, the library's loading or the card's occupancy
+    query for the first time. Nothing for a CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    _entry()
+    device_plan(B, n, dtype.itemsize,
+                torch.cuda.current_device() if device.index is None
+                else device.index)
+
+
 def _check_cuda(M, rhs2, x02):
     B, n = rhs2.shape
     for name, t, shape in (("M", M, (n, n)), ("rhs", rhs2, (B, n)),
@@ -298,7 +314,7 @@ def pallas_cg_solve_planned(M, rhs, x0=None, iters: int = 100,
     if rc != 0:
         raise RuntimeError(f"pallas_cg_solve: CUDA launch failed ({rc}: "
                            f"{err_str(rc).decode()}) for plan {plan}")
-    pallas_cg_solve.launches += 1
+    graph.count_launch(pallas_cg_solve)
     return out[0] if rhs.dim() == 1 else out
 
 
@@ -313,6 +329,7 @@ def pallas_cg_solve(M, rhs, x0=None, iters: int = 100, tol: float = 1e-7):
     return pallas_cg_solve_planned(M, rhs, x0, iters, tol)
 
 
-# Times a kernel was launched (one per call on CUDA tensors, either
-# design, from either entry point).
+# Times a kernel ran (either design, from either entry point): one per
+# call on CUDA tensors, or, for a call inside a captured graph
+# (core/graph.py), one per replay of that graph.
 pallas_cg_solve.launches = 0

@@ -42,7 +42,7 @@ import torch
 
 from ..core import admm, graph
 from ..core.scaling import ruiz_equilibrate
-from ..ops.kkt import _CG_CHECK
+from ..ops.kkt import cg_blocks
 from ..ops.prox import project_cone
 from ..precision import clean64
 from ..problem import ConeSpec, QPData
@@ -166,10 +166,9 @@ def cg_block(st, steps: int, sigma: float, mesh: Mesh):
 
 
 def cg_variants(max_iter: int):
-    """The CG blocks of one x-update: `_CG_CHECK` steps each, the last
-    one shorter where max_iter is not a multiple."""
-    full, rest = divmod(max_iter, _CG_CHECK)
-    return [("cg", _CG_CHECK)] * full + ([("cg", rest)] if rest else [])
+    """The CG blocks of one x-update (ops/kkt.cg_blocks): `_CG_CHECK`
+    steps each, the last one shorter where max_iter is not a multiple."""
+    return [("cg", steps) for steps in cg_blocks(max_iter)]
 
 
 def _cg_rowsharded(loop, blocks, mesh: Mesh):

@@ -6,7 +6,8 @@
 Run from the repository root on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 
-1. device    — the card's name and the nvidia-smi name/power-limit line;
+1. device    — the card's name and the nvidia-smi name/power-limit line,
+               and whether torch can capture a CUDA-graph IF node;
 2. build     — builds each csrc/*.cu with nvcc for sm_90a, all at once
                (ptxas register report);
 3. kernel    — the fused ADMM iteration kernel against its plain PyTorch
@@ -40,11 +41,15 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                2 (the rendezvous MPC of its bench, seed 0, n=450,
                m=456): SOLVED, f64 KKT residuals within the 1e-6 mixed
                criterion, 100 ± 25 and 750 ± 25 iterations, the kernel
-               launched, a rerun bitwise identical;
+               launched inside the captured check graphs, a rerun
+               bitwise identical that captures nothing, config 2 bitwise
+               the same solve with every segment eager;
 7. slice_pcg — the config-5 batch at 128 with backend='pallas_cg': every
                lane SOLVED, f64 KKT <= 1e-6, 350 ± 25 lockstep
-               iterations, the kernel launched, x within 5e-4 of the
-               'inv' path, a rerun bitwise identical;
+               iterations, the kernel launched inside the captured
+               check graphs, x within 5e-4 of the 'inv' path, a rerun
+               bitwise identical that captures nothing, bitwise the
+               same solve with every segment eager;
 8. solve_l1_soc — solve on config 3 (the CW min-fuel LP of the
                reference bench, seed 0, n=60, m=66; the staged path) with
                'auto' (= 'inv') and with 'pallas_cg', and on config 4
@@ -78,8 +83,24 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                held to _solve_core on the lane alone (status, iterations
                ± 25, x within 1e-6) and to solve (x within 1e-6), a
                rerun bitwise identical.
+12. cg_paths — the matrix-free 'cg' backend, every loop captured (its CG
+               as host-sequenced segments: a head, blocks of 8 steps with
+               the host's read of the CG's stop flag before each, a
+               tail): configs 1-3 through solve, the config-5 batch at
+               128 through solve_batch_shared and 128 config-1 draws
+               through solve_batch; every lane SOLVED within its f64
+               mixed criterion, iterations within 25 of the JAX
+               reference's with 'cg' on the CPU (configs 1, 2 and
+               solve_batch; configs 3 and 5, whose unconverged f32 CG
+               solves follow the card's rounding, reported), x within
+               X_AGREE of the 'inv' solve, a rerun bitwise identical that
+               captures nothing, configs 2, 3 and 5 bitwise the same
+               solve with every segment eager; wall-clock, graph nodes
+               and capture ms, the segments of a rerun, and (configs 1,
+               3 and solve_batch) from a profiled rerun the host's launch
+               calls and reads and the idle share.
 
-12. consensus — consensus_solve (parallel/consensus.py) on config 2's
+13. consensus — consensus_solve (parallel/consensus.py) on config 2's
                problem (seed 0) split into 10 horizon blocks, on a 1x1
                mesh on the card with no process group, at the bench's
                settings (eps 1e-6, rho_edge_scale 30): SOLVED at 1475 ±
@@ -89,19 +110,19 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                rerun bitwise identical; wall-clock of both runs, and
                kernels launched per iteration, device busy time and idle
                share from one run under torch.profiler;
-13. consensus_mc — the reference's consensus_mc_1024 cell at full width
+14. consensus_mc — the reference's consensus_mc_1024 cell at full width
                (1024 scenarios, the JAX draw of the dispersions in
                models/consensus_mc_s0_seed0.npz): every lane SOLVED at
                1525 ± 25 lockstep iterations, per-lane min / median /
                max beside the reference's 1375 and 1525, controls of 8
                lanes within X_AGREE of their monolithic f64 solves, the
-               copies and the rerun as in phase 12. Both print, for
+               copies and the rerun as in phase 13. Both print, for
                scale, phase 4's b1024 and phase 10's wall-clock.
 
-14. data_axis — config 5 at 1024 through the data axis at one rank:
+15. data_axis — config 5 at 1024 through the data axis at one rank:
                shard_batch on make_data_mesh(1), solve_batch_shared(...,
                mesh=): bitwise phase 4's solve, the kernel launched;
-15. rowshard — the reference's rowshard_qp4096 cell (n=4096, m=8192, f32
+16. rowshard — the reference's rowshard_qp4096 cell (n=4096, m=8192, f32
                data, eps 1e-6) on the port's own seeded draw, through
                solve_rowsharded_hybrid on a 1-rank data mesh, its loop
                as captured graphs: SOLVED at the eager loop's 250
@@ -113,7 +134,7 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                nodes per graph, peak memory, the host's reads and launch
                calls an iteration, iterations beside the TPU's on JAX's
                draw, and one profiled run;
-16. horizon_sharded — config 5 at 1024 (the JAX dispersions) in 10 time
+17. horizon_sharded — config 5 at 1024 (the JAX dispersions) in 10 time
                parts through solve_horizon_sharded on a 1x1 mesh: in f64
                under the reference test's plain settings every lane
                SOLVED at solve_batch_shared's iterations (backend
@@ -121,10 +142,12 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                reference gate's settings every lane SOLVED at 125 ± 25
                lockstep iterations (JAX on the CPU); reruns bitwise, one
                profiled run each;
-17. checkpoint — phase 4's b128 solution saved (utils/checkpoint), loaded
+18. checkpoint — phase 4's b128 solution saved (utils/checkpoint), loaded
                back onto the card and resumed: SOLVED within one check;
-18. graph    — the captured residual checks (core/graph.py) on configs 3
-               and 4 and the config-5 batch at 128 and 1024, each from an
+19. graph    — the captured residual checks (core/graph.py) on configs 3
+               and 4 (and config 3 on 'pallas_cg', config 1 on 'cg': the
+               new segments' nodes and capture ms) and the config-5
+               batch at 128 and 1024, each from an
                empty cache and on a rerun: captures, replays, warm-ups,
                capture ms, device operations per graph, and from one
                profiled rerun the host's launch calls and the idle share
@@ -144,13 +167,15 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                horizon_spike_1024's.
 
 Every solve above runs its checks as captured graphs where the capture
-rule admits its backend ('inv', 'chol', 'banded', 'spike', and the
-row-sharded CG) and mesh (none, or 1 rank). A kernel's launches count
-the times it ran: one per eager launch, and one per replay of a graph
-that holds it.
-Phases 9-17 run no kernel of their own: their backends are plain
+rule admits its backend ('inv', 'chol', 'banded', 'spike', 'pallas_cg',
+'cg' outside the consensus drivers, and the row-sharded CG) and mesh
+(none, or 1 rank). Config 3's 'pallas_cg' solve is held bitwise to the
+same solve with every segment eager, kernel 2 launched as often. A
+kernel's launches count the times it ran: one per eager launch, and one
+per replay of a graph that holds it.
+Phases 9-18 run no kernel of their own: their backends are plain
 PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
-to (phase 14 runs the fused kernel on its lanes).
+to (phase 15 runs the fused kernel on its lanes).
 
 Any failed check raises, so the script exits non-zero and prints no
 result. Its last line is {"ok": true, "device": {...}}.
@@ -174,6 +199,21 @@ REFERENCE_ITERS = 350
 # through solve, config 5 at batch 128 through solve_batch_shared.
 PCG_REFERENCE_ITERS = {"config1": 100, "config2": 750, "config5": 350}
 ITER_SLACK = 25                # one check interval
+# The JAX reference with backend='cg' on the CPU, on the data each cg
+# path builds: configs 1-3 through solve, config 5 at batch 128 through
+# solve_batch_shared (lockstep), BATCH_LANES config-1 draws through
+# solve_batch at BATCH_EPS (lockstep). The f32 phases' CG solves never
+# reach cg_tol (1e-9) in f32, so each runs all cg_max_iter steps and the
+# trajectory follows the rounding of the products: on the card config 3
+# takes 550 and config 5 350. Those two counts are reported and held to
+# the same solve with every segment eager, as config 3's on 'pallas_cg';
+# the others to ITER_SLACK.
+CG_REFERENCE_ITERS = {"config1": 100, "config2": 750, "config3": 600,
+                      "config5": 400, "solve_batch": 200}
+CG_ITERS_HELD = ("config1", "config2", "solve_batch")
+# The cg paths profiled in phase cg_paths (a few hundred thousand kernel
+# records each).
+CG_PROFILED = ("config1", "config3", "solve_batch")
 # The JAX reference on the CPU, through solve at the bench settings:
 # config 3 (bench_cw, seed 0) with 'inv'. With 'pallas_cg' the count is
 # reported and not held: no 200-step f32 CG solve of the f32 phase
@@ -235,6 +275,10 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # launches (plain, cooperative, extended) and CUDA graph launches.
 HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                      "cuGraphLaunch")
+# The host's wait for the card at each read of a device value (.item(),
+# .tolist(), a device-to-host copy), as CUPTI names it: host_syncs
+# counts the host's reads.
+HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cuStreamSynchronize")
 # Config 4's whole solve (f32 pass, rounds, f64 fallback, chunks, their
 # prologues and polish) under the captured checks: host launches an
 # iteration.
@@ -364,9 +408,16 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    # Whether this torch can capture a CUDA-graph IF node, which would
+    # keep the 'cg' backend's stop test on the card (core/admm.py runs
+    # it as host-sequenced segments).
+    if_node = all(hasattr(torch.cuda.CUDAGraph, name) for name in (
+        "get_currently_capturing_graph", "begin_capture_to_if_node",
+        "end_capture_to_conditional_node"))
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvidia_smi=smi)
+         cuda=torch.version.cuda, nvidia_smi=smi,
+         cuda_graph_if_node=if_node)
     return smi
 
 
@@ -678,10 +729,35 @@ def _timed_solve(qp, settings):
     return sol, secs, launches["fused_iterate_shared"]
 
 
+class _SegmentCount:
+    """Counts the segments that every graph.CheckLoop runs inside the
+    block, by name: 'check' for a residual check, else the variant's
+    first element (the 'cg' backend's 'head', 'cg' and 'tail'; 'prologue',
+    ...). On 'cg' each 'cg' block follows one host read of the CG's stop
+    flag."""
+
+    def __enter__(self):
+        from admm_library_torch.core import graph
+        self.cls, self.real = graph.CheckLoop, graph.CheckLoop.__call__
+        self.counts = {}
+        counts, real = self.counts, self.real
+
+        def call(loop, variant):
+            name = "check" if graph.is_check(variant) else variant[0]
+            counts[name] = counts.get(name, 0) + 1
+            return real(loop, variant)
+        self.cls.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.real
+
+
 def _captured_runs(fn, *args, reruns=1):
     """fn(*args) from an empty check cache, then `reruns` reruns: every
     result, and a record of the captured checks (core/graph.py) with
-    each run's wall-clock, kernel launches and graph.CACHE.stats deltas
+    each run's wall-clock, kernel launches, segments run by name
+    (`_SegmentCount`) and graph.CACHE.stats deltas
     (captures, replays, warm-ups, capture ms; `graph_rerun` the last
     rerun, `graph_reruns` each where there are more), the cache's
     entries, the nodes of each graph (counted after the last run, so
@@ -695,10 +771,13 @@ def _captured_runs(fn, *args, reruns=1):
     sols, runs = [], []
     for _ in range(1 + reruns):
         before = dict(graph.CACHE.stats)
-        sol, wall, launches = _timed_run(fn, *args)
+        with _SegmentCount() as segments:
+            sol, wall, launches = _timed_run(fn, *args)
         sols.append(sol)
-        runs.append(dict(wall_s=wall, launches=launches, **{
-            k: graph.CACHE.stats[k] - before[k] for k in before}))
+        runs.append(dict(wall_s=wall, launches=launches,
+                         segments=segments.counts, **{
+                             k: graph.CACHE.stats[k] - before[k]
+                             for k in before}))
     rec = dict(graph_first=runs[0], graph_rerun=runs[-1],
                graph_entries=len(graph.CACHE.entries),
                nodes_per_graph=_graph_nodes(),
@@ -706,6 +785,50 @@ def _captured_runs(fn, *args, reruns=1):
     if reruns > 1:
         rec["graph_reruns"] = runs[1:]
     return sols, rec
+
+
+def _capture_off(fn, *args):
+    """fn(*args) with `graph.capturable` forced off, every segment eager:
+    (result, seconds, launches of each kernel)."""
+    from admm_library_torch.core import graph
+    real = graph.capturable
+    graph.capturable = lambda *a, **k: False
+    try:
+        return _timed_run(fn, *args)
+    finally:
+        graph.capturable = real
+
+
+def _captured_fields(tag, sols, rec, fn, *args, twin=False):
+    """The captured-path bars of a solve's `_captured_runs` (a first run
+    from an empty cache and a rerun): it captured and replayed, the
+    rerun is bitwise the first run and captured and warmed nothing; with
+    `twin`, the same solve with every segment eager is bitwise the
+    captured one and launched each kernel as often. Returns the record's
+    fields."""
+    out = dict(wall_s=rec["graph_first"]["wall_s"],
+               wall_rerun_s=rec["graph_rerun"]["wall_s"],
+               launches=rec["graph_first"]["launches"],
+               rerun_bitwise_identical=_bitwise(sols[0], sols[1]),
+               graph_first=rec["graph_first"],
+               graph_rerun=rec["graph_rerun"])
+    _check_captured(tag, rec)
+    check(rec["graph_rerun"]["captures"] == 0,
+          f"{tag}: the rerun captured a variant")
+    check(out["rerun_bitwise_identical"], f"{tag}: rerun not bitwise "
+          "identical")
+    check(rec["graph_rerun"]["launches"] == out["launches"],
+          f"{tag}: the rerun launched the kernels another number of times")
+    if twin:
+        eager, wall, launches = _capture_off(fn, *args)
+        out.update(eager_wall_s=wall, eager_launches=launches,
+                   captured_is_eager_bitwise=_bitwise(sols[0], eager))
+        check(out["captured_is_eager_bitwise"],
+              f"{tag}: the captured solve differs from the capture-off one")
+        check(launches == out["launches"],
+              f"{tag}: kernel launches differ between the captured and "
+              "the capture-off solve")
+    return out
 
 
 def _check_captured(tag, rec):
@@ -1077,20 +1200,20 @@ def phase_solve(dev):
         qp = qp32.astype(torch.float64)
         s = Settings(eps_abs=EPS, eps_rel=EPS, band_block=band,
                      backend="pallas_cg")
-        sol, wall, launches = _timed_run(solve, qp, s)
-        sol2, wall2, _ = _timed_run(solve, qp, s)
+        sols, graph_rec = _captured_runs(solve, qp, s)
+        sol = sols[0]
+        fields = _captured_fields(f"solve {name}", sols, graph_rec, solve,
+                                  qp, s, twin=name == "config2")
+        launches = fields["launches"]
         inv = solve(qp, s.replace(backend="inv"))
         r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
         iters = int(sol.iters)
         ref_iters = PCG_REFERENCE_ITERS[name]
-        bitwise = all(torch.equal(getattr(sol, f), getattr(sol2, f))
-                      for f in ("x", "z", "y", "status", "iters", "r_prim",
-                                "r_dual"))
         rec = dict(config=name, n=qp.n, m=qp.m, status=sol.status_name(),
                    iters=iters, reference_iters=ref_iters,
                    kkt_r_prim=r_p, kkt_r_dual=r_d, eps_prim=eps_p,
-                   eps_dual=eps_d, wall_s=wall, wall_rerun_s=wall2,
-                   launches=launches, rerun_bitwise_identical=bitwise,
+                   eps_dual=eps_d, **fields,
+                   nodes_per_graph=graph_rec["nodes_per_graph"],
                    inv_status=inv.status_name(), inv_iters=int(inv.iters),
                    inv_x_max_abs_diff=float((sol.x - inv.x).abs().max()))
         if name == "config2":
@@ -1104,7 +1227,6 @@ def phase_solve(dev):
               f"{name}: {iters} iterations, reference {ref_iters}")
         check(launches["pallas_cg_solve"] > 0,
               f"{name}: the PCG kernel never launched")
-        check(bitwise, f"{name}: rerun not bitwise identical")
         check(rec["inv_x_max_abs_diff"] <= X_AGREE,
               f"{name}: 'pallas_cg' and 'inv' solutions disagree")
         check(rec.get("rollout_terminal_err", 0.0) <= ROLLOUT_TOL,
@@ -1123,23 +1245,22 @@ def phase_slice_pcg(dev):
     qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(batch),
                                     device=dev)[0].astype(torch.float64)
     s = Settings(eps_abs=EPS, eps_rel=EPS, backend="pallas_cg")
-    sol, wall, launches = _timed_run(solve_batch_shared, qp, s)
-    sol2, wall2, _ = _timed_run(solve_batch_shared, qp, s)
+    sols, graph_rec = _captured_runs(solve_batch_shared, qp, s)
+    sol = sols[0]
+    fields = _captured_fields("pcg batch", sols, graph_rec,
+                              solve_batch_shared, qp, s, twin=True)
+    launches = fields["launches"]
     inv = solve_batch_shared(qp, s.replace(backend="inv"))
     r_p, r_d, _ = kkt_residuals(qp, sol.x, sol.z, sol.y)
     lockstep = int(sol.iters.max())
     ref_iters = PCG_REFERENCE_ITERS["config5"]
     solved = int((sol.status == int(Status.SOLVED)).sum())
-    bitwise = all(torch.equal(getattr(sol, f), getattr(sol2, f))
-                  for f in ("x", "z", "y", "status", "iters", "r_prim",
-                            "r_dual"))
     rec = dict(batch=batch, n=qp.n, m=qp.m, solved=solved,
                lockstep_iters=lockstep, reference_iters=ref_iters,
                iters_lane_mean=float(sol.iters.float().mean()),
                kkt_r_prim_max=float(r_p.max()),
-               kkt_r_dual_max=float(r_d.max()), wall_s=wall,
-               wall_rerun_s=wall2, launches=launches,
-               rerun_bitwise_identical=bitwise,
+               kkt_r_dual_max=float(r_d.max()), **fields,
+               nodes_per_graph=graph_rec["nodes_per_graph"],
                inv_lockstep_iters=int(inv.iters.max()),
                inv_x_max_abs_diff=float((sol.x - inv.x).abs().max()))
     emit("slice_pcg", **rec)
@@ -1150,10 +1271,131 @@ def phase_slice_pcg(dev):
           f"pcg batch: {lockstep} lockstep iterations, reference {ref_iters}")
     check(launches["pallas_cg_solve"] > 0,
           "pcg batch: the PCG kernel never launched")
-    check(bitwise, "pcg batch: rerun not bitwise identical")
     check(rec["inv_x_max_abs_diff"] <= X_AGREE,
           "pcg batch: 'pallas_cg' and 'inv' solutions disagree")
     return rec
+
+
+def _lane(qp, i):
+    """Lane i of a batch: the leaves with a lane axis sliced, the shared
+    ones (a shared-matrix batch's P, A, q, lam) as they are."""
+    from admm_library_torch import QPData
+    ndim = dict(P=2, q=1, A=2, l=1, u=1, lam=1)
+    return QPData(**{f: getattr(qp, f)[i] if getattr(qp, f).dim() > d
+                     else getattr(qp, f) for f, d in ndim.items()},
+                  cone=qp.cone)
+
+
+def _kkt_within(qp, sol, eps):
+    """Whether every lane's (or the one problem's) f64 KKT residuals lie
+    within its mixed criterion at eps, and the largest ratio of a
+    residual to its threshold."""
+    import types
+    if sol.x.dim() == 1:
+        pairs = [(qp, sol)]
+    else:
+        pairs = [(_lane(qp, i), types.SimpleNamespace(
+            x=sol.x[i], z=sol.z[i], y=sol.y[i]))
+                 for i in range(sol.x.shape[0])]
+    worst = 0.0
+    for q, one in pairs:
+        r_p, r_d, eps_p, eps_d = _mixed_kkt(q, one, eps, eps)
+        worst = max(worst, r_p / eps_p, r_d / eps_d)
+    return worst <= 1.0, worst
+
+
+def _cg_segments(nodes):
+    """The node counts of the 'cg' backend's segments among a cache's
+    graphs (`_graph_nodes`): head, CG block and tail graphs."""
+    return {k: v for k, v in nodes.items()
+            if any(f"('{name}'," in k for name in ("head", "cg", "tail"))}
+
+
+def phase_cg_paths(dev):
+    """The matrix-free 'cg' backend at full width, every loop captured
+    (its CG as host-sequenced segments: a head, blocks of 8 steps with
+    the host's read of the stop flag before each, a tail): configs 1-3
+    through solve, the config-5 batch at 128 through solve_batch_shared
+    and BATCH_LANES config-1 draws through solve_batch. Each SOLVED in
+    every lane with f64 KKT within the mixed criterion, iterations
+    within ITER_SLACK of the JAX reference's with 'cg' (CG_ITERS_HELD),
+    x within X_AGREE of the 'inv' solve, a rerun bitwise and capturing
+    nothing; configs 2, 3 and 5 bitwise the same solve with every
+    segment eager. Reports
+    wall-clock, the graphs' nodes and capture ms, the segments of a
+    rerun by name, and for CG_PROFILED from a profiled rerun the host's
+    launch calls and reads (stream synchronisations) and the idle share."""
+    import torch
+    from admm_library_torch import (QPData, Settings, Status, solve,
+                                    solve_batch, solve_batch_shared)
+    from admm_library_torch.models import monte_carlo as mc
+    from admm_library_torch.models.random_qp import (
+        random_box_qp, reference_random_box_qp)
+
+    f64 = torch.float64
+    qp2, spec2, _ = _config2(dev)
+    gen = torch.Generator().manual_seed(0)
+    lanes = [random_box_qp(gen, device=dev).astype(f64)
+             for _ in range(BATCH_LANES)]
+    qp1b = QPData(**{f: torch.stack([getattr(q, f) for q in lanes])
+                     for f in ("P", "q", "A", "l", "u", "lam")},
+                  cone=lanes[0].cone)
+    s = Settings(eps_abs=EPS, eps_rel=EPS, backend="cg")
+    paths = {
+        "config1": (solve, reference_random_box_qp(dev).astype(f64), s,
+                    EPS),
+        "config2": (solve, qp2.astype(f64),
+                    s.replace(band_block=spec2.block), EPS),
+        "config3": (solve, _config3(dev)[0].astype(f64),
+                    s.replace(max_iter=50000), EPS),
+        "config5": (solve_batch_shared, mc.monte_carlo_mpc_from_s0(
+            mc.reference_s0(128), device=dev)[0].astype(f64), s, EPS),
+        "solve_batch": (solve_batch, qp1b, s.replace(
+            eps_abs=BATCH_EPS, eps_rel=BATCH_EPS, max_iter=20000),
+            BATCH_EPS)}
+    out = {}
+    for name, (fn, qp, st, eps) in paths.items():
+        tag = f"cg_paths {name}"
+        sols, graph_rec = _captured_runs(fn, qp, st)
+        sol = sols[0]
+        iters = int(sol.iters.max())
+        fields = _captured_fields(
+            tag, sols, graph_rec, fn, qp, st,
+            twin=name in ("config2", "config3", "config5"))
+        # The profiler records every kernel of every replay: config 2's
+        # and config 5's ~4-7 million are left out.
+        prof = (_profile_fields(_profiled(fn, qp, st), iters,
+                                fields["wall_rerun_s"])
+                if name in CG_PROFILED else {})
+        inv = fn(qp, st.replace(backend="inv"))
+        kkt_ok, kkt_worst = _kkt_within(qp, sol, eps)
+        solved = int((sol.status == int(Status.SOLVED)).sum())
+        nodes = graph_rec["nodes_per_graph"]
+        rec = dict(path=name, n=qp.n, m=qp.m, lanes=sol.status.numel(),
+                   solved=solved, iters=iters,
+                   reference_iters=CG_REFERENCE_ITERS[name],
+                   kkt_within_criterion=kkt_ok, kkt_worst_ratio=kkt_worst,
+                   inv_iters=int(inv.iters.max()),
+                   inv_x_max_abs_diff=float((sol.x - inv.x).abs().max()),
+                   **fields, graph_entries=graph_rec["graph_entries"],
+                   cg_segment_nodes=_cg_segments(nodes),
+                   nodes_max=max(nodes.values()),
+                   segments=graph_rec["graph_rerun"]["segments"],
+                   peak_memory_bytes=graph_rec["peak_memory_bytes"],
+                   **prof)
+        emit("cg_paths", **rec)
+        check(solved == sol.status.numel(),
+              f"{tag}: {sol.status.numel() - solved} lanes not SOLVED")
+        check(kkt_ok, f"{tag}: f64 KKT residuals above the mixed criterion")
+        check(name not in CG_ITERS_HELD
+              or abs(iters - CG_REFERENCE_ITERS[name]) <= ITER_SLACK,
+              f"{tag}: {iters} iterations, reference "
+              f"{CG_REFERENCE_ITERS[name]}")
+        check(rec["inv_x_max_abs_diff"] <= X_AGREE,
+              f"{tag}: 'cg' and 'inv' solutions disagree")
+        check(rec["cg_segment_nodes"], f"{tag}: no CG segment was captured")
+        out[name] = rec
+    return out
 
 
 class _Stages:
@@ -1213,9 +1455,24 @@ def phase_solve_l1_soc(dev):
     for backend in ("inv", "pallas_cg"):
         s = Settings(eps_abs=EPS, eps_rel=EPS, max_iter=50000,
                      backend="auto" if backend == "inv" else backend)
-        with _Stages() as st:
-            sol, wall, launches = _timed_run(solve, qp, s)
-        sol2, wall2, _ = _timed_run(solve, qp, s)
+        if backend == "inv":
+            with _Stages() as st:
+                sol, wall, launches = _timed_run(solve, qp, s)
+            sol2, wall2, _ = _timed_run(solve, qp, s)
+            fields = dict(wall_s=wall, wall_rerun_s=wall2, launches=launches,
+                          rerun_bitwise_identical=_bitwise(sol, sol2))
+        else:
+            # Kernel 2 inside the check graphs, counted at each replay:
+            # as often as the capture-off solve launches it.
+            sols, graph_rec = _captured_runs(solve, qp, s)
+            sol = sols[0]
+            fields = _captured_fields("config3 pallas_cg", sols, graph_rec,
+                                      solve, qp, s, twin=True)
+            launches = fields["launches"]
+            with _Stages() as st:
+                staged, _, _ = _timed_run(solve, qp, s)
+            check(_bitwise(sol, staged), "config3 pallas_cg: a warm rerun "
+                  "differs from the first run")
         r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
         iters = int(sol.iters)
         term = float(cw.propagate(spec, s0, sol.x)[-1].abs().max())
@@ -1224,10 +1481,8 @@ def phase_solve_l1_soc(dev):
                    status=sol.status_name(), iters=iters,
                    kkt_r_prim=r_p, kkt_r_dual=r_d,
                    eps_prim=eps_p, eps_dual=eps_d, objective=float(sol.obj),
-                   wall_s=wall, wall_rerun_s=wall2, launches=launches,
-                   phase_iters=st.iters("phase"),
+                   **fields, phase_iters=st.iters("phase"),
                    polish_attempts=st.count("polish"),
-                   rerun_bitwise_identical=_bitwise(sol, sol2),
                    propagate_terminal_err=term, max_abs_dv=dv)
         if backend == "inv":
             rec["reference_iters"] = CW_REFERENCE_ITERS
@@ -1607,15 +1862,16 @@ def _profiled(fn, *args):
            if e.device_type() == torch.autograd.DeviceType.CUDA]
     kernels = sum(not e.name().startswith(("Memcpy", "Memset"))
                   for e in ops)
-    launches = [e.name() for e in events
-                if e.device_type() != torch.autograd.DeviceType.CUDA
-                and e.name().startswith(HOST_LAUNCH_CALLS)]
+    host = [e.name() for e in events
+            if e.device_type() != torch.autograd.DeviceType.CUDA]
+    launches = [n for n in host if n.startswith(HOST_LAUNCH_CALLS)]
     check(kernels > 0, "profiler: no kernel activity recorded")
     check(launches, "profiler: no host launch call recorded")
     return dict(kernels=kernels, device_ops=len(ops),
                 busy_ms=sum(e.duration_ns() for e in ops) / 1e6,
                 profiled_wall_s=wall, host_launches=len(launches),
-                graph_launches=sum("Graph" in n for n in launches))
+                graph_launches=sum("Graph" in n for n in launches),
+                host_syncs=sum(n.startswith(HOST_SYNC_CALLS) for n in host))
 
 
 def _profile_fields(prof, iters, wall):
@@ -1626,6 +1882,7 @@ def _profile_fields(prof, iters, wall):
                 host_launches=prof["host_launches"],
                 host_launches_per_iteration=prof["host_launches"] / iters,
                 graph_launches=prof["graph_launches"],
+                host_syncs=prof["host_syncs"],
                 device_ops=prof["device_ops"],
                 device_busy_ms=prof["busy_ms"],
                 idle_share=1.0 - prof["busy_ms"] / 1e3 / wall,
@@ -2162,12 +2419,7 @@ def _batch_graph_fields(fn, qp, s, sol, runs):
     kernel_graphs = sum(
         fused.fused_iterate_shared in e.kernels.get(v, ())
         for e in graph.CACHE.entries.values() for v in e.graphs)
-    real = graph.capturable
-    graph.capturable = lambda *a, **k: False
-    try:
-        eager, wall, launches = _timed_run(fn, qp, s)
-    finally:
-        graph.capturable = real
+    eager, wall, launches = _capture_off(fn, qp, s)
     return dict(
         first_host_launches=first["host_launches"],
         first_graph_launches=first["graph_launches"],
@@ -2197,8 +2449,10 @@ def _check_batch_graph(name, rec):
 
 def phase_graph(dev):
     """The captured segments (core/graph.py) on configs 3 and 4, the
-    config-5 batch at 128 and 1024, solve_batch on 128 config-1 draws
-    and config 1 through solve at 'single' and 'double': captures,
+    config-5 batch at 128 and 1024, solve_batch on 128 config-1 draws,
+    config 1 through solve at 'single' and 'double', config 3 on
+    'pallas_cg' (kernel 2 inside the check graphs) and config 1 on 'cg'
+    (its head, CG block and tail segments): captures,
     replays, warm-ups and capture ms per solve from an empty cache and
     on a rerun (which must capture and warm nothing), nodes per graph,
     host launches and idle share from one profiled run, and a bar on
@@ -2248,7 +2502,12 @@ def phase_graph(dev):
         "solve_batch": (solve_batch, qp1b, Settings(
             eps_abs=BATCH_EPS, eps_rel=BATCH_EPS, max_iter=20000)),
         "config1_single": (solve, qp1, s1.replace(precision="single")),
-        "config1_double": (solve, qp1, s1.replace(precision="double"))}
+        "config1_double": (solve, qp1, s1.replace(precision="double")),
+        # Kernel 2 inside the check graphs; the 'cg' segments.
+        "config3_pcg": (solve, qp3.astype(torch.float64),
+                        Settings(eps_abs=EPS, eps_rel=EPS, max_iter=50000,
+                                 backend="pallas_cg")),
+        "config1_cg": (solve, qp1, s1.replace(backend="cg"))}
     out = {}
     for name, (fn, qp, s) in paths.items():
         graph.CACHE.clear()
@@ -2267,6 +2526,7 @@ def phase_graph(dev):
                    entries=len(graph.CACHE.entries),
                    first=runs[0], rerun=runs[1],
                    nodes_per_graph=nodes,
+                   cg_segment_nodes=_cg_segments(nodes),
                    **_profile_fields(prof, iters, runs[1]["wall_s"]))
         if name in ("b128", "b1024"):
             rec.update(_batch_graph_fields(fn, qp, s, sol, runs))
@@ -2386,6 +2646,7 @@ def main():
     data_axis = phase_data_axis(dev, sol1024)
     del sol1024
     phase_solve_batch(dev)
+    phase_cg_paths(dev)
     # For scale, times from this call: the config-5 batch at 1024 on
     # 'inv' (kernel 1) and on 'spike'.
     scale = {"slice_b1024_inv_wall_s": slice1024["wall_s"],
@@ -2423,6 +2684,8 @@ def main():
         "replaces": "admm_library_tpu/ops/pallas_cg.py:82",
         "launches": l1_soc["config3 pallas_cg"]["launches"][
             "pallas_cg_solve"],
+        "eager_launches": l1_soc["config3 pallas_cg"]["eager_launches"][
+            "pallas_cg_solve"],
         "design": cw_case["design"], "cluster": cw_case["cluster"],
         "lane_tile": cw_case["lane_tile"], "stream_ms": cw_case["stream_ms"],
         "max_abs_err": cw_case["max_abs_err"], "ms": cw_case["ms"],
@@ -2430,7 +2693,9 @@ def main():
         "bound_by": cw_case["bound_by"],
         "library_ms": cw_case["library_ms"],
         "at": "config 3, B=1, n=60, 200 steps, f32; library: "
-              "torch.cholesky_solve on a precomputed factor"}]}))
+              "torch.cholesky_solve on a precomputed factor; launches: "
+              "replays of the check graphs that hold it (eager_launches: "
+              "the same solve with every segment eager)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

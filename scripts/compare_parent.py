@@ -2,7 +2,10 @@
 """The port at two commits, in turns, on one CUDA card: configs 1 (at
 hybrid, single and double precision) and 2 (on 'inv'), 3 and 4 through
 `solve`, the config-5 batch at 128 and 1024 lanes
-through `solve_batch_shared`, `solve_batch` on 128 config-1 draws, and
+through `solve_batch_shared`, `solve_batch` on 128 config-1 draws,
+configs 1-3 and the batch at 128 on 'pallas_cg' (`config1_pcg`, ...,
+`b128_pcg`) and configs 1-2, the batch at 128 and `solve_batch` on 'cg'
+(`config1_cg`, ..., `solve_batch_cg`), and
 the partitioned and block-backend paths of `chip_smoke.py`: `consensus`
 and `consensus_mc_1024` on a 1x1 mesh, `horizon_sharded_1024` under its
 f64 plain and f32 gate settings, `horizon_spike_1024`, config 2
@@ -14,6 +17,7 @@ through `solve` on 'banded', and `rowshard_qp4096` through
     python3 scripts/compare_parent.py [--parent _scratch/parent]
                                       [--rounds 2] [--reruns 3]
                                       [--paths consensus,banded,...]
+                                      [--unprofiled config2_cg,...]
 
 Each side runs in its own process and imports admm_library_torch from
 its own root (the unpacked parent, or this checkout), in turns: parent,
@@ -21,8 +25,9 @@ tree, tree, parent, ... (`--rounds` pairs). A process solves each path
 once cold (its first run: the kernels, built before it, loaded; on the
 tree's side the checks captured) and `--reruns` times more; in each side's first turn one more
 solve of each path runs under torch.profiler: device busy time, the
-idle share against that turn's median rerun, kernels, and the host's
-launch calls (kernel and CUDA graph launches). Each record also holds
+idle share against that turn's median rerun, kernels, the host's
+launch calls (kernel and CUDA graph launches) and its reads of the
+card (stream synchronisations). Each record also holds
 the captured checks of its first run and reruns (`graph.CACHE.stats`
 deltas: captures, replays, warm-ups, capture ms). Each side saves its
 first run's x and status of every path under `_scratch/compare_parent/`,
@@ -46,11 +51,18 @@ PATHS = ("config1", "config1_single", "config1_double", "config2_inv",
          "config3", "config4", "b128", "b1024",
          "solve_batch", "consensus", "consensus_mc_1024",
          "horizon_f64_plain", "horizon_f32_gate", "horizon_spike_1024",
-         "config2_banded", "rowshard_qp4096")
+         "config2_banded", "rowshard_qp4096", "config1_pcg", "config2_pcg",
+         "config3_pcg", "b128_pcg", "config1_cg", "config2_cg", "b128_cg",
+         "solve_batch_cg")
+# A path named <base>_pcg or <base>_cg is <base> on that KKT backend.
+BACKEND_SUFFIXES = {"_pcg": "pallas_cg", "_cg": "cg"}
 SAVED = os.path.join(ROOT, "_scratch", "compare_parent")
 # The host's calls that put work on the card, as CUPTI names them.
 HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                      "cuGraphLaunch")
+# The host's wait for the card at each read of a device value: host_syncs
+# counts the host's reads.
+HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cuStreamSynchronize")
 
 
 def _path(name, dev):
@@ -60,6 +72,12 @@ def _path(name, dev):
     import torch
     import admm_library_torch as T
     f64 = torch.float64
+    for suffix, backend in BACKEND_SUFFIXES.items():
+        if name.endswith(suffix):
+            base = name[:-len(suffix)]
+            fn, qp, s = _path("config2_inv" if base == "config2" else base,
+                              dev)
+            return fn, qp, s.replace(backend=backend)
     if name == "config3":
         from admm_library_torch.models.clohessy_wiltshire import (
             build_cw_rendezvous)
@@ -195,12 +213,16 @@ def _profiled(fn, *args):
                     for e in ops),
         host_launches=sum(e.device_type() != cuda
                           and e.name().startswith(HOST_LAUNCH_CALLS)
-                          for e in events))
+                          for e in events),
+        host_syncs=sum(e.device_type() != cuda
+                       and e.name().startswith(HOST_SYNC_CALLS)
+                       for e in events))
 
 
-def worker(root, side, turn, reruns, profiled, paths):
-    """One side's turn: every path cold, then reruns, then (first turn)
-    profiled. One JSON line per path."""
+def worker(root, side, turn, reruns, profiled, paths, unprofiled=()):
+    """One side's turn: every path cold, then reruns, then (first turn,
+    unless the path is in `unprofiled`) profiled. One JSON line per
+    path."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, root)
     import torch
@@ -225,11 +247,12 @@ def worker(root, side, turn, reruns, profiled, paths):
         if hasattr(sol, "cg_steps"):
             rec["cg_steps"] = int(sol.cg_steps)
         if profiled:
-            prof = _profiled(fn, *args)
-            rec.update(prof, idle_share=1.0 - prof["device_busy_ms"] / 1e3
-                       / statistics.median(walls),
-                       host_launches_per_iteration=prof["host_launches"]
-                       / rec["iters"])
+            if name not in unprofiled:
+                prof = _profiled(fn, *args)
+                rec.update(prof, idle_share=1.0 - prof["device_busy_ms"]
+                           / 1e3 / statistics.median(walls),
+                           host_launches_per_iteration=prof[
+                               "host_launches"] / rec["iters"])
             os.makedirs(SAVED, exist_ok=True)
             torch.save({"x": sol.x.cpu(), "status": sol.status.cpu(),
                         "iters": sol.iters.cpu()},
@@ -244,6 +267,10 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reruns", type=int, default=3)
     ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--unprofiled", default="",
+                    help="paths run without the profiled solve (the "
+                    "profiler records every kernel: an eager 'cg' solve "
+                    "of config 2 launches millions)")
     ap.add_argument("--worker", nargs=3, metavar=("ROOT", "SIDE", "TURN"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--profiled", action="store_true",
@@ -252,7 +279,8 @@ def main():
     paths = a.paths.split(",")
     if a.worker:
         root, side, turn = a.worker
-        worker(root, side, int(turn), a.reruns, a.profiled, paths)
+        worker(root, side, int(turn), a.reruns, a.profiled, paths,
+               [p for p in a.unprofiled.split(",") if p])
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -272,7 +300,7 @@ def main():
     for side, turn in order:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker",
                roots[side], side, str(turn), "--reruns", str(a.reruns),
-               "--paths", a.paths]
+               "--paths", a.paths, "--unprofiled", a.unprofiled]
         if turn == 0:
             cmd.append("--profiled")
         out = subprocess.run(cmd, capture_output=True, text=True,
@@ -303,6 +331,10 @@ def main():
                 host_launches_per_iteration=[
                     r["host_launches_per_iteration"] for r in recs
                     if "host_launches_per_iteration" in r],
+                host_launches=[r["host_launches"] for r in recs
+                               if "host_launches" in r],
+                host_syncs=[r["host_syncs"] for r in recs
+                            if "host_syncs" in r],
                 graph_first=recs[0]["graph_first"],
                 graph_reruns=recs[0]["graph_reruns"],
                 peak_memory_bytes=max(r["peak_memory_bytes"]

@@ -995,10 +995,67 @@ def test_captured_loop_is_the_eager_loop_through_refactors(
     """A whole loop replayed from graphs equals the same loop run
     eagerly on the card, bitwise, through rho refactors (rho starts 100x
     off, so the factor changes between replays) and restarts."""
+    _captured_loop_is_eager(loop, backend, dev, monkeypatch)
+
+
+@pytest.mark.parametrize("loop,backend,cg_max_iter", [
+    ("run_admm", "cg", 13), ("run_admm_lanes", "cg", 13),
+    ("run_admm_batch_shared", "cg", 200), ("run_admm", "pallas_cg", 13),
+    ("run_admm_batch_shared", "pallas_cg", 13)])
+def test_captured_cg_loop_is_the_eager_loop(loop, backend, cg_max_iter, dev,
+                                            monkeypatch):
+    """The same on the CG backends: on 'cg' the CG blocks (8 steps, and 5
+    at cg_max_iter 13), heads and tails replayed between the host's
+    reads of the CG's stop flag, on 'pallas_cg' kernel 2 a node of each
+    check graph, counted at each replay as often as the eager loop
+    launches it."""
+    from admm_library_torch.core import graph
+    from admm_library_torch.ops import pallas_cg as pcg
+    counts = _captured_loop_is_eager(loop, backend, dev, monkeypatch,
+                                     cg_max_iter=cg_max_iter)
+    if backend == "pallas_cg":
+        assert counts[0] > 0 and counts[0] == counts[1]
+        assert any(pcg.pallas_cg_solve in e.kernels.get(v, ())
+                   for e in graph.CACHE.entries.values() for v in e.graphs)
+    else:
+        variants = {v for e in graph.CACHE.entries.values()
+                    for v in e.graphs}
+        assert {("head", True), ("cg", 8), ("tail", True)} <= variants
+
+
+def test_a_fresh_process_captures_a_cg_solve(dev):
+    """A process whose first cuBLAS call is in a captured 'cg' loop: the
+    prologue runs no product, so the first CG head is captured before
+    any eager product on the capture stream; it must not have to make
+    the stream's cuBLAS handle inside the capture."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import torch, admm_library_torch as T\n"
+        "from admm_library_torch.core import graph\n"
+        "from admm_library_torch.models.random_qp import random_box_qp\n"
+        "qp = random_box_qp(torch.Generator().manual_seed(2), n=20, m=40,"
+        " device='cuda').astype(torch.float64)\n"
+        "sol = T.solve(qp, T.Settings(backend='cg'))\n"
+        "assert int(sol.status) == 1, sol.status_name()\n"
+        "assert graph.CACHE.stats['captures'] > 0\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _captured_loop_is_eager(loop, backend, dev, monkeypatch, **kw):
+    """The loop `loop` on `backend` from a small problem, eager then
+    captured: bitwise, refactored, replayed. Returns kernel 2's launches
+    in the eager and in the captured run."""
+    from admm_library_torch.ops import pallas_cg as pcg
     from admm_library_torch.parallel import batch
     s = Settings(check_every=5, adaptive_rho_interval=10, restart_every=15,
                  history=3, max_iter=300, rho=10.0, eps_abs=1e-8,
-                 eps_rel=1e-8, backend=backend)
+                 eps_rel=1e-8, backend=backend, **kw)
     if loop == "run_admm":
         qps, sc = ruiz_equilibrate(_small_l1_soc(dev), 10)
         zeros = [torch.zeros(w, dtype=qps.dtype, device=dev)
@@ -1024,8 +1081,15 @@ def test_captured_loop_is_the_eager_loop_through_refactors(
         zeros = [torch.zeros((8, w), dtype=qps.dtype, device=dev)
                  for w in (qps.n, qps.m, qps.m)]
         run = batch.run_admm_batch_shared
+    counts = []
+
+    def counted(*args):
+        pcg.pallas_cg_solve.launches = 0
+        out = run(*args)
+        counts.append(pcg.pallas_cg_solve.launches)
+        return out
     eager, captured, stats = _eager_and_captured(
-        monkeypatch, run, qps, sc, s, *zeros, backend)
+        monkeypatch, counted, qps, sc, s, *zeros, backend)
     for f in eager._fields:
         a, b = getattr(eager, f), getattr(captured, f)
         if isinstance(a, dict):
@@ -1036,6 +1100,7 @@ def test_captured_loop_is_the_eager_loop_through_refactors(
             assert a == b, f
     assert not torch.all(captured.rho_bar == s.rho)      # refactored
     assert stats["captures"] >= 2 and stats["replays"] > stats["captures"]
+    return counts
 
 
 def test_captured_solves_are_the_eager_solves(dev, monkeypatch):
@@ -1226,14 +1291,15 @@ def test_an_added_entry_outlives_the_replays_of_earlier_graphs(dev):
 
 
 def test_capture_refuses_an_eager_only_backend(dev):
-    """capture=True for a backend outside the rule raises; nothing falls
-    back to an eager check in silence."""
+    """capture=True for a backend outside the rule (since 'cg' and
+    'pallas_cg' joined it, 'cg' in the consensus drivers' loops) raises;
+    nothing falls back to an eager check in silence."""
     from admm_library_torch.core import graph
     state = {"x": torch.zeros(3, device=dev),
              "flags": torch.ones(2, dtype=torch.bool, device=dev)}
-    for backend in ("cg", "pallas_cg"):
+    for kind in ("run_consensus", "run_consensus_mc"):
         with pytest.raises(ValueError, match="not captured"):
-            graph.CheckLoop("run_admm", None, state, Settings(), backend,
+            graph.CheckLoop(kind, None, state, Settings(), "cg",
                             capture=True, cache=graph.CheckCache())
 
 

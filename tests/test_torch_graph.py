@@ -12,7 +12,8 @@
   the plain loops of tests/torch_loops_reference.py (host counters,
   rebinding), over restarts, rho refactors, stalls and every backend
   whose check they run.
-- The capture rule over backend x mesh shape x device.
+- The capture rule over backend x mesh shape x device (the loop kinds
+  that admit 'cg': tests/test_torch_graph_cg.py).
 - The cache key and the cache: the chunks of `_f64_continuation` map to
   one entry, max_iter splits none, a reused entry takes the new data.
 
@@ -361,8 +362,11 @@ _MESHES = {"none": None, "1x1": (1, 1), "data2": (2, 1),
 def test_capture_rule(device, backend, mesh):
     shape = _MESHES[mesh]
     m = None if shape is None else _mesh(*shape)
+    # 'cg' is admitted only for the loops of graph.CG_LOOPS, which a
+    # call without a kind is not.
     want = (device == "cuda"
-            and backend in ("inv", "chol", "banded", "spike", "rowshard_cg")
+            and backend in ("inv", "chol", "banded", "spike", "pallas_cg",
+                            "rowshard_cg")
             and (shape is None or shape == (1, 1)))
     assert graph.capturable(torch.device(device), backend, m) == want
 

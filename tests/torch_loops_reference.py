@@ -16,6 +16,9 @@ continuation, polish, warm-start check) as host code around
 `_ref_run_admm`, `_ref_run_admm_lanes`, `core.polish.polish` and
 `_ref_solve_batch_shared`: tests/test_torch_graph_api.py holds the
 package's, whose work between host reads is segments, bitwise to them.
+Every loop here iterates through `_ref_iterate_block`, whose 'cg' solve
+is the frozen one-loop `_ref_cg_solve` (tests/test_torch_graph_cg.py
+holds the package's 'cg' segments to it).
 """
 import dataclasses
 import math
@@ -24,7 +27,7 @@ import torch
 
 from admm_library_torch.core.admm import (
     AdmmCarry, _select, adapt_rho, eps_thresholds, infeasibility,
-    is_equality_row, iterate_block, residuals, restart_cadence_checks,
+    is_equality_row, residuals, restart_cadence_checks,
     rho_vec_of, scaled_resid_ratio, status_of)
 from admm_library_torch.core import admm
 from admm_library_torch.core.polish import polish
@@ -60,6 +63,64 @@ _SOLVED = int(Status.SOLVED)
 _PINF = int(Status.PRIMAL_INFEASIBLE)
 _DINF = int(Status.DUAL_INFEASIBLE)
 _F64_MAX_ITER = 8000
+
+
+# ---- An iteration as it stood before the 'cg' backend's CG became
+# segments of the phase and batch loops: ops/kkt.cg_solve one loop with
+# a host read every _CG_CHECK steps inside core.admm.admm_iteration. ----
+
+def _ref_cg_solve(fac, rhs, x0=None, tol: float = 1e-9, max_iter: int = 200):
+    x = torch.zeros_like(rhs) if x0 is None else x0
+    r = rhs - kkt._matvec_M(fac, x)
+    p = r
+    rs = (r * r).sum(-1)
+    tol2 = (tol * tol) * torch.clamp((rhs * rhs).sum(-1), min=1.0)
+    for it in range(max_iter):
+        if it % _CG_CHECK == 0 and not bool((rs > tol2).any()):
+            break
+        Mp = kkt._matvec_M(fac, p)
+        pMp = (p * Mp).sum(-1)
+        active = rs > tol2
+        alpha = torch.where(active, rs / torch.where(pMp > 0, pMp, 1.0), 0.0)
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * Mp
+        rs_new = (r * r).sum(-1)
+        beta = torch.where(active, rs_new / torch.where(rs > 0, rs, 1.0), 0.0)
+        p = r + beta[..., None] * p
+        rs = torch.where(active, rs_new, rs)
+    return x
+
+
+def _ref_admm_iteration(qp: QPData, fac, x, z, y, rho_vec,
+                        settings: Settings, backend: str, z_off=None):
+    rhs = settings.sigma * x - qp.q + vm(rho_vec * z - y, qp.A)
+    if backend == "cg":
+        xt = _ref_cg_solve(fac, rhs, tol=settings.cg_tol,
+                           max_iter=settings.cg_max_iter)
+    else:
+        xt = kkt.solve_condensed(fac, rhs, backend,
+                                 refine_steps=settings.refine_steps,
+                                 cg_tol=settings.cg_tol,
+                                 cg_max_iter=settings.cg_max_iter)
+    zt = mv(qp.A, xt)
+    a = settings.alpha
+    x_new = a * xt + (1.0 - a) * x
+    w = a * zt + (1.0 - a) * z
+    v = w + y / rho_vec
+    mb, ml = qp.cone.m_box, qp.cone.m_l1
+    lam_over_rho = (qp.lam / rho_vec[..., mb:mb + ml]) if ml else qp.lam
+    z_new = project_cone(v, qp.l, qp.u, lam_over_rho, qp.cone,
+                         offset=z_off)
+    y_new = y + rho_vec * (w - z_new)
+    return x_new, z_new, y_new
+
+
+def _ref_iterate_block(qp, fac, x, z, y, rho_vec, settings, backend, k: int,
+                       z_off=None):
+    for _ in range(k):
+        x, z, y = _ref_admm_iteration(qp, fac, x, z, y, rho_vec, settings,
+                                      backend, z_off=z_off)
+    return x, z, y
 
 
 def _ref_run_admm(qp: QPData, scaling: Scaling, settings: Settings,
@@ -98,8 +159,8 @@ def _ref_run_admm(qp: QPData, scaling: Scaling, settings: Settings,
     while alive and it < settings.max_iter:
         check = it // k
         rho_vec = rho_vec_of(rho_bar, eq_mask, settings, qp.cone)
-        x, z, y = iterate_block(qp, fac, x, z, y, rho_vec, settings,
-                                backend, k, z_off=z_off)
+        x, z, y = _ref_iterate_block(qp, fac, x, z, y, rho_vec, settings,
+                                     backend, k, z_off=z_off)
         it += k
         res = residuals(qp, scaling, x, z, y)
 
@@ -214,8 +275,8 @@ def _ref_run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
     while alive and it < settings.max_iter:
         check = it // k
         active = status == _UNSOLVED
-        xn, zn, yn = iterate_block(qp, fac, x, z, y, rho_vec(rho_bar),
-                                   settings, backend, k, z_off=z_off)
+        xn, zn, yn = _ref_iterate_block(qp, fac, x, z, y, rho_vec(rho_bar),
+                                        settings, backend, k, z_off=z_off)
         it += k
         res = residuals(qp, scaling, xn, zn, yn)
 
@@ -363,7 +424,7 @@ def _ref_run_admm_batch_shared(qp: QPData, scaling, settings: Settings,
                 alpha=settings.alpha, k=k,
                 refine_steps=settings.refine_steps)
         else:
-            xn, zn, yn = admm.iterate_block(
+            xn, zn, yn = _ref_iterate_block(
                 qp, fac, x, z, y, rho_vec, settings, backend, k,
                 z_off=z_off)
         # Freeze converged/infeasible lanes.
