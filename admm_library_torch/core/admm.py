@@ -63,15 +63,18 @@ def is_equality_row_shared(qp: QPData):
     return eq[0] if eq.dim() > 1 else eq
 
 
-def iteration_rhs(qp: QPData, x, z, y, rho_vec, settings: Settings):
-    """The right-hand side of an iteration's x-update."""
-    return settings.sigma * x - qp.q + vm(rho_vec * z - y, qp.A)
+def admm_iteration(qp: QPData, fac, x, z, y, rho_vec, settings: Settings,
+                   backend: str, z_off=None):
+    """One ADMM iteration on the scaled problem (the plain body).
 
-
-def iteration_tail(qp: QPData, xt, x, z, y, rho_vec, settings: Settings,
-                   z_off=None):
-    """The rest of an iteration from its x-update's solution xt: the
-    over-relaxation, the prox and the dual update."""
+    z_off: optional shifted-prox offset for L1/SOC rows (re-centred
+    refinement; see ops/prox.project_cone).
+    """
+    rhs = settings.sigma * x - qp.q + vm(rho_vec * z - y, qp.A)
+    xt = kkt.solve_condensed(fac, rhs, backend,
+                             refine_steps=settings.refine_steps,
+                             cg_tol=settings.cg_tol,
+                             cg_max_iter=settings.cg_max_iter)
     zt = mv(qp.A, xt)
     a = settings.alpha
     x_new = a * xt + (1.0 - a) * x
@@ -85,21 +88,6 @@ def iteration_tail(qp: QPData, xt, x, z, y, rho_vec, settings: Settings,
     return x_new, z_new, y_new
 
 
-def admm_iteration(qp: QPData, fac, x, z, y, rho_vec, settings: Settings,
-                   backend: str, z_off=None):
-    """One ADMM iteration on the scaled problem (the plain body).
-
-    z_off: optional shifted-prox offset for L1/SOC rows (re-centred
-    refinement; see ops/prox.project_cone).
-    """
-    rhs = iteration_rhs(qp, x, z, y, rho_vec, settings)
-    xt = kkt.solve_condensed(fac, rhs, backend,
-                             refine_steps=settings.refine_steps,
-                             cg_tol=settings.cg_tol,
-                             cg_max_iter=settings.cg_max_iter)
-    return iteration_tail(qp, xt, x, z, y, rho_vec, settings, z_off)
-
-
 def iterate_block(qp, fac, x, z, y, rho_vec, settings, backend, k: int,
                   z_off=None):
     """Run k plain iterations."""
@@ -107,68 +95,6 @@ def iterate_block(qp, fac, x, z, y, rho_vec, settings, backend, k: int,
         x, z, y = admm_iteration(qp, fac, x, z, y, rho_vec, settings,
                                  backend, z_off=z_off)
     return x, z, y
-
-
-def check_iterates(state, qp: QPData, rho_vec, settings: Settings,
-                   backend: str):
-    """The iterates a check tests: on 'cg' those its CG segments left
-    in 'xn', 'zn', 'yn' (`cg_segment`), on every other backend
-    check_every iterations from 'x', 'z', 'y' run here."""
-    if backend == "cg":
-        return state["xn"], state["zn"], state["yn"]
-    return iterate_block(qp, state["fac"], state["x"], state["z"],
-                         state["y"], rho_vec, settings, backend,
-                         settings.check_every, z_off=state.get("z_off"))
-
-
-# The segments of one iteration on the matrix-free 'cg' backend, which
-# the host sequences before each check (`run_cg_iterations`): ("head",
-# first) the right-hand side and the CG's start, ("cg", steps) a block
-# of CG steps, ("tail", first) the rest of the iteration into 'xn',
-# 'zn', 'yn'. The first iteration of a check starts from 'x', 'z', 'y',
-# the others from 'xn', 'zn', 'yn'.
-CG_SEGMENTS = ("head", "cg", "tail")
-
-
-def cg_segment(state, variant, *, cone, settings: Settings, lanes: bool):
-    """A CG segment (CG_SEGMENTS) of a phase or batch loop on 'cg': the
-    CG's state in 'cg' and its stop flag in 'live' (ops/kkt.cg_live),
-    the iteration's end in 'xn', 'zn', 'yn'. The same arithmetic as
-    `admm_iteration` with ops/kkt.cg_solve, cut at its host reads."""
-    qp = QPData(**state["qp"], cone=cone)
-    fac = state["fac"]
-    name = variant[0]
-    if name == "cg":
-        cg = kkt.cg_steps(fac, state["cg"], variant[1])
-        return dict(cg=cg, live=kkt.cg_live(cg))
-    rho_vec = _rho_vec(state["rho_bar"], state["eq_mask"], settings, cone,
-                       lanes)
-    x, z, y = (state[k] for k in (("x", "z", "y") if variant[1]
-                                  else ("xn", "zn", "yn")))
-    if name == "head":
-        cg = kkt.cg_start(fac, iteration_rhs(qp, x, z, y, rho_vec,
-                                             settings),
-                          tol=settings.cg_tol)
-        return dict(cg=cg, live=kkt.cg_live(cg))
-    xn, zn, yn = iteration_tail(qp, state["cg"]["x"], x, z, y, rho_vec,
-                                settings, state.get("z_off"))
-    return dict(xn=xn, zn=zn, yn=yn)
-
-
-def run_cg_iterations(loop, settings: Settings) -> None:
-    """The check_every iterations before a check on 'cg' as segments of
-    `loop`: each iteration's head, its CG blocks (ops/kkt.cg_blocks)
-    while the stop flag the host reads before each says a lane is still
-    above its tolerance, and its tail."""
-    blocks = kkt.cg_blocks(settings.cg_max_iter)
-    for i in range(settings.check_every):
-        loop(("head", i == 0))
-        for steps in blocks:
-            # The CG's host read (ops/kkt.cg_solve reads the same flag).
-            if not loop.state["live"].item():
-                break
-            loop(("cg", steps))
-        loop(("tail", i == 0))
 
 
 def l1_grad_scale(qp: QPData, scaling: Scaling):
@@ -445,7 +371,9 @@ def admm_check(state, variant, *, cone, settings: Settings, backend: str,
     k = settings.check_every
     rho_bar = state["rho_bar"]
     rho_vec = rho_vec_of(rho_bar, state["eq_mask"], settings, cone)
-    x, z, y = check_iterates(state, qp, rho_vec, settings, backend)
+    x, z, y = iterate_block(qp, state["fac"], state["x"], state["z"],
+                            state["y"], rho_vec, settings, backend, k,
+                            z_off=state.get("z_off"))
     res = residuals(qp, scaling, x, z, y)
 
     # Restarted averaging: at each restart boundary adopt the running
@@ -525,7 +453,8 @@ def lanes_check(state, variant, *, cone, settings: Settings, backend: str,
     B = x.shape[0]
     active = status == _UNSOLVED
     rho_vec = rho_vec_of(rho_bar[:, None], state["eq_mask"], settings, cone)
-    xn, zn, yn = check_iterates(state, qp, rho_vec, settings, backend)
+    xn, zn, yn = iterate_block(qp, state["fac"], x, z, y, rho_vec, settings,
+                               backend, k, z_off=state.get("z_off"))
     res = residuals(qp, scaling, xn, zn, yn)
 
     # Restarted averaging, each lane against its own average (live
@@ -740,10 +669,9 @@ def phase_epilogue(state, *, cone, dtype, scale: str, lanes: bool):
 
 def phase_step(state, variant, *, cone, settings: Settings, backend: str,
                restart_checks: int, dtype, scale: str, lanes: bool):
-    """A segment of a phase loop: PROLOGUE, REFACTOR, EPILOGUE, a CG
-    segment on 'cg' (`cg_segment`), or the check `variant` = (restart,
-    rho_test) (`admm_check`, or `lanes_check` for a batch of independent
-    problems)."""
+    """A segment of a phase loop: PROLOGUE, REFACTOR, EPILOGUE, or the
+    check `variant` = (restart, rho_test) (`admm_check`, or
+    `lanes_check` for a batch of independent problems)."""
     if variant == PROLOGUE:
         return phase_prologue(state, cone=cone, settings=settings,
                               backend=backend, dtype=dtype, scale=scale,
@@ -754,9 +682,6 @@ def phase_step(state, variant, *, cone, settings: Settings, backend: str,
     if variant == EPILOGUE:
         return phase_epilogue(state, cone=cone, dtype=dtype, scale=scale,
                               lanes=lanes)
-    if variant[0] in CG_SEGMENTS:
-        return cg_segment(state, variant, cone=cone, settings=settings,
-                          lanes=lanes)
     check = lanes_check if lanes else admm_check
     return check(state, variant, cone=cone, settings=settings,
                  backend=backend, restart_checks=restart_checks)
@@ -770,10 +695,9 @@ def run_phase(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
     is a segment of one `graph.CheckLoop` (`phase_step`), on the card a
     CUDA graph replay where `graph.capturable` allows; each check reads
     one small tensor from the device (liveness and the refactor flag).
-    On 'cg' a check's iterations are segments before it
-    (`run_cg_iterations`), with the CG's own host read before each block
-    of its steps; on 'pallas_cg' kernel 2's library and plan are
-    resolved before the prologue (ops/kkt.prepare).
+    On 'cg' each iteration's CG is conditional nodes inside the check's
+    graph (ops/kkt.cg_solve); on 'pallas_cg' kernel 2's library and plan
+    are resolved before the prologue (ops/kkt.prepare).
 
     Every check runs check_every iterations, then the restarted
     averaging, the termination and infeasibility tests, the NaN
@@ -824,8 +748,6 @@ def run_phase(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
     it = 0
     alive = True
     while alive and it < settings.max_iter:
-        if backend == "cg":
-            run_cg_iterations(loop, settings)
         loop(check_variant(it // k, settings, restart_checks))
         it += k
         # The one device-to-host read of this check.

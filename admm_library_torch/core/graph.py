@@ -5,15 +5,11 @@ The JAX package runs a whole phase as one XLA program, a
 `lax.while_loop` whose body runs `check_every` iterations and the
 residual check. Here the host loop of `core.admm.run_phase` (one
 problem or a lockstep batch of independent ones),
-`parallel.batch.run_admm_batch_shared` and of the partitioned drivers
+`parallel.batch.run_admm_batch_shared`, of the partitioned drivers
 (`parallel.consensus.run_consensus`, `consensus_mc.run_consensus_mc`,
-`horizon._run_horizon`) stays, and on the card each of its checks is
-one CUDA graph replay. The host still
-reads one small flag tensor a check. On the matrix-free CGs
-(`parallel.rowshard.solve_rowsharded`, and the phases of `run_phase`
-and the batch loop on 'cg') a loop replays a few graphs an iteration
-instead: the CG stops on a flag the host reads every
-ops/kkt._CG_CHECK steps.
+`horizon._run_horizon`) and of `parallel.rowshard.solve_rowsharded`
+stays, and on the card each of its checks is one CUDA graph replay. The
+host reads one small flag tensor a check.
 
 A check is `step(state, variant) -> updates`: `state` is a dict of
 tensors (one level of nested dicts allowed: the problem data, the
@@ -21,14 +17,10 @@ scaling, the KKT factor), `updates` the entries the check changes, and
 `variant` the check's static part, the restart boundary and the rho
 test (`(restart, rho_test)`), which selects one of up to four graphs. A
 variant may also name a segment that the host sequences, with host
-reads between segments: `parallel.rowshard`'s loop runs ("cg", steps)
-blocks of its CG, ("tail",) iteration ends and ("check", restart,
-rho_test) checks, one graph each; `parallel.batch`'s loop and
+reads between segments: `parallel.batch`'s loop and
 `core.admm.run_phase` run a ("prologue",) (cast, scaling, factor and
 starting carry from the raw data), their checks, ("refactor",) segments
-and an ("epilogue",) (the unscale and the objective), on 'cg' each
-check's iterations before it as ("head", first), ("cg", steps) and
-("tail", first) segments (core.admm.CG_SEGMENTS), and the drivers
+and an ("epilogue",) (the unscale and the objective), and the drivers
 above them (the shared batch's re-centred rounds, `api`'s staged
 rounds) their own round segments; `api`'s polish and warm-start check
 are loops of one segment each. A segment may add entries to the
@@ -39,8 +31,15 @@ static arguments enter the key as plain hashable values (a mesh by its
 shape and coordinates, never by identity). A step makes no host read and
 keeps no host counter: what it counts lives in the state.
 
+A loop inside a step whose trip count the data decides, the matrix-free
+CGs' (ops/kkt.cg_solve, parallel/rowshard's), goes through
+`while_blocks`, the counterpart of `lax.while_loop`: inside a capture
+it is CUDA-graph conditional nodes whose condition a kernel sets on the
+card (csrc/graph_cond.cu), outside one the plain loop with a host read
+before each block.
+
 `CheckLoop` runs a loop's checks. Where `capturable` says no (CPU
-tensors, an eager-only backend or loop, a mesh axis of size > 1) it
+tensors, an eager-only backend, a mesh axis of size > 1) it
 applies each step's updates to a plain dict, the plain version of this
 module.
 Where it says yes, the state lives in static buffers owned by an entry
@@ -61,8 +60,12 @@ kernel ran.
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
+import functools
 import gc
 import time
+import weakref
 
 import torch
 
@@ -72,22 +75,13 @@ import torch
 # interior products and a sweep over the separator blocks; a check of
 # config 2 on 'banded' is a graph of ~61,000 nodes), one launch of
 # kernel 2 an iteration ('pallas_cg', counted at each replay); and the
-# matrix-free CGs, whose loops run as segments that the host sequences:
-# blocks of ops/kkt._CG_CHECK steps between reads of the CG's stop flag
-# (parallel/rowshard's 'rowshard_cg'; ops/kkt's 'cg' in the loops of
-# CG_LOOPS only).
+# matrix-free CGs (ops/kkt's 'cg', parallel/rowshard's 'rowshard_cg'),
+# whose loops are conditional nodes (`while_blocks`).
 CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike", "pallas_cg", "cg",
                      "rowshard_cg")
-
-# The loops in which 'cg' is captured: the phases of `api.solve`,
-# `solve_batch` and `solve_batch_shared` (core.admm.run_phase,
-# parallel.batch._run_batch), which run its CG as host-sequenced
-# segments, and the other loops of those solves, which run no CG. The
-# consensus drivers' checks call ops/kkt.cg_solve, whose host reads sit
-# inside the check: they stay eager on 'cg'.
-CG_LOOPS = ("run_admm", "run_admm_lanes", "run_admm_batch_shared",
-            "solve_shared_recentered", "recentered_rounds", "polish",
-            "warm_check")
+# The backends whose checks run `while_blocks`: a captured loop on one
+# of them loads the node library and makes the body stream first.
+NODE_BACKENDS = ("cg", "rowshard_cg")
 
 # Entries of the default cache; the oldest is dropped beyond this.
 CACHE_SIZE = 16
@@ -104,14 +98,13 @@ CHECK_FIELDS = (
 
 
 def capturable(device, backend: str, mesh=None, kind=None) -> bool:
-    """Whether the checks of a loop of `kind` on `device` with `backend`
-    and `mesh` are captured: a CUDA device, a backend of
-    CAPTURED_BACKENDS ('cg' only for a kind of CG_LOOPS), and no mesh
-    axis of size > 1 (collectives and `runtime.agree` stay eager; a
-    1-rank mesh makes no call and is captured like none)."""
+    """Whether the checks of a loop (of `kind`, which no rule reads) on
+    `device` with `backend` and `mesh` are captured: a CUDA device, a
+    backend of CAPTURED_BACKENDS, and no mesh axis of size > 1
+    (collectives and `runtime.agree` stay eager; a 1-rank mesh makes no
+    call and is captured like none)."""
     return (torch.device(device).type == "cuda"
             and backend in CAPTURED_BACKENDS
-            and (backend != "cg" or kind in CG_LOOPS)
             and (mesh is None or all(s == 1 for s in mesh.shape.values())))
 
 
@@ -153,22 +146,171 @@ def is_check(variant) -> bool:
     return not isinstance(variant[0], str) or variant[0] == "check"
 
 
-# The kernel wrappers launched inside the capture under way (None when
-# no capture is), in launch order.
-_captured_launches = None
+# The capture under way in a CheckCache (a `_Capture`), else None.
+_capture = None
 
 
 def count_launch(kernel) -> None:
     """One launch of the hand-written kernel whose wrapper is `kernel`
     (it carries the `launches` count): counted at once, or, inside a
     `CheckCache` capture, at every replay of the graph that holds it."""
-    if _captured_launches is not None:
-        _captured_launches.append(kernel)
+    if _capture is not None:
+        if _capture.in_body:
+            raise RuntimeError("a kernel launch inside a conditional node "
+                               "runs a number of times no replay counts")
+        _capture.launched.append(kernel)
         return
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("a kernel launch captured outside a CheckCache "
                            "would not be counted at its replays")
     kernel.launches += 1
+
+
+def _node_runner():
+    """The builder of conditional nodes of the capture under way, or None
+    outside a capture (the plain loop)."""
+    if (_capture is None and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("a conditional loop captured outside a "
+                           "CheckCache")
+    return _capture
+
+
+def _runs(blocks):
+    """[(steps, count)]: `blocks` as runs of equal step counts."""
+    runs = []
+    for steps in blocks:
+        if runs and runs[-1][0] == steps:
+            runs[-1][1] += 1
+        else:
+            runs.append([steps, 1])
+    return [tuple(r) for r in runs]
+
+
+def while_blocks(carry: dict, live_fn, body, blocks):
+    """The counterpart of `lax.while_loop` over blocks of a loop:
+    `body(carry, steps)` (the carry's entries that `steps` steps change)
+    for each `steps` of `blocks` in turn, while `live_fn(carry)`, a tensor of
+    one element, is true before it. Returns the carry after the last
+    block that ran.
+
+    Outside a capture it is the plain loop, a host read of the flag
+    before each block. Inside a `CheckCache` capture it is conditional
+    nodes whose condition a kernel sets on the card: one WHILE node for
+    each run of equal blocks (an IF node for a run of one), whose body is
+    one block, and which re-arms after each pass while the flag holds
+    and the run has blocks left. The carry is copied first, and each
+    block writes into the copy in place, so the tensors after the nodes
+    are the same memory whether a body ran or not; every value is the
+    plain loop's, bit for bit."""
+    runner = _node_runner()
+    if runner is None:
+        for steps in blocks:
+            if not bool(live_fn(carry)):
+                break
+            carry = dict(carry, **body(carry, steps))
+        return carry
+    carry = {k: v.clone() for k, v in carry.items()}
+    live = live_fn(carry).reshape(()).to(torch.bool, copy=True)
+
+    def block(steps):
+        for k, v in body(carry, steps).items():
+            if v is not carry[k]:
+                carry[k].copy_(v)
+        live.copy_(live_fn(carry).reshape(()))
+
+    for steps, count in _runs(blocks):
+        runner.node(live, count, functools.partial(block, steps))
+    return carry
+
+
+# The conditional-node library (csrc/graph_cond.cu), loaded by `nodes`.
+_cond = None
+
+
+def nodes():
+    """The conditional-node library, built and loaded at its first call,
+    which must come before any capture that adds a node."""
+    global _cond
+    if _cond is None:
+        from ..ops import _build
+        lib = _build.load_library("graph_cond")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.admm_cond_init.argtypes = []
+        lib.admm_cond_open.argtypes = [ptr, ptr, i32, ptr, ptr,
+                                       ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.admm_cond_close.argtypes = [ptr, i32, ctypes.c_ulonglong, ptr,
+                                        ptr, ctypes.POINTER(ctypes.c_size_t)]
+        lib.admm_cond_abort.argtypes = [ptr]
+        for fn in (lib.admm_cond_init, lib.admm_cond_open,
+                   lib.admm_cond_close, lib.admm_cond_abort):
+            fn.restype = i32
+        lib.admm_cond_error_string.argtypes = [i32]
+        lib.admm_cond_error_string.restype = ctypes.c_char_p
+        _cond_check(lib, lib.admm_cond_init(), "loading its kernels")
+        _cond = lib
+    return _cond
+
+
+def _cond_check(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"conditional node: {what} failed: "
+                           f"{lib.admm_cond_error_string(rc).decode()}")
+
+
+# torch's call that routes the current stream's allocations into a graph
+# pool while it captures (a conditional body's, into its entry's pool).
+_ROUTE_STREAM = "_cuda_beginAllocateCurrentStreamToPool"
+
+
+class _Capture:
+    """The capture under way in `_Entry._capture_once`: the kernel
+    wrappers launched in it (in launch order), its conditional nodes'
+    body node count, and whether a body is being captured."""
+
+    def __init__(self, entry):
+        self.entry = entry
+        self.launched = []
+        self.body_nodes = 0
+        self.in_body = False
+
+    def node(self, live, count, block):
+        """A conditional node after the work captured so far: `block()`,
+        captured once as its body, runs while the 0-d bool `live` holds,
+        at most `count` times (an IF node for a count of 1). Raises if
+        the node cannot be added or its body cannot be captured."""
+        dev = live.device
+        side = self.entry.cache.streams.get((dev, "body"))
+        if _cond is None or side is None:
+            raise RuntimeError("conditional nodes inside a capture need "
+                               "CheckCache.prepare_nodes before it")
+        lib = _cond
+        passes = (torch.empty((), dtype=torch.int32, device=dev)
+                  if count > 1 else None)
+        pptr = None if passes is None else passes.data_ptr()
+        handle = ctypes.c_ulonglong()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cond_check(lib, lib.admm_cond_open(
+            stream, side.cuda_stream, count, live.data_ptr(), pptr,
+            ctypes.byref(handle)), "adding the node")
+        try:
+            with torch.cuda.stream(side), self.entry.body_pool(dev):
+                self.in_body = True
+                block()
+        except BaseException:
+            # End the body's capture and the capture it sits in: torch
+            # would instantiate a graph whose node holds a broken body
+            # (the process dies there) where it now raises.
+            lib.admm_cond_abort(side.cuda_stream)
+            lib.admm_cond_abort(stream)
+            raise
+        finally:
+            self.in_body = False
+        body_nodes = ctypes.c_size_t()
+        _cond_check(lib, lib.admm_cond_close(
+            side.cuda_stream, count, handle.value, live.data_ptr(), pptr,
+            ctypes.byref(body_nodes)), "capturing its body")
+        self.body_nodes += body_nodes.value
 
 
 def check_key(kind: str, backend: str, settings, state, **static):
@@ -194,8 +336,10 @@ class _Entry:
         self.device = next(t for _, t in _leaves(state)).device
         self.cache = cache
         self.pool = None
+        self.body_pool_id = None
         self.graphs = {}
         self.kernels = {}
+        self.body_nodes = {}
         self.warm = False
 
     def load(self, state):
@@ -210,8 +354,43 @@ class _Entry:
     def write(self, updates):
         _write(self.buffers, updates)
 
+    @contextlib.contextmanager
+    def body_pool(self, device):
+        """Routes the current stream's allocations, a conditional body's,
+        into the entry's body pool while it captures. A pool of its own
+        beside the graphs' `pool`: ending its routing cannot end the
+        routing of the capture it sits in. The entry holds one use of
+        the pool until it is dropped."""
+        route = getattr(torch._C, _ROUTE_STREAM, None)
+        if route is None:
+            raise RuntimeError(f"torch {torch.__version__} has no "
+                               f"{_ROUTE_STREAM}: a conditional body's "
+                               "allocations cannot go to a graph pool")
+        first = self.body_pool_id is None
+        if first:
+            self.body_pool_id = torch.cuda.graph_pool_handle()
+        index = torch.device(device).index
+        route(index, self.body_pool_id)
+        try:
+            yield
+        finally:
+            torch._C._cuda_endAllocateToPool(index, self.body_pool_id)
+            if first:
+                weakref.finalize(self, torch._C._cuda_releasePool, index,
+                                 self.body_pool_id)
+            else:
+                torch._C._cuda_releasePool(index, self.body_pool_id)
+
     def _replay(self, variant):
+        timed = self.cache.replay_events
+        if timed is not None:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
         self.graphs[variant].replay()
+        if timed is not None:
+            end.record()
+            timed.append((start, end))
         self.cache.stats["replays"] += 1
         for kernel in self.kernels[variant]:
             kernel.launches += 1
@@ -253,7 +432,7 @@ class _Entry:
         gc.disable()
         try:
             grown = []
-            graph, launched = self._capture_once(variant, stream, grown)
+            graph, cap = self._capture_once(variant, stream, grown)
             if grown:
                 for buffers, key, value in grown:
                     buffers[key] = torch.empty_like(value)
@@ -261,7 +440,7 @@ class _Entry:
                 # second capture.
                 del graph, value
                 grown.clear()
-                graph, launched = self._capture_once(variant, stream, grown)
+                graph, cap = self._capture_once(variant, stream, grown)
                 if grown:
                     raise RuntimeError(f"segment {variant} added state "
                                        "entries at its second capture")
@@ -273,25 +452,26 @@ class _Entry:
         stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
         stats["captures"] += 1
         self.graphs[variant] = graph
-        self.kernels[variant] = launched
+        self.kernels[variant] = cap.launched
+        self.body_nodes[variant] = cap.body_nodes
 
     def _capture_once(self, variant, stream, grown):
-        global _captured_launches
+        global _capture
         graph = torch.cuda.CUDAGraph(keep_graph=self.cache.keep_graphs)
         # capture_begin/end rather than torch.cuda.graph, which would
         # synchronise the card and empty the allocator's cache at every
         # capture: the warm-up already ran on this stream, and the graph
         # allocates from its own pool.
-        launched = _captured_launches = []
+        cap = _capture = _Capture(self)
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=self.pool)
             try:
                 _write(self.buffers, self.step(self.buffers, variant),
                        grown)
             finally:
-                _captured_launches = None
+                _capture = None
                 graph.capture_end()
-        return graph, launched
+        return graph, cap
 
 
 class CheckCache:
@@ -302,11 +482,16 @@ class CheckCache:
     device serves every capture. With `keep_graphs` set, each graph
     keeps its captured template beside its executable
     (`raw_cuda_graph()`), so that a measuring script can count its
-    nodes; it costs host memory only."""
+    nodes; it costs host memory only. With `replay_events` a list, each
+    replay records a pair of CUDA events around itself on the stream
+    (`replay_ms` sums them): the device time of the replays, which
+    profiles cannot give where a graph holds conditional nodes (CUPTI
+    loses records of the kernels in their bodies)."""
 
     def __init__(self, size: int = CACHE_SIZE):
         self.size = size
         self.keep_graphs = False
+        self.replay_events = None
         self.entries = collections.OrderedDict()
         self.streams = {}
         self.stats = dict(captures=0, replays=0, eager_checks=0,
@@ -325,17 +510,38 @@ class CheckCache:
             self.entries.popitem(last=False)
         return entry
 
-    def stream(self, device):
-        if device not in self.streams:
+    def stream(self, device, role="capture"):
+        """The stream of `role` on `device`: 'capture' runs every capture
+        and warm-up, 'body' captures the bodies of conditional nodes."""
+        key = (torch.device(device), role)
+        if key not in self.streams:
             stream = torch.cuda.Stream(device)
             # The stream's cuBLAS handle and workspace, made here: a
             # segment captured before any eager product on this stream
             # would make them inside its capture, which fails (the 'cg'
-            # backend's first CG head; its prologue runs no product).
+            # backend's first check; its prologue runs no product).
             with torch.cuda.stream(stream):
                 torch.cuda.current_blas_handle()
-            self.streams[device] = stream
-        return self.streams[device]
+            self.streams[key] = stream
+        return self.streams[key]
+
+    def body_stream(self, device):
+        return self.stream(device, "body")
+
+    def prepare_nodes(self, device):
+        """What a capture that adds conditional nodes on `device` needs
+        made before it: the node library, the body stream and its cuBLAS
+        workspace."""
+        nodes()
+        self.body_stream(device)
+
+    def replay_ms(self) -> float:
+        """The device milliseconds of the replays timed since the last
+        call (waits for the last one); empties `replay_events`."""
+        events, self.replay_events[:] = list(self.replay_events), []
+        if events:
+            events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in events)
 
     def clear(self):
         self.entries.clear()
@@ -368,6 +574,8 @@ class CheckLoop:
         self.step = step if pre is None else _PreStep(pre, step)
         if self.capture:
             cache = CACHE if cache is None else cache
+            if backend in NODE_BACKENDS and dev.type == "cuda":
+                cache.prepare_nodes(dev)
             key = check_key(kind, backend, settings, state, **static)
             self._entry = cache.entry(key, self.step, state)
             self.state = self._entry.buffers

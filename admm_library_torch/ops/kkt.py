@@ -30,15 +30,15 @@ from __future__ import annotations
 
 import torch
 
+from ..core import graph
 from ..problem import mv, vm
 from . import banded as banded_ops
 from . import spike as spike_ops
 from . import pallas_cg
 from .pallas_cg import pallas_cg_solve
 
-# Lockstep CG reads its loop condition from the device every this many
-# steps (`cg_blocks`); extra steps with every lane frozen leave x
-# unchanged.
+# Lockstep CG tests its loop condition every this many steps
+# (`cg_blocks`); extra steps with every lane frozen leave x unchanged.
 _CG_CHECK = 8
 
 
@@ -143,8 +143,8 @@ def cg_start(fac, rhs, x0=None, tol: float = 1e-9):
 
 
 def cg_live(cg):
-    """The CG's stop flag as the host reads it before a block: a 0-d
-    bool, true while a lane's residual is above its tolerance."""
+    """The CG's loop condition before a block: a 0-d bool, true while a
+    lane's residual is above its tolerance."""
     return (cg["rs"] > cg["tol2"]).any()
 
 
@@ -169,15 +169,15 @@ def cg_steps(fac, cg, steps: int):
 def cg_solve(fac, rhs, x0=None, tol: float = 1e-9, max_iter: int = 200):
     """Lockstep conjugate gradient on M x = rhs, all lanes of rhs's
     leading dims together; a lane freezes once ‖r‖² ≤ tol²·max(‖rhs‖², 1).
-    Runs the blocks of `cg_blocks(max_iter)` while the host's read of
-    `cg_live` before each says a lane is still above its tolerance: a
-    NaN residual counts as frozen. `core.admm` runs the same blocks as
-    segments of its loop."""
-    cg = cg_start(fac, rhs, x0, tol)
-    for steps in cg_blocks(max_iter):
-        if not bool(cg_live(cg)):
-            break
-        cg = cg_steps(fac, cg, steps)
+    Runs the blocks of `cg_blocks(max_iter)` while `cg_live` before each
+    says a lane is still above its tolerance (a NaN residual counts as
+    frozen) through `core.graph.while_blocks`: on the card inside a
+    captured check a WHILE node and, where max_iter is no multiple of
+    _CG_CHECK, an IF node whose condition stays on the device, elsewhere
+    a host read before each block."""
+    cg = graph.while_blocks(
+        cg_start(fac, rhs, x0, tol), cg_live,
+        lambda cg, steps: cg_steps(fac, cg, steps), cg_blocks(max_iter))
     return cg["x"]
 
 

@@ -108,8 +108,7 @@ def batch_check(state, variant, *, cone, settings: Settings, backend: str,
                 restart_checks: int, fused: bool, mesh: Mesh | None):
     """One residual check of `run_admm_batch_shared`: check_every
     iterations (or, with `fused`, the fused kernel's output in
-    state['xn'], 'zn', 'yn', and on 'cg' the CG segments' there;
-    `admm.check_iterates`), lane freezing, residuals, restart, status,
+    state['xn'], 'zn', 'yn'), lane freezing, residuals, restart, status,
     stall, the shared rho test and the history row. Returns the state
     entries it changes; 'flags' holds (any lane UNSOLVED, refactor)."""
     restart, rho_test = variant
@@ -122,8 +121,9 @@ def batch_check(state, variant, *, cone, settings: Settings, backend: str,
     else:
         rho_vec = admm.rho_vec_of(state["rho_bar"], state["eq_mask"],
                                   settings, cone)
-        xn, zn, yn = admm.check_iterates(state, qp, rho_vec, settings,
-                                         backend)
+        xn, zn, yn = admm.iterate_block(
+            qp, state["fac"], x, z, y, rho_vec, settings, backend, k,
+            z_off=state.get("z_off"))
     # Freeze converged/infeasible lanes.
     xn, zn, yn = (_pick(active, a, b) for a, b in ((xn, x), (zn, z), (yn, y)))
     iters_lane = state["iters_lane"] + active.to(torch.int32) * k
@@ -318,9 +318,8 @@ def batch_epilogue(state, *, cone, dtype, scale: str):
 def batch_step(state, variant, *, cone, settings: Settings, backend: str,
                restart_checks: int, fused: bool, mesh: Mesh | None, dtype,
                scale: str):
-    """A segment of the batch loop: PROLOGUE, REFACTOR, EPILOGUE, a CG
-    segment on 'cg' (`admm.cg_segment`), or the check `variant` =
-    (restart, rho_test) (`batch_check`)."""
+    """A segment of the batch loop: PROLOGUE, REFACTOR, EPILOGUE, or the
+    check `variant` = (restart, rho_test) (`batch_check`)."""
     if variant == PROLOGUE:
         return batch_prologue(state, cone=cone, settings=settings,
                               backend=backend, dtype=dtype, scale=scale,
@@ -330,9 +329,6 @@ def batch_step(state, variant, *, cone, settings: Settings, backend: str,
                               backend=backend)
     if variant == EPILOGUE:
         return batch_epilogue(state, cone=cone, dtype=dtype, scale=scale)
-    if variant[0] in admm.CG_SEGMENTS:
-        return admm.cg_segment(state, variant, cone=cone, settings=settings,
-                               lanes=False)
     return batch_check(state, variant, cone=cone, settings=settings,
                        backend=backend, restart_checks=restart_checks,
                        fused=fused, mesh=mesh)
@@ -358,10 +354,9 @@ def _run_batch(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
                dtype, scale: str, scaling=None, rho0=None,
                z_off=None, mesh: Mesh | None = None) -> graph.CheckLoop:
     """The batch loop from raw data: PROLOGUE, the checks with a
-    REFACTOR wherever a check asks for one, EPILOGUE; on 'cg' each
-    check's iterations as CG segments before it
-    (`admm.run_cg_iterations`). Returns the loop; its state's 'out',
-    'rho_bar', 'iters_lane' and 'hist' are the result."""
+    REFACTOR wherever a check asks for one, EPILOGUE. Returns the loop;
+    its state's 'out', 'rho_bar', 'iters_lane' and 'hist' are the
+    result."""
     cone = qp.cone
     # The only place where the plain iteration body is chosen over the
     # fused kernel: f32, explicit inverse, shared q/lam, no shifted prox,
@@ -399,9 +394,6 @@ def _run_batch(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
     it = 0
     alive = True
     while alive and it < settings.max_iter:
-        if backend == "cg":
-            # The CG's stop flags are this rank's own lanes': no agree.
-            admm.run_cg_iterations(loop, settings)
         loop(admm.check_variant(it // k, settings, restart_checks))
         it += k
         # The one device-to-host read of this check, agreed over the

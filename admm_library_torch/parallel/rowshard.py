@@ -23,14 +23,16 @@ layout does not split evenly in order, the rows are interleaved so that
 every shard holds the same (m_box/ndev | m_l1/ndev | n_soc/ndev) mix,
 and z and y are permuted back at the end.
 
-The loop runs on `core/graph.CheckLoop` in segments: each CG block of
-`ops.kkt._CG_CHECK` steps, each iteration's tail (with the next head),
-and each check (the last tail, the residual check, the next head). On
-the card with a data axis of one rank each segment is one CUDA graph
-replay; with more ranks the collectives stay eager, and the same
-segments run as plain tensor code. The host reads the device once per
-CG block (the stop flag) and once per check (the status), each agreed
-over every rank.
+The loop runs on `core/graph.CheckLoop`, one segment a check: its
+check_every iterations (each the CG of its x-update in blocks of
+`ops.kkt._CG_CHECK` steps through `core.graph.while_blocks`, the
+iteration's tail and the next CG start) and the residual check. On the
+card with a data axis of one rank a check is one CUDA graph replay, its
+CGs conditional nodes that test their stop flag on the card; with more
+ranks the collectives stay eager, the same segment runs as plain tensor
+code, and the host reads the CG's stop flag, agreed over every rank,
+before each block. The host reads the check's status once a check,
+agreed over every rank.
 """
 from __future__ import annotations
 
@@ -106,7 +108,7 @@ class RowShardSolution(NamedTuple):
 
 
 # The name under which core/graph.capturable admits this loop: the
-# matrix-free CG, whose blocks have static trip counts.
+# matrix-free CG, whose blocks are conditional nodes in a capture.
 BACKEND = "rowshard_cg"
 
 
@@ -118,17 +120,11 @@ def _op(st, v, sigma: float, mesh: Mesh):
     return st["P"] @ v + sigma * v + At
 
 
-def _live(rs, tol2):
-    """The CG's stop flag as the host reads it: int32 (1,), 1 while the
-    residual is above its tolerance."""
-    return (rs > tol2).to(torch.int32)[None]
-
-
 def cg_head(st, settings: Settings, mesh: Mesh):
     """The start of an x-update from the carry (x, z, y, rho_bar): the
-    row-local ρ, and CG on M xt = rhs from xt = 0 (xt, r, p, rs, tol2 and
-    the first stop flag). The CG stops once ‖r‖² ≤ tol²·max(‖rhs‖², 1)
-    or after cg_max_iter steps."""
+    row-local ρ, and CG on M xt = rhs from xt = 0 (xt, r, p, rs, tol2).
+    The CG stops once ‖r‖² ≤ tol²·max(‖rhs‖², 1) or after cg_max_iter
+    steps."""
     s = settings
     rb = st["rho_bar"]
     rho_loc = torch.where(st["eq_loc"], s.rho_eq_scale * rb, rb)
@@ -138,16 +134,14 @@ def cg_head(st, settings: Settings, mesh: Mesh):
     r = rhs - _op(dict(st, rho_loc=rho_loc), xt, s.sigma, mesh)
     rs = torch.dot(r, r)
     tol2 = (s.cg_tol * s.cg_tol) * torch.clamp(torch.dot(rhs, rhs), min=1.0)
-    return dict(rho_loc=rho_loc, xt=xt, r=r, p=r, rs=rs, tol2=tol2,
-                live=_live(rs, tol2))
+    return dict(rho_loc=rho_loc, xt=xt, r=r, p=r, rs=rs, tol2=tol2)
 
 
 def cg_block(st, steps: int, sigma: float, mesh: Mesh):
     """`steps` CG steps from the state's (xt, r, p, rs). A step taken
     once the stop test holds has α = 0 and leaves xt and r as they were,
     so the result is the one of a stop at that very step (as
-    ops/kkt.cg_solve). Counts the steps taken in cg_steps and writes the
-    next stop flag."""
+    ops/kkt.cg_solve). Counts the steps taken in cg_steps."""
     tiny = torch.finfo(st["rs"].dtype).tiny
     xt, r, p, rs, tol2 = (st[k] for k in ("xt", "r", "p", "rs", "tol2"))
     count = st["cg_steps"]
@@ -162,23 +156,23 @@ def cg_block(st, steps: int, sigma: float, mesh: Mesh):
         p = r + (rs_new / torch.clamp(rs, min=tiny)) * p
         rs = torch.where(live, rs_new, rs)
         count = count + live.to(torch.int32)
-    return dict(xt=xt, r=r, p=p, rs=rs, cg_steps=count, live=_live(rs, tol2))
+    return dict(xt=xt, r=r, p=p, rs=rs, cg_steps=count)
 
 
-def cg_variants(max_iter: int):
-    """The CG blocks of one x-update (ops/kkt.cg_blocks): `_CG_CHECK`
-    steps each, the last one shorter where max_iter is not a multiple."""
-    return [("cg", steps) for steps in cg_blocks(max_iter)]
+def _cg(st, settings: Settings, mesh: Mesh):
+    """The CG of one x-update from the head in `st`: the blocks of
+    ops/kkt.cg_blocks(cg_max_iter), each while the stop flag, agreed
+    over every rank, says the residual is above its tolerance
+    (`graph.while_blocks`). Returns xt, r, p, rs, tol2 and cg_steps."""
+    def live(c):
+        return runtime.agree((c["rs"] > c["tol2"]).to(torch.int32)[None],
+                             mesh)
 
-
-def _cg_rowsharded(loop, blocks, mesh: Mesh):
-    """The CG of one x-update on `loop`'s state, from its head: each
-    block runs while the stop flag, agreed over every rank, says a
-    residual is still above its tolerance (one host read a block)."""
-    for variant in blocks:
-        if not bool(runtime.agree(loop.state["live"], mesh)):
-            return
-        loop(variant)
+    def block(c, steps):
+        return cg_block(dict(st, **c), steps, settings.sigma, mesh)
+    return graph.while_blocks(
+        {k: st[k] for k in ("xt", "r", "p", "rs", "tol2", "cg_steps")},
+        live, block, cg_blocks(settings.cg_max_iter))
 
 
 def _tail(st, settings: Settings, cone: ConeSpec):
@@ -358,20 +352,26 @@ def _check(st, restart: bool, rho_test: bool, *, settings: Settings,
 
 def rowshard_step(st, variant, *, settings: Settings, mesh: Mesh,
                   cone: ConeSpec, use_cert: bool, restart_checks: int):
-    """One segment of the loop of `solve_rowsharded`, a step of
-    core/graph.CheckLoop. `variant` is ("cg", steps), a CG block;
-    ("tail",), the end of an iteration and the head of the next; or
-    ("check", restart, rho_test), the end of a check's last iteration,
-    the residual check and the head of the next iteration. Returns the
+    """One check of the loop of `solve_rowsharded`, a step of
+    core/graph.CheckLoop, `variant` = ("check", restart, rho_test):
+    check_every iterations, each the CG of its x-update from the head in
+    the state (`_cg`), the rest of the iteration and the head of the
+    next, and the residual check after the last one's rest. Returns the
     state entries it changes."""
-    if variant[0] == "cg":
-        return cg_block(st, variant[1], settings.sigma, mesh)
-    out = _tail(st, settings, cone)
-    if variant[0] == "check":
-        out.update(_check(dict(st, **out), *variant[1:], settings=settings,
-                          mesh=mesh, cone=cone, use_cert=use_cert,
-                          restart_checks=restart_checks))
-    out.update(cg_head(dict(st, **out), settings, mesh))
+    st = dict(st)
+    out = {}
+    k = settings.check_every
+    for i in range(k):
+        new = _cg(st, settings, mesh)
+        new.update(_tail(dict(st, **new), settings, cone))
+        if i == k - 1:
+            new.update(_check(dict(st, **new), *variant[1:],
+                              settings=settings, mesh=mesh, cone=cone,
+                              use_cert=use_cert,
+                              restart_checks=restart_checks))
+        new.update(cg_head(dict(st, **new), settings, mesh))
+        st.update(new)
+        out.update(new)
     return out
 
 
@@ -462,14 +462,10 @@ def solve_rowsharded(qp: QPData, mesh: Mesh, settings: Settings = Settings(),
         permuted=perm is not None,
         mesh_shape=tuple(sorted(mesh.shape.items())),
         mesh_coords=tuple(sorted(mesh.coords.items())))
-    blocks = cg_variants(s.cg_max_iter)
     it = 0
     done = False
     while not done and it < s.max_iter:
-        for i in range(k):
-            _cg_rowsharded(loop, blocks, mesh)
-            loop(("tail",) if i < k - 1 else ("check",)
-                 + admm.check_variant(it // k, s, restart_checks))
+        loop(("check",) + admm.check_variant(it // k, s, restart_checks))
         it += k
         # The one device-to-host read of this check, agreed over every
         # rank.

@@ -6,10 +6,15 @@
 Run from the repository root on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 
-1. device    — the card's name and the nvidia-smi name/power-limit line,
-               and whether torch can capture a CUDA-graph IF node;
-2. build     — builds each csrc/*.cu with nvcc for sm_90a, all at once
-               (ptxas register report);
+1. build     — builds each csrc/*.cu with nvcc for sm_90a, all at once
+               (ptxas register report): the two kernels and the
+               conditional-node library;
+2. device    — the card's name and the nvidia-smi name/power-limit line,
+               whether torch has its own CUDA-graph IF node and the
+               allocator calls that route a stream's allocations to a
+               graph pool; a tiny graph of an IF and a WHILE node
+               (core/graph.while_blocks, csrc/graph_cond.cu) replayed
+               against the plain loop;
 3. kernel    — the fused ADMM iteration kernel against its plain PyTorch
                twin on the same inputs, at the flagship shape (batch 128,
                1024 and 1, the last config 2's shape through solve; k=25,
@@ -83,22 +88,24 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                held to _solve_core on the lane alone (status, iterations
                ± 25, x within 1e-6) and to solve (x within 1e-6), a
                rerun bitwise identical.
-12. cg_paths — the matrix-free 'cg' backend, every loop captured (its CG
-               as host-sequenced segments: a head, blocks of 8 steps with
-               the host's read of the CG's stop flag before each, a
-               tail): configs 1-3 through solve, the config-5 batch at
-               128 through solve_batch_shared and 128 config-1 draws
-               through solve_batch; every lane SOLVED within its f64
-               mixed criterion, iterations within 25 of the JAX
-               reference's with 'cg' on the CPU (configs 1, 2 and
-               solve_batch; configs 3 and 5, whose unconverged f32 CG
-               solves follow the card's rounding, reported), x within
-               X_AGREE of the 'inv' solve, a rerun bitwise identical that
-               captures nothing, configs 2, 3 and 5 bitwise the same
-               solve with every segment eager; wall-clock, graph nodes
-               and capture ms, the segments of a rerun, and (configs 1,
-               3 and solve_batch) from a profiled rerun the host's launch
-               calls and reads and the idle share.
+12. cg_paths — the matrix-free 'cg' backend, every loop captured (each
+               check one graph, its CGs conditional nodes: a WHILE node
+               of 8-step blocks whose stop test runs on the card):
+               configs 1-3 through solve, the config-5 batch at 128
+               through solve_batch_shared and 128 config-1 draws through
+               solve_batch; every lane SOLVED within its f64 mixed
+               criterion, iterations within 25 of the JAX reference's
+               with 'cg' on the CPU (configs 1, 2 and solve_batch;
+               configs 3 and 5, whose unconverged f32 CG solves follow
+               the card's rounding, reported), x within X_AGREE of the
+               'inv' solve, a rerun bitwise identical that captures
+               nothing, every path bitwise the same solve with every
+               segment eager; the host's reads of a rerun at most its
+               checks and PHASE_READS more; wall-clock, graph nodes (the
+               conditional bodies' too) and capture ms, the segments of
+               a rerun and the device time of its replays (CUDA events;
+               no profiled run: a profile loses the kernels inside
+               conditional bodies).
 
 13. consensus — consensus_solve (parallel/consensus.py) on config 2's
                problem (seed 0) split into 10 horizon blocks, on a 1x1
@@ -118,6 +125,13 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                lanes within X_AGREE of their monolithic f64 solves, the
                copies and the rerun as in phase 13. Both print, for
                scale, phase 4's b1024 and phase 10's wall-clock.
+14b. consensus_cg — phases 13 and 14 on 'cg' (consensus_mc at
+               CONSENSUS_CG_LANES of the draw's lanes), their checks
+               captured with the CGs as conditional nodes: every lane
+               SOLVED, the f64 block KKT residuals within the mixed
+               criterion, bitwise the same solve with every segment
+               eager, a rerun bitwise identical, its host reads at most
+               its checks and PHASE_READS more.
 
 15. data_axis — config 5 at 1024 through the data axis at one rank:
                shard_batch on make_data_mesh(1), solve_batch_shared(...,
@@ -125,15 +139,19 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 16. rowshard — the reference's rowshard_qp4096 cell (n=4096, m=8192, f32
                data, eps 1e-6) on the port's own seeded draw, through
                solve_rowsharded_hybrid on a 1-rank data mesh, its loop
-               as captured graphs: SOLVED at the eager loop's 250
+               as captured graphs (a check one graph, its CGs
+               conditional nodes): SOLVED at the eager loop's 250
                iterations and 11,554 CG steps, f64 KKT within the mixed
                criterion (r/eps reported), z within 1e-5 of A x, reruns
                bitwise identical, the captured solve bitwise the eager
                one; captures, replays, warm-ups and capture ms of the
                first run and two reruns (the second captures nothing),
-               nodes per graph, peak memory, the host's reads and launch
-               calls an iteration, iterations beside the TPU's on JAX's
-               draw, and one profiled run;
+               nodes per graph, peak memory, the host's reads (of the
+               eager solve, and of a rerun: at most its checks and
+               PHASE_READS more), the device time of a rerun's replays
+               and iterations beside the TPU's on JAX's draw (no
+               profiled run: a profile loses the kernels inside
+               conditional bodies);
 17. horizon_sharded — config 5 at 1024 (the JAX dispersions) in 10 time
                parts through solve_horizon_sharded on a 1x1 mesh: in f64
                under the reference test's plain settings every lane
@@ -145,8 +163,9 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 18. checkpoint — phase 4's b128 solution saved (utils/checkpoint), loaded
                back onto the card and resumed: SOLVED within one check;
 19. graph    — the captured residual checks (core/graph.py) on configs 3
-               and 4 (and config 3 on 'pallas_cg', config 1 on 'cg': the
-               new segments' nodes and capture ms) and the config-5
+               and 4 (and config 3 on 'pallas_cg', config 1 on 'cg': its
+               checks' nodes, their conditional bodies' beside, and
+               capture ms) and the config-5
                batch at 128 and 1024, each from an
                empty cache and on a rerun: captures, replays, warm-ups,
                capture ms, device operations per graph, and from one
@@ -168,7 +187,7 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 
 Every solve above runs its checks as captured graphs where the capture
 rule admits its backend ('inv', 'chol', 'banded', 'spike', 'pallas_cg',
-'cg' outside the consensus drivers, and the row-sharded CG) and mesh
+'cg', and the row-sharded CG) and mesh
 (none, or 1 rank). Config 3's 'pallas_cg' solve is held bitwise to the
 same solve with every segment eager, kernel 2 launched as often. A
 kernel's launches count the times it ran: one per eager launch, and one
@@ -211,9 +230,13 @@ ITER_SLACK = 25                # one check interval
 CG_REFERENCE_ITERS = {"config1": 100, "config2": 750, "config3": 600,
                       "config5": 400, "solve_batch": 200}
 CG_ITERS_HELD = ("config1", "config2", "solve_batch")
-# The cg paths profiled in phase cg_paths (a few hundred thousand kernel
-# records each).
-CG_PROFILED = ("config1", "config3", "solve_batch")
+# The host's reads a solve makes outside its checks (each check reads
+# one flag): the reference's `# host sync` reads of a stage's or a
+# round's verdict, a few on every path (config 1 on 'pallas_cg' reads 6
+# times in all, 4 of them its checks).
+PHASE_READS = 16
+# Lanes of consensus_mc's draw that phase consensus_cg solves on 'cg'.
+CONSENSUS_CG_LANES = 64
 # The JAX reference on the CPU, through solve at the bench settings:
 # config 3 (bench_cw, seed 0) with 'inv'. With 'pallas_cg' the count is
 # reported and not held: no 200-step f32 CG solve of the f32 phase
@@ -402,22 +425,71 @@ def max_abs_diff(a, b):
                for p, q in zip(a, b))
 
 
-def phase_device():
+# torch's calls that route a stream's allocations into a graph pool
+# (core/graph.py routes a conditional body's with the first).
+POOL_CALLS = ("_cuda_beginAllocateCurrentStreamToPool",
+              "_cuda_endAllocateToPool", "_cuda_releasePool",
+              "_cuda_beginAllocateToPool")
+
+
+def _node_probe(dev):
+    """A loop of unit blocks, n += steps while n < k, as conditional
+    nodes of one captured check (blocks [1] * 6 + [2]: a WHILE node of
+    at most 6 passes, then an IF node), replayed for several k and held
+    to the plain loop. Returns the record."""
+    import torch
+    from admm_library_torch.core import graph
+    blocks = [1] * 6 + [2]
+
+    def step(state, variant):
+        out = graph.while_blocks(
+            dict(n=state["n0"]), lambda c: c["n"] < state["k"],
+            lambda c, steps: dict(n=c["n"] + steps), blocks)
+        return dict(n=out["n"])
+
+    def plain(k):
+        n = 0
+        for steps in blocks:
+            if not n < k:
+                break
+            n += steps
+        return n
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    cache = graph.CheckCache()
+    loop = graph.CheckLoop("node_probe", step,
+                           dict(n0=zero, k=zero.clone(), n=zero.clone()),
+                           None, "cg", cache=cache)
+    got = {}
+    for k in (0, 3, 6, 7, 20, 1):
+        loop.set(dict(k=torch.tensor(k, device=dev)))
+        loop((False, False))
+        got[k] = int(loop.state["n"])
+        check(got[k] == plain(k), f"device: the nodes ran n to {got[k]} "
+              f"for k = {k}, the plain loop to {plain(k)}")
+    check(cache.stats["captures"] == 1 and cache.stats["replays"] == 5,
+          "device: the node probe was not captured once and replayed")
+    entry, = cache.entries.values()
+    return dict(node_probe=got, node_probe_body_nodes=entry.body_nodes[
+        (False, False)])
+
+
+def phase_device(dev):
     import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    # Whether this torch can capture a CUDA-graph IF node, which would
-    # keep the 'cg' backend's stop test on the card (core/admm.py runs
-    # it as host-sequenced segments).
+    # torch's own CUDA-graph IF node (absent from 2.11); the port builds
+    # its nodes with csrc/graph_cond.cu.
     if_node = all(hasattr(torch.cuda.CUDAGraph, name) for name in (
         "get_currently_capturing_graph", "begin_capture_to_if_node",
         "end_capture_to_conditional_node"))
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvidia_smi=smi,
-         cuda_graph_if_node=if_node)
+         cuda_graph_if_node=if_node,
+         allocator_calls={n: hasattr(torch._C, n) for n in POOL_CALLS},
+         **_node_probe(dev))
     return smi
 
 
@@ -729,12 +801,42 @@ def _timed_solve(qp, settings):
     return sol, secs, launches["fused_iterate_shared"]
 
 
+class _HostReads:
+    """Counts the host's reads of device values inside the block: calls
+    of item, tolist, bool, float and int on CUDA tensors, each of which
+    waits for the card."""
+
+    NAMES = ("item", "tolist", "__bool__", "__float__", "__int__")
+
+    def __enter__(self):
+        import torch
+        self.count = 0
+        self.own = {n: torch.Tensor.__dict__.get(n) for n in self.NAMES}
+        for name in self.NAMES:
+            setattr(torch.Tensor, name, self._counted(getattr(torch.Tensor,
+                                                              name)))
+        return self
+
+    def _counted(self, fn):
+        def read(t, *a, **k):
+            if t.is_cuda:
+                self.count += 1
+            return fn(t, *a, **k)
+        return read
+
+    def __exit__(self, *exc):
+        import torch
+        for name, fn in self.own.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+
+
 class _SegmentCount:
     """Counts the segments that every graph.CheckLoop runs inside the
     block, by name: 'check' for a residual check, else the variant's
-    first element (the 'cg' backend's 'head', 'cg' and 'tail'; 'prologue',
-    ...). On 'cg' each 'cg' block follows one host read of the CG's stop
-    flag."""
+    first element ('prologue', 'refactor', ...)."""
 
     def __enter__(self):
         from admm_library_torch.core import graph
@@ -757,7 +859,8 @@ def _captured_runs(fn, *args, reruns=1):
     """fn(*args) from an empty check cache, then `reruns` reruns: every
     result, and a record of the captured checks (core/graph.py) with
     each run's wall-clock, kernel launches, segments run by name
-    (`_SegmentCount`) and graph.CACHE.stats deltas
+    (`_SegmentCount`), the host's reads (`_HostReads`) and
+    graph.CACHE.stats deltas
     (captures, replays, warm-ups, capture ms; `graph_rerun` the last
     rerun, `graph_reruns` each where there are more), the cache's
     entries, the nodes of each graph (counted after the last run, so
@@ -769,18 +872,25 @@ def _captured_runs(fn, *args, reruns=1):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sols, runs = [], []
-    for _ in range(1 + reruns):
+    for i in range(1 + reruns):
         before = dict(graph.CACHE.stats)
-        with _SegmentCount() as segments:
+        if i == reruns:
+            graph.CACHE.replay_events = []
+        with _SegmentCount() as segments, _HostReads() as reads:
             sol, wall, launches = _timed_run(fn, *args)
         sols.append(sol)
         runs.append(dict(wall_s=wall, launches=launches,
-                         segments=segments.counts, **{
+                         segments=segments.counts, host_reads=reads.count,
+                         **{
                              k: graph.CACHE.stats[k] - before[k]
                              for k in before}))
+    replay_ms = graph.CACHE.replay_ms()
+    graph.CACHE.replay_events = None
+    runs[-1].update(replay_device_ms=replay_ms,
+                    replay_idle_share=1.0 - replay_ms / 1e3 / wall)
     rec = dict(graph_first=runs[0], graph_rerun=runs[-1],
                graph_entries=len(graph.CACHE.entries),
-               nodes_per_graph=_graph_nodes(),
+               nodes_per_graph=_graph_nodes(), body_nodes=_body_nodes(),
                peak_memory_bytes=torch.cuda.max_memory_allocated())
     if reruns > 1:
         rec["graph_reruns"] = runs[1:]
@@ -828,6 +938,30 @@ def _captured_fields(tag, sols, rec, fn, *args, twin=False):
         check(launches == out["launches"],
               f"{tag}: kernel launches differ between the captured and "
               "the capture-off solve")
+    return out
+
+
+def _check_reads(tag, rec):
+    """A rerun's host reads: one a check, and at most PHASE_READS more
+    (no read inside a check, none before a CG block). Returns (reads,
+    checks)."""
+    rerun = rec["graph_rerun"]
+    checks = rerun["segments"].get("check", 0)
+    check(rerun["host_reads"] <= checks + PHASE_READS,
+          f"{tag}: {rerun['host_reads']} host reads in a rerun of "
+          f"{checks} checks")
+    return rerun["host_reads"], checks
+
+
+def _body_nodes():
+    """The nodes inside the conditional bodies of every check graph of
+    the default cache, by entry and variant (`_graph_nodes`' labels)."""
+    from admm_library_torch.core import graph
+    out = {}
+    for i, (key, entry) in enumerate(graph.CACHE.entries.items()):
+        for variant, n in entry.body_nodes.items():
+            if graph.is_check(variant):
+                out[f"{i}:{key[0]} {variant}"] = n
     return out
 
 
@@ -1304,27 +1438,22 @@ def _kkt_within(qp, sol, eps):
     return worst <= 1.0, worst
 
 
-def _cg_segments(nodes):
-    """The node counts of the 'cg' backend's segments among a cache's
-    graphs (`_graph_nodes`): head, CG block and tail graphs."""
-    return {k: v for k, v in nodes.items()
-            if any(f"('{name}'," in k for name in ("head", "cg", "tail"))}
-
-
 def phase_cg_paths(dev):
     """The matrix-free 'cg' backend at full width, every loop captured
-    (its CG as host-sequenced segments: a head, blocks of 8 steps with
-    the host's read of the stop flag before each, a tail): configs 1-3
-    through solve, the config-5 batch at 128 through solve_batch_shared
-    and BATCH_LANES config-1 draws through solve_batch. Each SOLVED in
-    every lane with f64 KKT within the mixed criterion, iterations
-    within ITER_SLACK of the JAX reference's with 'cg' (CG_ITERS_HELD),
-    x within X_AGREE of the 'inv' solve, a rerun bitwise and capturing
-    nothing; configs 2, 3 and 5 bitwise the same solve with every
-    segment eager. Reports
-    wall-clock, the graphs' nodes and capture ms, the segments of a
-    rerun by name, and for CG_PROFILED from a profiled rerun the host's
-    launch calls and reads (stream synchronisations) and the idle share."""
+    (each check one graph, its CGs conditional nodes: a WHILE node of
+    8-step blocks whose stop test runs on the card): configs 1-3 through
+    solve, the config-5 batch at 128 through solve_batch_shared and
+    BATCH_LANES config-1 draws through solve_batch. Each SOLVED in every
+    lane with f64 KKT within the mixed criterion, iterations within
+    ITER_SLACK of the JAX reference's with 'cg' (CG_ITERS_HELD), x within
+    X_AGREE of the 'inv' solve, a rerun bitwise and capturing nothing,
+    bitwise the same solve with every segment eager, and the rerun's
+    host reads at most its checks and PHASE_READS more. Reports
+    wall-clock, the graphs' nodes (the conditional bodies' beside) and
+    capture ms, the segments of a rerun by name, its host reads and the
+    device time of its replays (CUDA events around each replay: a
+    profile loses the kernels inside conditional bodies, so none runs
+    here)."""
     import torch
     from admm_library_torch import (QPData, Settings, Status, solve,
                                     solve_batch, solve_batch_shared)
@@ -1359,14 +1488,9 @@ def phase_cg_paths(dev):
         sols, graph_rec = _captured_runs(fn, qp, st)
         sol = sols[0]
         iters = int(sol.iters.max())
-        fields = _captured_fields(
-            tag, sols, graph_rec, fn, qp, st,
-            twin=name in ("config2", "config3", "config5"))
-        # The profiler records every kernel of every replay: config 2's
-        # and config 5's ~4-7 million are left out.
-        prof = (_profile_fields(_profiled(fn, qp, st), iters,
-                                fields["wall_rerun_s"])
-                if name in CG_PROFILED else {})
+        fields = _captured_fields(tag, sols, graph_rec, fn, qp, st,
+                                  twin=True)
+        reads, checks = _check_reads(tag, graph_rec)
         inv = fn(qp, st.replace(backend="inv"))
         kkt_ok, kkt_worst = _kkt_within(qp, sol, eps)
         solved = int((sol.status == int(Status.SOLVED)).sum())
@@ -1378,11 +1502,12 @@ def phase_cg_paths(dev):
                    inv_iters=int(inv.iters.max()),
                    inv_x_max_abs_diff=float((sol.x - inv.x).abs().max()),
                    **fields, graph_entries=graph_rec["graph_entries"],
-                   cg_segment_nodes=_cg_segments(nodes),
+                   cg_body_nodes=graph_rec["body_nodes"],
                    nodes_max=max(nodes.values()),
                    segments=graph_rec["graph_rerun"]["segments"],
-                   peak_memory_bytes=graph_rec["peak_memory_bytes"],
-                   **prof)
+                   host_reads=reads, host_reads_first=graph_rec[
+                       "graph_first"]["host_reads"], checks=checks,
+                   peak_memory_bytes=graph_rec["peak_memory_bytes"])
         emit("cg_paths", **rec)
         check(solved == sol.status.numel(),
               f"{tag}: {sol.status.numel() - solved} lanes not SOLVED")
@@ -1393,7 +1518,9 @@ def phase_cg_paths(dev):
               f"{CG_REFERENCE_ITERS[name]}")
         check(rec["inv_x_max_abs_diff"] <= X_AGREE,
               f"{tag}: 'cg' and 'inv' solutions disagree")
-        check(rec["cg_segment_nodes"], f"{tag}: no CG segment was captured")
+        check(rec["cg_body_nodes"]
+              and min(rec["cg_body_nodes"].values()) > 0,
+              f"{tag}: a check graph holds no conditional body")
         out[name] = rec
     return out
 
@@ -2067,6 +2194,89 @@ def phase_consensus_mc(dev, scale):
     return rec
 
 
+def _block_kkt(qp, sol, eps=EPS):
+    """The f64 KKT residuals of a consensus solution on its block data,
+    each lane's against the mixed criterion as the drivers' own f64
+    check forms it (the blocks' rows A x - z and P x + q + Aᵀ y, every
+    norm a max over the lane's blocks): (all within, worst ratio)."""
+    import torch
+    from admm_library_torch.problem import mv, vm
+    f64 = torch.float64
+    P, q, A = (t.to(f64) for t in (qp.P, qp.q, qp.A))
+    x, z, y = (t.to(f64) for t in (sol.x, sol.z, sol.y))
+    Ax, Px, Aty = mv(A, x), mv(P, x), vm(y, A)
+
+    def norm(v):
+        return v.abs().amax(dim=(-2, -1))
+    r_p, r_d = norm(Ax - z), norm(Px + q + Aty)
+    eps_p = eps + eps * torch.maximum(norm(Ax), norm(z))
+    eps_d = eps + eps * torch.maximum(torch.maximum(norm(Px), norm(Aty)),
+                                      q.abs().max())
+    ratio = torch.maximum(r_p / eps_p, r_d / eps_d)
+    return bool((ratio <= 1.0).all()), float(ratio.max())
+
+
+def phase_consensus_cg(dev):
+    """Phases consensus and consensus_mc on 'cg': config 2's problem in
+    10 blocks through consensus_solve, and CONSENSUS_CG_LANES lanes of
+    the consensus_mc_1024 draw through consensus_solve_mc, on a 1x1
+    mesh, each check one graph whose CGs are conditional nodes. Each
+    lane SOLVED within the f64 block KKT criterion, bitwise the same
+    solve with every segment eager, a rerun bitwise and capturing
+    nothing, its host reads at most its checks and PHASE_READS more."""
+    import numpy as np
+    from admm_library_torch import Settings, Status
+    from admm_library_torch.models.partitioned import (
+        partition_mpc, partition_mpc_from_s0, reference_s0)
+    from admm_library_torch.parallel import consensus, consensus_mc, runtime
+
+    _, _, s0 = _config2(dev)
+    mesh = runtime.make_mesh()
+    s = Settings(eps_abs=EPS, eps_rel=EPS,
+                 rho_edge_scale=CONSENSUS_EDGE_SCALE, backend="cg")
+    qp1, spec1, _ = partition_mpc(s0, np.zeros(6), N=CONSENSUS_N,
+                                  n_blocks=CONSENSUS_BLOCKS, dim=3,
+                                  device=dev)
+    qpb, specb, _, _ = partition_mpc_from_s0(
+        reference_s0()[:CONSENSUS_CG_LANES], s0, np.zeros(6), N=CONSENSUS_N,
+        n_blocks=CONSENSUS_BLOCKS, dim=3, device=dev)
+    out = {}
+    for name, fn, qp, spec in (
+            ("consensus", consensus.consensus_solve, qp1, spec1),
+            ("consensus_mc", consensus_mc.consensus_solve_mc, qpb, specb)):
+        tag = f"consensus_cg {name}"
+        sols, graph_rec = _captured_runs(fn, qp, spec, mesh, s)
+        sol = sols[0]
+        fields = _captured_fields(tag, sols, graph_rec, fn, qp, spec, mesh,
+                                  s, twin=True)
+        reads, checks = _check_reads(tag, graph_rec)
+        kkt_ok, kkt_worst = _block_kkt(qp, sol)
+        solved = int((sol.status == int(Status.SOLVED)).sum())
+        nodes = graph_rec["nodes_per_graph"]
+        rec = dict(path=name, n_blocks=spec.n_blocks, nb=spec.nb,
+                   mb=spec.mb, lanes=sol.status.numel(), solved=solved,
+                   iters=int(sol.iters.max()),
+                   iters_lane_min=int(sol.iters.min()),
+                   kkt_within_criterion=kkt_ok, kkt_worst_ratio=kkt_worst,
+                   **fields, host_reads=reads,
+                   host_reads_first=graph_rec["graph_first"]["host_reads"],
+                   checks=checks, graph_entries=graph_rec["graph_entries"],
+                   cg_body_nodes=graph_rec["body_nodes"],
+                   nodes_max=max(nodes.values()),
+                   segments=graph_rec["graph_rerun"]["segments"],
+                   peak_memory_bytes=graph_rec["peak_memory_bytes"])
+        emit("consensus_cg", **rec)
+        check(solved == sol.status.numel(),
+              f"{tag}: {sol.status.numel() - solved} lanes not SOLVED")
+        check(kkt_ok, f"{tag}: f64 block KKT residuals above the mixed "
+              "criterion")
+        check(rec["cg_body_nodes"]
+              and min(rec["cg_body_nodes"].values()) > 0,
+              f"{tag}: a check graph holds no conditional body")
+        out[name] = rec
+    return out
+
+
 def phase_data_axis(dev, sol1024):
     """Config 5 at 1024 through the data axis at one rank: shard_batch
     on make_data_mesh(1) and solve_batch_shared(..., mesh=), bitwise the
@@ -2100,10 +2310,12 @@ def phase_data_axis(dev, sol1024):
 def phase_rowshard(dev, scale):
     """rowshard_qp4096: one n=4096, m=8192 box QP through
     solve_rowsharded_hybrid on a 1-rank data mesh on the card, its loop
-    replayed as captured graphs (CG blocks of 8 steps, iteration tails,
-    checks): from an empty cache and two reruns, then once with every
-    segment eager (bitwise the captured solve; the host's reads counted)
-    and once under the profiler."""
+    replayed as captured graphs (a check one graph, its CGs conditional
+    nodes): from an empty cache and two reruns (the host's reads of the
+    last at most its checks and PHASE_READS more, its replays' device
+    time), then once with every segment eager (bitwise the captured
+    solve; its agreed reads counted). No profiled run: a profile loses
+    the kernels inside conditional bodies."""
     import torch
     from admm_library_torch import Settings, Status
     from admm_library_torch.core import graph
@@ -2130,7 +2342,6 @@ def phase_rowshard(dev, scale):
                                               mesh, s)
     finally:
         graph.capturable = capturable
-    prof = _profiled(solve_rowsharded_hybrid, qp, mesh, s)
     r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
     iters = int(sol.iters)
     rec = dict(cell="rowshard_qp4096", n=qp.n, m=qp.m,
@@ -2146,9 +2357,12 @@ def phase_rowshard(dev, scale):
                z_minus_Ax_max=float((qp.A @ sol.x - sol.z).abs().max()),
                wall_s=wall, wall_rerun_s=wall2,
                wall_reruns_s=[r["wall_s"] for r in graph_rec["graph_reruns"]],
-               eager_wall_s=eager_wall, host_reads=len(reads.calls),
-               host_reads_per_iteration=len(reads.calls) / iters,
-               **_profile_fields(prof, iters, wall2),
+               eager_wall_s=eager_wall,
+               host_reads_eager=len(reads.calls),
+               host_reads_eager_per_iteration=len(reads.calls) / iters,
+               host_reads=graph_rec["graph_rerun"]["host_reads"],
+               checks=graph_rec["graph_rerun"]["segments"].get("check", 0),
+               cg_body_nodes=graph_rec["body_nodes"],
                hand_written_launches=launches,
                captured_bitwise_eager=all(
                    torch.equal(getattr(sol, f), getattr(eager, f))
@@ -2172,6 +2386,7 @@ def phase_rowshard(dev, scale):
     check(rec["rerun_bitwise_identical"], "rowshard: rerun not bitwise "
           "identical")
     _check_captured("rowshard", rec)
+    _check_reads("rowshard", graph_rec)
     check(graph_rec["graph_rerun"]["captures"] == 0,
           "rowshard: the second rerun captured a segment")
     return rec
@@ -2384,7 +2599,8 @@ def _segment_replay_is_eager(step, state, variant):
 def _graph_nodes():
     """Nodes of every graph in the default cache (its captured template,
     kept by `graph.CACHE.keep_graphs`, read with libcuda's
-    cuGraphGetNodes), by entry (its place in the cache, kind, dtype of
+    cuGraphGetNodes, and the nodes of its conditional bodies, counted at
+    their capture), by entry (its place in the cache, kind, dtype of
     x, lanes) and variant. Counted from the graph itself rather than
     from a profiled replay, whose device records CUPTI may drop."""
     import ctypes
@@ -2401,7 +2617,8 @@ def _graph_nodes():
             rc = cuda.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()),
                                       None, ctypes.byref(n))
             check(rc == 0, f"graph nodes: cuGraphGetNodes returned {rc}")
-            out[f"{label} {variant}"] = n.value
+            out[f"{label} {variant}"] = (n.value
+                                         + entry.body_nodes.get(variant, 0))
     return out
 
 
@@ -2503,7 +2720,8 @@ def phase_graph(dev):
             eps_abs=BATCH_EPS, eps_rel=BATCH_EPS, max_iter=20000)),
         "config1_single": (solve, qp1, s1.replace(precision="single")),
         "config1_double": (solve, qp1, s1.replace(precision="double")),
-        # Kernel 2 inside the check graphs; the 'cg' segments.
+        # Kernel 2 inside the check graphs; the 'cg' checks' conditional
+        # nodes.
         "config3_pcg": (solve, qp3.astype(torch.float64),
                         Settings(eps_abs=EPS, eps_rel=EPS, max_iter=50000,
                                  backend="pallas_cg")),
@@ -2520,14 +2738,24 @@ def phase_graph(dev):
             if len(runs) == 1:
                 nodes = _graph_nodes()
         iters = int(sol.iters.max())
-        prof = _profiled(fn, qp, s)
+        bodies = _body_nodes()
+        if any(bodies.values()):
+            # A profile loses the kernels inside conditional bodies: the
+            # device time of a rerun's replays instead.
+            graph.CACHE.replay_events = []
+            _, wall3, _ = _timed_run(fn, qp, s)
+            ms = graph.CACHE.replay_ms()
+            graph.CACHE.replay_events = None
+            device = dict(replay_device_ms=ms,
+                          replay_idle_share=1.0 - ms / 1e3 / wall3)
+        else:
+            device = _profile_fields(_profiled(fn, qp, s), iters,
+                                     runs[1]["wall_s"])
         rec = dict(path=name, iters=iters,
                    solved=int((sol.status == int(Status.SOLVED)).sum()),
                    entries=len(graph.CACHE.entries),
                    first=runs[0], rerun=runs[1],
-                   nodes_per_graph=nodes,
-                   cg_segment_nodes=_cg_segments(nodes),
-                   **_profile_fields(prof, iters, runs[1]["wall_s"]))
+                   nodes_per_graph=nodes, cg_body_nodes=bodies, **device)
         if name in ("b128", "b1024"):
             rec.update(_batch_graph_fields(fn, qp, s, sol, runs))
         emit("graph", **rec)
@@ -2632,8 +2860,8 @@ def main():
     torch.use_deterministic_algorithms(True)
     graph.CACHE.keep_graphs = True  # for _graph_nodes
     dev = torch.device("cuda", 0)
-    smi = phase_device()
     phase_build()
+    smi = phase_device(dev)
     kern = phase_kernel(dev)
     slice128, sol128 = phase_slice(128, dev)
     slice1024, sol1024 = phase_slice(1024, dev)
@@ -2653,6 +2881,7 @@ def main():
              "horizon_spike_wall_s": spike["wall_s"]}
     phase_consensus(dev, scale)
     phase_consensus_mc(dev, scale)
+    phase_consensus_cg(dev)
     phase_rowshard(dev, scale)
     phase_horizon_sharded(dev, scale)
     phase_checkpoint(dev, sol128)

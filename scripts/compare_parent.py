@@ -4,8 +4,9 @@ hybrid, single and double precision) and 2 (on 'inv'), 3 and 4 through
 `solve`, the config-5 batch at 128 and 1024 lanes
 through `solve_batch_shared`, `solve_batch` on 128 config-1 draws,
 configs 1-3 and the batch at 128 on 'pallas_cg' (`config1_pcg`, ...,
-`b128_pcg`) and configs 1-2, the batch at 128 and `solve_batch` on 'cg'
-(`config1_cg`, ..., `solve_batch_cg`), and
+`b128_pcg`) and configs 1-2, the batch at 128, `solve_batch` and the
+consensus drivers on 'cg' (`config1_cg`, ..., `solve_batch_cg`,
+`consensus_cg`, `consensus_mc_cg`: the first 64 lanes of the 1024), and
 the partitioned and block-backend paths of `chip_smoke.py`: `consensus`
 and `consensus_mc_1024` on a 1x1 mesh, `horizon_sharded_1024` under its
 f64 plain and f32 gate settings, `horizon_spike_1024`, config 2
@@ -27,7 +28,10 @@ tree's side the checks captured) and `--reruns` times more; in each side's first
 solve of each path runs under torch.profiler: device busy time, the
 idle share against that turn's median rerun, kernels, the host's
 launch calls (kernel and CUDA graph launches) and its reads of the
-card (stream synchronisations). Each record also holds
+card (stream synchronisations); where the checks hold conditional
+nodes (the tree's CG paths), whose bodies' kernels a profile loses,
+one more rerun with each replay between CUDA events instead: the
+replays' device time and the idle share beside it. Each record also holds
 the captured checks of its first run and reruns (`graph.CACHE.stats`
 deltas: captures, replays, warm-ups, capture ms). Each side saves its
 first run's x and status of every path under `_scratch/compare_parent/`,
@@ -35,7 +39,10 @@ and the summary holds max |x_tree - x_parent| and whether the statuses
 and iterations are equal. Prints one JSON line per (side, turn, path),
 one summary line per path (medians over every turn, the tree's median
 rerun over the parent's), then the card's nvidia-smi name and power
-limit. Needs a CUDA card; no JAX. `_scratch/` is git-ignored, and
+limit. Each record also holds the host's reads of each rerun counted
+in Python (`host_reads`: item, tolist, bool, float and int on CUDA
+tensors), which needs no profiler and so covers the paths whose
+kernels the profiler cannot hold. Needs a CUDA card; no JAX. `_scratch/` is git-ignored, and
 copied to the card with the rest of the checkout.
 """
 import argparse
@@ -53,7 +60,7 @@ PATHS = ("config1", "config1_single", "config1_double", "config2_inv",
          "horizon_f64_plain", "horizon_f32_gate", "horizon_spike_1024",
          "config2_banded", "rowshard_qp4096", "config1_pcg", "config2_pcg",
          "config3_pcg", "b128_pcg", "config1_cg", "config2_cg", "b128_cg",
-         "solve_batch_cg")
+         "solve_batch_cg", "consensus_cg", "consensus_mc_cg")
 # A path named <base>_pcg or <base>_cg is <base> on that KKT backend.
 BACKEND_SUFFIXES = {"_pcg": "pallas_cg", "_cg": "cg"}
 SAVED = os.path.join(ROOT, "_scratch", "compare_parent")
@@ -74,10 +81,11 @@ def _path(name, dev):
     f64 = torch.float64
     for suffix, backend in BACKEND_SUFFIXES.items():
         if name.endswith(suffix):
-            base = name[:-len(suffix)]
-            fn, qp, s = _path("config2_inv" if base == "config2" else base,
-                              dev)
-            return fn, qp, s.replace(backend=backend)
+            base = {"config2": "config2_inv",
+                    "consensus_mc": "consensus_mc_64"}.get(
+                        name[:-len(suffix)], name[:-len(suffix)])
+            fn, *args, s = _path(base, dev)
+            return (fn, *args, s.replace(backend=backend))
     if name == "config3":
         from admm_library_torch.models.clohessy_wiltshire import (
             build_cw_rendezvous)
@@ -112,8 +120,8 @@ def _path(name, dev):
                                         device=dev)[0]
         return (T.solve_batch_shared, qp.astype(f64),
                 T.Settings(eps_abs=1e-6, eps_rel=1e-6))
-    if name in ("consensus", "consensus_mc_1024", "config2_banded",
-                "config2_inv"):
+    if name in ("consensus", "consensus_mc_1024", "consensus_mc_64",
+                "config2_banded", "config2_inv"):
         from admm_library_torch.models.double_integrator import build_mpc_qp
         from admm_library_torch.models.partitioned import (
             partition_mpc, partition_mpc_from_s0, reference_s0)
@@ -128,10 +136,11 @@ def _path(name, dev):
                                         dim=3, device=dev)
             return (consensus.consensus_solve, qp, spec,
                     runtime.make_mesh(), s)
-        if name == "consensus_mc_1024":
+        if name.startswith("consensus_mc"):
+            lanes = int(name.rsplit("_", 1)[1])
             qp, spec, _, _ = partition_mpc_from_s0(
-                reference_s0(), s0, np.zeros(6), N=50, n_blocks=10, dim=3,
-                device=dev)
+                reference_s0()[:lanes], s0, np.zeros(6), N=50, n_blocks=10,
+                dim=3, device=dev)
             return (consensus_mc.consensus_solve_mc, qp, spec,
                     runtime.make_mesh(), s)
         qp, spec = build_mpc_qp(s0, np.zeros(6), N=50, dim=3, device=dev)
@@ -183,17 +192,51 @@ def _path(name, dev):
     raise ValueError(f"unknown path {name}")
 
 
+class _HostReads:
+    """Counts the host's reads of device values inside the block: calls
+    of item, tolist, bool, float and int on CUDA tensors."""
+
+    NAMES = ("item", "tolist", "__bool__", "__float__", "__int__")
+
+    def __enter__(self):
+        import torch
+        self.count = 0
+        self.own = {n: torch.Tensor.__dict__.get(n) for n in self.NAMES}
+        for name in self.NAMES:
+            setattr(torch.Tensor, name,
+                    self._counted(getattr(torch.Tensor, name)))
+        return self
+
+    def _counted(self, fn):
+        def read(t, *a, **k):
+            if t.is_cuda:
+                self.count += 1
+            return fn(t, *a, **k)
+        return read
+
+    def __exit__(self, *exc):
+        import torch
+        for name, fn in self.own.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+
+
 def _timed(fn, *args):
-    """(fn(*args), seconds, the check cache's counters it added)."""
+    """(fn(*args), seconds, the check cache's counters it added and the
+    host's reads)."""
     import torch
     from admm_library_torch.core import graph
     before = dict(graph.CACHE.stats)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn(*args)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    return out, secs, {k: graph.CACHE.stats[k] - before[k] for k in before}
+    with _HostReads() as reads:
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
+    return out, secs, dict(stats, host_reads=reads.count)
 
 
 def _profiled(fn, *args):
@@ -227,12 +270,14 @@ def worker(root, side, turn, reruns, profiled, paths, unprofiled=()):
     sys.path.insert(0, root)
     import torch
     import admm_library_torch  # noqa: F401  (turns TF32 off)
+    from admm_library_torch.core import graph
     from admm_library_torch.ops import _build
     torch.use_deterministic_algorithms(True)
     dev = torch.device("cuda", 0)
     _build.build()          # nvcc at most once a side, before any clock
     for name in paths:
         fn, *args = _path(name, dev)
+        graph.CACHE.clear()         # each path's first run from no entry
         torch.cuda.reset_peak_memory_stats()
         sol, first, graph_first = _timed(fn, *args)
         reruns_ = [_timed(fn, *args) for _ in range(reruns)]
@@ -243,11 +288,24 @@ def worker(root, side, turn, reruns, profiled, paths, unprofiled=()):
                    lanes=int(sol.status.numel()), graph_first=graph_first,
                    graph_reruns={k: sum(r[2][k] for r in reruns_)
                                  for k in graph_first},
+                   host_reads=[r[2]["host_reads"] for r in reruns_],
                    peak_memory_bytes=torch.cuda.max_memory_allocated())
         if hasattr(sol, "cg_steps"):
             rec["cg_steps"] = int(sol.cg_steps)
+        bodies = sum(n for e in graph.CACHE.entries.values()
+                     for n in getattr(e, "body_nodes", {}).values())
+        if bodies:
+            # Graphs with conditional nodes: a profile loses the kernels
+            # in their bodies, so the device time of a rerun's replays
+            # (CUDA events around each) stands in for busy.
+            graph.CACHE.replay_events = []
+            _, wall, _ = _timed(fn, *args)
+            ms = graph.CACHE.replay_ms()
+            graph.CACHE.replay_events = None
+            rec.update(body_nodes=bodies, replay_device_ms=ms,
+                       replay_idle_share=1.0 - ms / 1e3 / wall)
         if profiled:
-            if name not in unprofiled:
+            if name not in unprofiled and not bodies:
                 prof = _profiled(fn, *args)
                 rec.update(prof, idle_share=1.0 - prof["device_busy_ms"]
                            / 1e3 / statistics.median(walls),
@@ -335,6 +393,12 @@ def main():
                                if "host_launches" in r],
                 host_syncs=[r["host_syncs"] for r in recs
                             if "host_syncs" in r],
+                host_reads=sorted({n for r in recs
+                                   for n in r["host_reads"]}),
+                replay_device_ms=[r["replay_device_ms"] for r in recs
+                                  if "replay_device_ms" in r],
+                replay_idle_share=[r["replay_idle_share"] for r in recs
+                                   if "replay_idle_share" in r],
                 graph_first=recs[0]["graph_first"],
                 graph_reruns=recs[0]["graph_reruns"],
                 peak_memory_bytes=max(r["peak_memory_bytes"]

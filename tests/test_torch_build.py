@@ -1,5 +1,6 @@
 """The kernel build (admm_library_torch/ops/_build.py) with a stand-in
-for nvcc: every csrc/*.cu becomes its own library, all compilers run at
+for nvcc: every csrc/*.cu (the two kernels and the conditional-node
+library) becomes its own library, all compilers run at
 once, an unchanged source is not rebuilt, and a failed compile raises
 after the others finish, leaving no temporary files."""
 import os
@@ -45,7 +46,7 @@ def _calls(log):
 
 def test_each_source_builds_its_own_library_once(fake_nvcc):
     stems = sorted(p.stem for p in _build.sources())
-    assert stems == ["fused_iterate", "pallas_cg"]
+    assert stems == ["fused_iterate", "graph_cond", "pallas_cg"]
     libs = _build.build(verbose=True)
     assert sorted(libs) == stems
     for stem, (path, log) in libs.items():
@@ -64,10 +65,12 @@ def test_a_failed_compile_raises_and_cleans_up(fake_nvcc, monkeypatch):
     monkeypatch.setenv("FAKE_NVCC_FAIL", "pallas_cg.cu")
     with pytest.raises(RuntimeError, match="does not compile"):
         _build.build()
-    # The other source still finished and was kept; no temporaries.
+    # The other sources still finished and were kept; no temporaries.
     left = sorted(os.listdir(_build.BUILD_DIR))
-    assert len(left) == 1 and left[0].startswith("libfused_iterate_")
-    assert sorted(_calls(fake_nvcc)) == ["fused_iterate.cu", "pallas_cg.cu"]
+    assert len(left) == 2 and left[0].startswith("libfused_iterate_")
+    assert left[1].startswith("libgraph_cond_")
+    assert sorted(_calls(fake_nvcc)) == ["fused_iterate.cu", "graph_cond.cu",
+                                         "pallas_cg.cu"]
 
 
 def test_library_name_follows_the_source(tmp_path, monkeypatch):

@@ -899,6 +899,7 @@ def _replay_is_eager(step, state, variants=_CHECK_VARIANTS):
     every entry the step updates. Returns the cache entry."""
     from admm_library_torch.core import graph
     cache = graph.CheckCache()
+    cache.prepare_nodes(next(t for _, t in graph._leaves(state)).device)
     entry = cache.entry("case", step, state)
     for variant in variants:
         want = step(graph._map(torch.clone, state), variant)
@@ -1004,10 +1005,10 @@ def test_captured_loop_is_the_eager_loop_through_refactors(
     ("run_admm_batch_shared", "pallas_cg", 13)])
 def test_captured_cg_loop_is_the_eager_loop(loop, backend, cg_max_iter, dev,
                                             monkeypatch):
-    """The same on the CG backends: on 'cg' the CG blocks (8 steps, and 5
-    at cg_max_iter 13), heads and tails replayed between the host's
-    reads of the CG's stop flag, on 'pallas_cg' kernel 2 a node of each
-    check graph, counted at each replay as often as the eager loop
+    """The same on the CG backends: on 'cg' each check one replay, its
+    CGs conditional nodes (a WHILE node of 8-step blocks, and an IF node
+    of 5 steps at cg_max_iter 13), on 'pallas_cg' kernel 2 a node of
+    each check graph, counted at each replay as often as the eager loop
     launches it."""
     from admm_library_torch.core import graph
     from admm_library_torch.ops import pallas_cg as pcg
@@ -1018,9 +1019,30 @@ def test_captured_cg_loop_is_the_eager_loop(loop, backend, cg_max_iter, dev,
         assert any(pcg.pallas_cg_solve in e.kernels.get(v, ())
                    for e in graph.CACHE.entries.values() for v in e.graphs)
     else:
-        variants = {v for e in graph.CACHE.entries.values()
-                    for v in e.graphs}
-        assert {("head", True), ("cg", 8), ("tail", True)} <= variants
+        bodies = [e.body_nodes[v] for e in graph.CACHE.entries.values()
+                  for v in e.graphs if graph.is_check(v)]
+        assert bodies and min(bodies) > 0
+
+
+def test_config1_on_cg_captured_is_the_capture_off_solve(dev, monkeypatch):
+    """Config 1 (the JAX draw, n=100, m=200) through solve on 'cg': the
+    captured solve, each check one replay with its CGs conditional
+    nodes, is bitwise the solve with every segment eager; a rerun
+    captures nothing."""
+    from admm_library_torch import solve
+    from admm_library_torch.core import graph
+    from admm_library_torch.models.random_qp import reference_random_box_qp
+    qp = reference_random_box_qp(dev).astype(torch.float64)
+    s = Settings(eps_abs=1e-6, eps_rel=1e-6, backend="cg")
+    eager, captured, stats = _eager_and_captured(monkeypatch, solve, qp, s)
+    for f in ("x", "z", "y", "status", "iters", "r_prim", "r_dual", "rho"):
+        assert torch.equal(getattr(eager, f), getattr(captured, f)), f
+    assert int(captured.status) == int(Status.SOLVED)
+    assert stats["captures"] > 0 and stats["replays"] > 0
+    before = dict(graph.CACHE.stats)
+    again = solve(qp, s)
+    assert graph.CACHE.stats["captures"] == before["captures"]
+    assert torch.equal(again.x, captured.x)
 
 
 def test_a_fresh_process_captures_a_cg_solve(dev):
@@ -1291,16 +1313,23 @@ def test_an_added_entry_outlives_the_replays_of_earlier_graphs(dev):
 
 
 def test_capture_refuses_an_eager_only_backend(dev):
-    """capture=True for a backend outside the rule (since 'cg' and
-    'pallas_cg' joined it, 'cg' in the consensus drivers' loops) raises;
-    nothing falls back to an eager check in silence."""
+    """capture=True for a loop outside the rule (a backend it does not
+    list, a mesh axis of two ranks) raises; nothing falls back to an
+    eager check in silence."""
     from admm_library_torch.core import graph
+    from admm_library_torch.parallel.runtime import Mesh
     state = {"x": torch.zeros(3, device=dev),
              "flags": torch.ones(2, dtype=torch.bool, device=dev)}
-    for kind in ("run_consensus", "run_consensus_mc"):
+    wide = Mesh(shape={"data": 2, "horizon": 1},
+                coords={"data": 0, "horizon": 0},
+                groups={"data": None, "horizon": None},
+                ranks={"data": (0, 1), "horizon": (0,)}, world=1,
+                device=dev)
+    for backend, mesh in (("lu", None), ("cg", wide)):
         with pytest.raises(ValueError, match="not captured"):
-            graph.CheckLoop(kind, None, state, Settings(), "cg",
-                            capture=True, cache=graph.CheckCache())
+            graph.CheckLoop("run_consensus", None, state, Settings(),
+                            backend, mesh=mesh, capture=True,
+                            cache=graph.CheckCache())
 
 
 def test_a_failed_capture_raises(dev):
@@ -1344,6 +1373,10 @@ def _partitioned_path(name, dev):
                                              horizon, runtime)
     s0 = np.array([1.0, -2.0, 0.3, -0.1])
     mesh = runtime.make_mesh(device=dev)
+    if name.endswith("_cg"):
+        fn, args = _partitioned_path(name[:-3], dev)
+        return fn, args[:-1] + (args[-1].replace(backend="cg",
+                                                 cg_max_iter=13),)
     if name == "consensus":
         qp, spec, _ = partition_mpc(s0, np.zeros(4), N=16, n_blocks=4,
                                     dim=2, u_max=2.0, dtype=torch.float64,
@@ -1371,7 +1404,10 @@ def _partitioned_path(name, dev):
         **_PART_SETTINGS))
 
 
-_PARTITIONED = ["consensus", "consensus_mc", "horizon", "banded", "spike"]
+# "<driver>_cg": the consensus drivers on 'cg', their CGs conditional
+# nodes of the check graphs.
+_PARTITIONED = ["consensus", "consensus_mc", "horizon", "banded", "spike",
+                "consensus_cg", "consensus_mc_cg"]
 
 
 @pytest.mark.parametrize("name", _PARTITIONED)
@@ -1383,7 +1419,8 @@ def test_replayed_partitioned_check_is_the_eager_check(name, dev,
     _, loops = _recorded_loops(monkeypatch, fn, *args)
     kinds = {kind for kind, _, _ in loops}
     want = {"consensus": "run_consensus", "consensus_mc": "run_consensus_mc",
-            "horizon": "run_horizon"}.get(name, "run_admm_batch_shared")
+            "horizon": "run_horizon"}.get(name.removesuffix("_cg"),
+                                          "run_admm_batch_shared")
     assert want in kinds
     checked = [rec for rec in loops if rec[0] != "solve_shared_recentered"]
     for kind, step, state in checked[:3]:
@@ -1408,12 +1445,12 @@ def test_captured_partitioned_solve_is_the_eager_solve(name, dev,
 # ---- the row-sharded loop's segments as captured graphs ----
 
 # Restart every 3 checks, rho test every 2, rho far off, a CG cut at 13
-# steps (a full block and a short one): every segment occurs.
+# steps (a WHILE node of 8-step blocks and an IF node of 5 steps): every
+# check variant occurs.
 _ROWSHARD_SETTINGS = dict(check_every=5, adaptive_rho_interval=10,
                           restart_every=15, rho=0.01, cg_max_iter=13,
                           eps_abs=1e-7, eps_rel=1e-7, max_iter=3000)
-_ROWSHARD_VARIANTS = [("cg", 8), ("cg", 5), ("tail",)] + [
-    ("check",) + v for v in _CHECK_VARIANTS]
+_ROWSHARD_VARIANTS = [("check",) + v for v in _CHECK_VARIANTS]
 
 
 def _rowshard_path(name, dev):
@@ -1439,7 +1476,8 @@ def _rowshard_path(name, dev):
 
 def test_replayed_rowshard_segment_is_the_eager_segment(dev, monkeypatch):
     """The first state of the row-sharded loop (its CG head done): every
-    segment's replay == the eager segment, bitwise."""
+    check's replay, its CGs conditional nodes, == the eager check,
+    bitwise."""
     fn, (qp, mesh, s) = _rowshard_path("mixed_f64", dev)
     _, loops = _recorded_loops(monkeypatch, fn, qp, mesh,
                                s.replace(max_iter=0))
@@ -1644,3 +1682,152 @@ def test_a_rerun_captures_nothing(path, dev):
     for f in ("x", "z", "y", "status", "iters"):
         assert torch.equal(getattr(first, f), getattr(again, f)), f
 
+
+
+# ---- conditional nodes: graph.while_blocks inside a capture ----
+
+def _cond_probe():
+    """IF and WHILE nodes in a CheckLoop on the card, each replay held
+    to the plain loop: a loop of unit blocks adds 1 to 'n' and 'x' while
+    n < k. Blocks [1] * 6 + [2]: a WHILE node of at most 6 passes, then
+    an IF node of a block of 2 steps. The body's allocations come from
+    the entry's body pool, those after the nodes from its graph pool.
+    Prints 'ok'."""
+    from admm_library_torch.core import graph
+    dev = torch.device("cuda", 0)
+    blocks = [1] * 6 + [2]
+    ptrs = {"body": [], "after": []}
+
+    def step(state, variant):
+        def body(c, steps):
+            n = c["n"] + steps
+            ptrs["body"].append(n.data_ptr())
+            return dict(n=n, x=c["x"] + float(steps))
+        out = graph.while_blocks(dict(n=state["n0"], x=state["x"]),
+                                 lambda c: c["n"] < state["k"], body,
+                                 blocks)
+        y = out["x"] * 2.0
+        ptrs["after"].append(y.data_ptr())
+        return dict(n=out["n"], y=y)
+
+    def plain(k):
+        n = 0
+        for steps in blocks:
+            if not n < k:
+                break
+            n += steps
+        return n
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    state = dict(n0=zero, k=zero.clone(), n=zero.clone(),
+                 x=torch.zeros(4, device=dev), y=torch.zeros(4, device=dev))
+    cache = graph.CheckCache()
+    loop = graph.CheckLoop("probe", step, state, None, "cg", cache=cache)
+    assert loop.capture
+    # k 0: no block; 3: the WHILE node stops on the flag; 6: on its
+    # budget, the IF node then runs; 7: the same; 20: both to the end.
+    for k in (0, 3, 6, 7, 20, 0, 1):
+        loop.set(dict(k=torch.tensor(k, device=dev)))
+        loop((False, False))
+        want = plain(k)
+        assert int(loop.state["n"]) == want, (k, int(loop.state["n"]))
+        assert torch.equal(loop.state["y"],
+                           torch.full((4,), 2.0 * want, device=dev))
+    assert cache.stats["captures"] == 1 and cache.stats["replays"] == 6
+    entry, = cache.entries.values()
+    # Two nodes' bodies: the WHILE body ends with the re-arm kernel.
+    assert entry.body_nodes[(False, False)] >= 4
+    # Where the captured run's memory lies: the body in the body pool,
+    # the tensors after the nodes in the graph pool.
+    segs = torch.cuda.memory_snapshot()
+
+    def pool_of(ptr):
+        for seg in segs:
+            if seg["address"] <= ptr < seg["address"] + seg["total_size"]:
+                return tuple(seg["segment_pool_id"])
+        return None
+    assert pool_of(ptrs["body"][-1]) == tuple(entry.body_pool_id)
+    assert pool_of(ptrs["after"][-1]) == tuple(entry.pool)
+    print("ok")
+
+
+def test_conditional_nodes_in_a_fresh_process(dev):
+    """The node library built and loaded by a fresh process, IF and
+    WHILE nodes replayed against the plain loop (`_cond_probe`)."""
+    import os
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path[:0] = [%r, %r]\n"
+            "import test_torch_gpu as t; t._cond_probe()\n"
+            % (os.path.dirname(tests), tests))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tests,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", (
+        out.stdout + out.stderr)
+
+
+def test_a_body_that_fails_to_capture_raises(dev):
+    """A conditional body that reads the device cannot be captured: the
+    capture raises (no fallback to a host loop), and the cache captures
+    the next loop as before."""
+    from admm_library_torch.core import graph
+
+    def step(state, variant):
+        def body(c, steps):
+            return dict(x=c["x"] + float(c["x"].sum()))
+        out = graph.while_blocks(dict(x=state["x"]),
+                                 lambda c: c["x"].sum() < 10.0, body,
+                                 [1, 1])
+        return dict(x=out["x"])
+    cache = graph.CheckCache()
+    state = {"x": torch.ones(3, device=dev)}
+    loop = graph.CheckLoop("probe", step, state, None, "cg", cache=cache)
+    with pytest.raises(RuntimeError):
+        loop((False, False))                # warm-up, then its capture
+    assert cache.stats["captures"] == 0
+    torch.cuda.synchronize()
+
+    def good(state, variant):
+        out = graph.while_blocks(
+            dict(x=state["x"]), lambda c: c["x"].sum() < 10.0,
+            lambda c, steps: dict(x=c["x"] + 1.0), [1, 1])
+        return dict(x=out["x"])
+    loop = graph.CheckLoop("probe2", good, state, None, "cg", cache=cache)
+    loop((False, False))                    # eager: 1 -> 3, then captured
+    assert torch.equal(loop.state["x"], torch.full((3,), 3.0, device=dev))
+    loop((False, False))                    # replayed: 3 -> 4
+    assert cache.stats["captures"] == 1
+    assert torch.equal(loop.state["x"], torch.full((3,), 4.0, device=dev))
+
+
+def test_cg_solve_in_a_capture_is_the_plain_cg(dev):
+    """ops/kkt.cg_solve as conditional nodes, replayed, is bitwise the
+    plain CG with host reads: lanes that freeze at different steps, a
+    NaN lane, a max_iter no multiple of 8 (a WHILE and an IF node)."""
+    from admm_library_torch.core import graph
+    gen = torch.Generator().manual_seed(7)
+    n, m, B = 12, 20, 4
+    R = torch.randn(n, n, generator=gen, dtype=torch.float64)
+    P = (R @ R.T / n + 0.1 * torch.eye(n, dtype=torch.float64)).to(dev)
+    A = torch.randn(m, n, generator=gen, dtype=torch.float64).to(dev)
+    rho = (0.1 + torch.rand(m, generator=gen, dtype=torch.float64)).to(dev)
+    fac = kkt.factor_condensed(P, A, 1e-6, rho, "cg")
+    rhs = torch.randn(B, n, generator=gen, dtype=torch.float64).to(dev)
+    rhs[1] *= 1e-3
+    rhs[2] = float("nan")
+    for max_iter, tol in ((13, 1e-12), (200, 1e-9), (3, 1e-14)):
+        want = kkt.cg_solve(fac, rhs, tol=tol, max_iter=max_iter)
+
+        def step(state, variant):
+            return dict(x=kkt.cg_solve(state["fac"], state["rhs"], tol=tol,
+                                       max_iter=max_iter))
+        state = dict(fac=fac, rhs=rhs, x=torch.zeros_like(rhs))
+        cache = graph.CheckCache()
+        loop = graph.CheckLoop("probe", step, state, None, "cg",
+                               cache=cache)
+        for _ in range(3):                  # warm-up, capture, replays
+            loop((False, False))
+            got = loop.state["x"].clone()
+            assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+        assert cache.stats["captures"] == 1 and cache.stats["replays"] == 2

@@ -6,14 +6,14 @@
   `.tolist()` raise. f32 and f64, box, L1 and SOC rows, with and without
   a shifted-prox offset, the batch's plain and fused-tail forms, on the
   dense backends and on the block sweeps of 'banded' and 'spike'; and
-  every segment of `parallel.rowshard.solve_rowsharded`'s loop (CG
-  blocks, tails, checks).
+  `parallel.rowshard.solve_rowsharded`'s check, its CGs traced as
+  conditional nodes (`TraceNodes`).
 - `run_admm`, `run_admm_lanes` and `run_admm_batch_shared` are bitwise
   the plain loops of tests/torch_loops_reference.py (host counters,
   rebinding), over restarts, rho refactors, stalls and every backend
   whose check they run.
 - The capture rule over backend x mesh shape x device (the loop kinds
-  that admit 'cg': tests/test_torch_graph_cg.py).
+  on 'cg': tests/test_torch_graph_cg.py).
 - The cache key and the cache: the chunks of `_f64_continuation` map to
   one entry, max_iter splits none, a reused entry takes the new data.
 
@@ -142,6 +142,48 @@ class _Recorder:
         monkeypatch.setattr(graph, "CheckLoop", spy)
 
 
+class TraceNodes:
+    """A stand-in for the node builder of a capture (`graph._Capture`)
+    that traces each conditional body once and reads nothing, as a
+    capture does: under FakeTensorMode `graph.while_blocks` then shows
+    whether the loop around the bodies reads the host."""
+
+    def __init__(self):
+        self.nodes = []
+
+    def node(self, live, count, block):
+        assert live.dtype == torch.bool and live.dim() == 0
+        self.nodes.append(count)
+        block()
+
+
+class HostNodes:
+    """A stand-in for the node builder of a capture that runs each node
+    as the card would, reading its flag on the host: the body while the
+    flag holds, at most `count` passes. `graph.while_blocks`' captured
+    form (the carry copied, each block written into it in place) then
+    runs on the CPU. Counts the nodes and the passes of their bodies."""
+
+    def __init__(self):
+        self.nodes = []
+        self.passes = 0
+
+    def node(self, live, count, block):
+        self.nodes.append(count)
+        for _ in range(count):
+            if not bool(live):
+                break
+            block()
+            self.passes += 1
+
+
+def install_nodes(monkeypatch, builder):
+    """Every `graph.while_blocks` outside a capture builds its nodes with
+    `builder`; returns it."""
+    monkeypatch.setattr(graph, "_node_runner", lambda: builder)
+    return builder
+
+
 # ---------------------------------------------------------------- (a)
 
 def _run_without_host_read(step, state, variants=VARIANTS):
@@ -179,10 +221,8 @@ _FAKE_CASES = [(loop, dtype) for loop in ("run_admm", "run_admm_lanes",
     for backend in ("banded", "spike") for dtype in ("f32", "f64")] + [
     ("solve_rowsharded", dtype) for dtype in ("f32", "f64")]
 
-# Every segment of the row-sharded loop: a full CG block, a short last
-# one, an iteration's tail and the check in its four forms.
-ROWSHARD_VARIANTS = [("cg", 8), ("cg", 5), ("tail",)] + [
-    ("check",) + v for v in VARIANTS]
+# The row-sharded loop's check in its four forms.
+ROWSHARD_VARIANTS = [("check",) + v for v in VARIANTS]
 
 
 @pytest.mark.parametrize("rows", ["box", "l1", "soc"])
@@ -213,7 +253,12 @@ def test_check_makes_no_host_read(loop, dtype, rows, monkeypatch):
                                   _qp(*_arrays(rows, 0), dtype),
                                   make_data_mesh(device="cpu"), s)
         assert step.keywords["use_cert"]
+        # Its CGs as conditional nodes, traced: each iteration's a WHILE
+        # node of at most 25 blocks of 8 steps (cg_max_iter 200).
+        nodes = install_nodes(monkeypatch, TraceNodes())
         _run_without_host_read(step, state, ROWSHARD_VARIANTS)
+        assert nodes.nodes == [25] * (len(ROWSHARD_VARIANTS)
+                                      * s.check_every)
         return
     else:
         qp, sc = _shared(rows, dtype)
@@ -362,11 +407,9 @@ _MESHES = {"none": None, "1x1": (1, 1), "data2": (2, 1),
 def test_capture_rule(device, backend, mesh):
     shape = _MESHES[mesh]
     m = None if shape is None else _mesh(*shape)
-    # 'cg' is admitted only for the loops of graph.CG_LOOPS, which a
-    # call without a kind is not.
     want = (device == "cuda"
-            and backend in ("inv", "chol", "banded", "spike", "pallas_cg",
-                            "rowshard_cg")
+            and backend in ("inv", "chol", "banded", "spike", "cg",
+                            "pallas_cg", "rowshard_cg")
             and (shape is None or shape == (1, 1)))
     assert graph.capturable(torch.device(device), backend, m) == want
 

@@ -2,27 +2,29 @@
 ops/kkt.py, core/admm.py, parallel/batch.py, core/graph.py) on the CPU.
 
 - (a) `ops.kkt.cg_solve` in blocks of `_CG_CHECK` steps, each run while
-  the host's read of the stop flag before it says a lane is still above
-  its tolerance, is bitwise the one-loop CG that the phases ran before
-  (`_ref_cg_solve` of tests/torch_loops_reference.py): f32 and f64, a
-  shared and a per-lane operator, lanes that freeze at different steps,
-  a zero right-hand side, a NaN one (alone, x stays 0), max_iter no
-  multiple of 8, a lane that ends unconverged.
+  the stop flag before it says a lane is still above its tolerance
+  (`graph.while_blocks`' plain form), is bitwise the one-loop CG that
+  the phases ran before (`_ref_cg_solve` of
+  tests/torch_loops_reference.py): f32 and f64, a shared and a per-lane
+  operator, lanes that freeze at different steps, a zero right-hand
+  side, a NaN one (alone, x stays 0), max_iter no multiple of 8, a lane
+  that ends unconverged.
 - (b) Every segment of `solve`, `solve_batch` and `solve_batch_shared`
   on 'cg' and 'pallas_cg' makes no host read: each runs under
   FakeTensorMode from the state it met in a real solve, where `.item()`,
-  `float(t)`, `bool(t)` and `.tolist()` raise. The prologue, every check
-  variant, the refactor (on 'cg' the new rho vector only), the epilogue
-  and on 'cg' the CG segments ("head", first), ("cg", steps) and
-  ("tail", first).
+  `float(t)`, `bool(t)` and `.tolist()` raise, its CGs traced as
+  conditional nodes (`TraceNodes`, as a capture builds them). The
+  prologue, every check variant, the refactor (on 'cg' the new rho
+  vector only) and the epilogue.
 - (c) Those solves through the capture path's static buffers
-  (`_buffered`), twice on one cache (other data the second time) and
-  once more on the first data, are bitwise the frozen host-code solves
-  `_ref_solve`, `_ref_solve_batch` and `_ref_solve_batch_shared`, over
-  restarts and rho refactors.
+  (`_buffered`), their CGs as conditional nodes (`HostNodes`), twice on
+  one cache (other data the second time) and once more on the first
+  data, are bitwise the frozen host-code solves `_ref_solve`,
+  `_ref_solve_batch` and `_ref_solve_batch_shared`, over restarts and
+  rho refactors.
 - (d) The capture rule: 'cg' and 'pallas_cg' are captured for these
   loops on a CUDA device; not on the CPU, not on a mesh axis of size
-  > 1, and 'cg' not for the consensus drivers' loops.
+  > 1 (the consensus drivers' loops: tests/test_torch_graph_cond.py).
 - (e) `solve` on 'cg' against the JAX package's `solve` on 'cg'.
 
 The card's side (captured == capture-off bitwise, kernel 2 inside the
@@ -43,7 +45,8 @@ from admm_library_torch.parallel import consensus, consensus_mc
 from admm_library_torch.parallel.runtime import Mesh
 
 import torch_loops_reference as ref
-from test_torch_graph import _arrays, _qp
+from test_torch_graph import (HostNodes, TraceNodes, _arrays, _qp,
+                              install_nodes)
 from test_torch_graph_api import LOOPS, _Segments, _lanes, _one
 from test_torch_graph_solve import _buffered, _leaves, _raw_batch
 
@@ -150,8 +153,6 @@ def test_cg_blocks(max_iter, want):
 # every solve runs both).
 CG = LOOPS.replace(backend="cg", cg_max_iter=11)
 PCG = LOOPS.replace(backend="pallas_cg", cg_max_iter=11)
-CG_VARIANTS = {("head", True), ("head", False), ("cg", 8), ("cg", 3),
-               ("tail", True), ("tail", False)}
 CHECKS = {(False, False), (False, True), (True, False), (True, True)}
 PHASE = {admm.PROLOGUE, admm.REFACTOR, admm.EPILOGUE}
 
@@ -161,15 +162,14 @@ def _fake_case(name):
     loop must meet)."""
     cases = {
         "solve_cg_f32": (T.solve, _one("soc", F32), CG.replace(
-            precision="single"), "run_admm", PHASE | CHECKS | CG_VARIANTS),
+            precision="single"), "run_admm", PHASE | CHECKS),
         "solve_cg_f64": (T.solve, _one("l1"), CG.replace(
-            precision="double"), "run_admm", PHASE | CHECKS | CG_VARIANTS),
+            precision="double"), "run_admm", PHASE | CHECKS),
         "solve_batch_cg": (T.solve_batch, _lanes("box", F32), CG.replace(
-            precision="single"), "run_admm_lanes",
-            PHASE | CHECKS | CG_VARIANTS),
+            precision="single"), "run_admm_lanes", PHASE | CHECKS),
         "shared_cg": (T.solve_batch_shared, _raw_batch("box", F32),
                       CG.replace(precision="single"),
-                      "run_admm_batch_shared", PHASE | CHECKS | CG_VARIANTS),
+                      "run_admm_batch_shared", PHASE | CHECKS),
         "solve_pcg_f32": (T.solve, _one("soc", F32), PCG.replace(
             precision="single"), "run_admm", PHASE | CHECKS),
         "shared_pcg": (T.solve_batch_shared, _raw_batch("l1"),
@@ -185,11 +185,14 @@ def _fake_case(name):
 def test_segments_make_no_host_read(case, monkeypatch):
     """Each distinct segment of a real solve on a CG backend, from the
     state it met, under FakeTensorMode: no host read, and every update
-    keeps the shape and dtype of the real run's."""
+    keeps the shape and dtype of the real run's. On 'cg' each check
+    traces check_every CGs, each a WHILE node of one 8-step block and an
+    IF node of 3 steps."""
     fn, qp, s, kind, want = _fake_case(case)
     rec = _Segments(monkeypatch)
     fn(qp, s)
     seen = set()
+    nodes = TraceNodes()
     for k, step, variant, state in rec.runs:
         if (k, variant) in seen:
             continue
@@ -197,8 +200,12 @@ def test_segments_make_no_host_read(case, monkeypatch):
         real = step(state, variant)
         mode = FakeTensorMode()
         fake_state = graph._map(mode.from_tensor, state)
-        with mode:
+        before = len(nodes.nodes)
+        with monkeypatch.context() as m, mode:
+            install_nodes(m, nodes)
             fake = step(fake_state, variant)
+        if k == kind and graph.is_check(variant) and s.backend == "cg":
+            assert nodes.nodes[before:] == [1, 1] * s.check_every
         got = dict(_leaves(fake))
         for path, t in _leaves(real):
             assert tuple(got[path].shape) == tuple(t.shape), (variant, path)
@@ -270,14 +277,15 @@ def test_buffered_solve_is_the_frozen_solve(case, monkeypatch):
     want = [frozen(p, s) for p in (qp, other)]
     rec = _Segments(monkeypatch)
     cache = _buffered(monkeypatch)
+    nodes = install_nodes(monkeypatch, HostNodes())
     for p, old in zip((qp, other, qp), want + want[:1]):
         _assert_bitwise(fn(p, s), old)
     assert len(cache.entries) >= 1 and cache.stats["replays"] > 0
     met = {v for _, _, v, _ in rec.runs}
     assert admm.REFACTOR in met
     assert any(graph.is_check(v) and v[0] for v in met)     # a restart
-    if s.backend == "cg":
-        assert CG_VARIANTS & met >= {("head", True), ("tail", True)}
+    # On 'cg' the checks' CGs ran as conditional nodes.
+    assert (nodes.passes > 0) == (s.backend == "cg")
     assert lead == qp.P.shape[:-2]
 
 
@@ -347,17 +355,9 @@ def _consensus_kinds(monkeypatch, settings):
     return kinds
 
 
-def test_the_consensus_loops_on_cg_stay_eager(monkeypatch):
-    kinds = _consensus_kinds(monkeypatch, T.Settings(
-        backend="cg", precision="single", max_iter=10, check_every=5))
-    assert {"run_consensus", "run_consensus_mc"} <= set(kinds)
-    for kind in kinds:
-        assert not graph.capturable(torch.device("cuda"), "cg", None, kind)
-        # The same loops on a dense backend are captured.
-        assert graph.capturable(torch.device("cuda"), "chol", None, kind)
-
-
 def test_a_loop_on_cg_is_captured_only_with_an_admitted_kind():
+    """Every loop kind is admitted on 'cg' now; on the CPU none is
+    captured, and asking for a capture raises."""
     qp = _one("box")
     state = dict(x=qp.q.clone())
     for kind in ("run_consensus", "run_consensus_mc", "solve_rowsharded"):

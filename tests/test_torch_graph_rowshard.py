@@ -14,7 +14,9 @@
   never captured, and the plain version holds the caller's tensors.
 
 The steps make no host read: tests/test_torch_graph.py runs every
-rowshard variant under FakeTensorMode. No JAX here: the JAX parity
+rowshard check under FakeTensorMode, its CGs traced as conditional
+nodes; tests/test_torch_graph_cond.py holds the loop with its CGs as
+nodes (read on the host as the card would) to the plain loop. No JAX here: the JAX parity
 stays with tests/test_torch_rowshard.py. Small shapes (n ≤ 32).
 """
 import numpy as np
@@ -239,10 +241,3 @@ def test_a_rowshard_loop_on_the_cpu_or_a_wide_axis_is_never_captured(
                                 wide)
     assert graph.capturable(torch.device("cuda"), rowshard.BACKEND,
                             _mesh(1))
-
-
-@pytest.mark.parametrize("max_iter,want", [
-    (200, [("cg", 8)] * 25), (13, [("cg", 8), ("cg", 5)]),
-    (3, [("cg", 3)]), (0, [])])
-def test_cg_blocks(max_iter, want):
-    assert rowshard.cg_variants(max_iter) == want
