@@ -21,13 +21,14 @@ lockstep loop (core.admm.run_phase).
 Every stage runs on the problem's device; the f64 stages use the
 device's native f64. The programs that the JAX package compiles run as
 segments of `core.graph.CheckLoop`s, on the card one CUDA graph replay
-each: a phase (`_solve_one_phase`: cast, Ruiz scaling, factor, checks,
-refactors, unscale; the second phase of `_solve_core` also takes the
-first's iterates and joins the two), the staged path's rounds
-(`rounds_step`), `polish` and the warm-start check. The host reads the
-device only where the JAX package does (`# host sync` there): a flag a
-check, and the branches of `_recentered_rounds`, `_f64_continuation`,
-`_solve_staged` and `solve`.
+each: a phase (`_solve_one_phase`: cast, Ruiz scaling, factor; the
+checks and refactors, one graph whose WHILE node runs them; unscale;
+the second phase of `_solve_core` also takes the first's iterates and
+joins the two), the staged path's rounds (`rounds_step`), `polish` and
+the warm-start check. The host reads the device only where the JAX
+package does (`# host sync` there): the branches of
+`_recentered_rounds`, `_f64_continuation`, `_solve_staged` and
+`solve`, never between checks.
 """
 from __future__ import annotations
 
@@ -90,7 +91,7 @@ def _solve_one_phase(qp: QPData, x0, z0, y0, settings: Settings,
     which cleans the first phase's iterates and returns the joined
     result in qp's dtype.
     """
-    loop, _ = admm.run_phase(
+    loop = admm.run_phase(
         qp, x0, z0, y0, settings, backend, dtype=dtype, rho0=rho0,
         z_off=z_off,
         p1=None if p1 is None else dict(status=p1.status, iters=p1.iters))

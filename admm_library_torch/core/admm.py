@@ -293,7 +293,7 @@ class AdmmCarry(NamedTuple):
     y: torch.Tensor
     rho_bar: torch.Tensor       # scalar penalty level
     fac: dict                   # the KKT factor of the last rho
-    it: int                     # iterations run
+    it: torch.Tensor            # iterations run (int32)
     status: torch.Tensor        # int32 Status
     r_prim: torch.Tensor
     r_dual: torch.Tensor
@@ -302,15 +302,11 @@ class AdmmCarry(NamedTuple):
 
 def check_variant(check: int, settings: Settings, restart_checks: int):
     """(restart, rho_test) of check number `check`: whether it ends a
-    restart window and whether it runs the adaptive-rho test. The host
-    loop picks it; it selects the captured graph (core/graph.py)."""
-    interval_checks = max(1, settings.adaptive_rho_interval
-                          // settings.check_every)
-    restart = bool(restart_checks) and (check % restart_checks
-                                        == restart_checks - 1)
-    rho_test = settings.adaptive_rho and (check % interval_checks
-                                          == interval_checks - 1)
-    return restart, bool(rho_test)
+    restart window and whether it runs the adaptive-rho test
+    (`graph.variant_at`, which the phase's nodes evaluate on the card on
+    the device's iteration counter)."""
+    return graph.variant_at(check, restart_checks,
+                            graph.interval_checks(settings))
 
 
 def problem_state(qp: QPData, scaling: Scaling, fac, eq_mask, z_off):
@@ -521,7 +517,8 @@ def lanes_check(state, variant, *, cone, settings: Settings, backend: str,
 
 
 # The named segments of a phase loop besides its checks.
-PROLOGUE, REFACTOR, EPILOGUE = ("prologue",), ("refactor",), ("epilogue",)
+PROLOGUE, EPILOGUE = ("prologue",), ("epilogue",)
+REFACTOR = graph.REFACTOR
 # Settings the prologue reads besides graph.CHECK_FIELDS: they enter the
 # loop's key.
 PROLOGUE_FIELDS = ("scaling_iters", "warm_start", "rho", "band_block",
@@ -690,14 +687,17 @@ def phase_step(state, variant, *, cone, settings: Settings, backend: str,
 def run_phase(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
               dtype=None, scaling=None, rho0=None, z_off=None, p1=None):
     """One ADMM phase from raw data, the counterpart of the JAX package's
-    compiled `_solve_one_phase`: PROLOGUE, a host loop over residual
-    checks with a REFACTOR wherever a check asks for one, EPILOGUE. Each
-    is a segment of one `graph.CheckLoop` (`phase_step`), on the card a
-    CUDA graph replay where `graph.capturable` allows; each check reads
-    one small tensor from the device (liveness and the refactor flag).
-    On 'cg' each iteration's CG is conditional nodes inside the check's
-    graph (ops/kkt.cg_solve); on 'pallas_cg' kernel 2's library and plan
-    are resolved before the prologue (ops/kkt.prepare).
+    compiled `_solve_one_phase`: PROLOGUE, the loop over residual
+    checks with a REFACTOR wherever a check asks for one
+    (`graph.CheckLoop.run_checks`), EPILOGUE. Each is a segment of one
+    `graph.CheckLoop` (`phase_step`), on the card a CUDA graph replay
+    where `graph.capturable` allows: the checks and refactors one graph
+    whose WHILE node runs them with no host read, the counterpart of the
+    reference's `lax.while_loop`; elsewhere the host loop reads one small
+    tensor a check (liveness and the refactor flag). On 'cg' each
+    iteration's CG is conditional nodes inside the check's body
+    (ops/kkt.cg_solve); on 'pallas_cg' kernel 2's library and plan are
+    resolved before the prologue (ops/kkt.prepare).
 
     Every check runs check_every iterations, then the restarted
     averaging, the termination and infeasibility tests, the NaN
@@ -716,9 +716,9 @@ def run_phase(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
     (unscaled, or scaled with `scaling`); p1: the first phase's 'status'
     and 'iters' where this is the second phase of a hybrid solve: its
     warm start (the first phase's iterates) goes through clean64, and
-    the epilogue joins the two phases in qp's dtype. Returns (the loop,
-    the iterations it ran); the loop's state 'out' holds the Solution's
-    leaves.
+    the epilogue joins the two phases in qp's dtype. Returns the loop;
+    its state 'out' holds the Solution's leaves ('iters' the iterations
+    it ran, on the device).
     """
     lanes = qp.P.dim() == 3
     dtype = qp.dtype if dtype is None else dtype
@@ -744,18 +744,9 @@ def run_phase(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
     if not lanes:
         kkt.prepare(backend, 1, qp.n, dtype, qp.device)
     loop(PROLOGUE)
-    k = settings.check_every
-    it = 0
-    alive = True
-    while alive and it < settings.max_iter:
-        loop(check_variant(it // k, settings, restart_checks))
-        it += k
-        # The one device-to-host read of this check.
-        alive, do = loop.state["flags"].tolist()
-        if do:
-            loop(REFACTOR)
+    loop.run_checks(settings, restart_checks)
     loop(EPILOGUE)
-    return loop, it
+    return loop
 
 
 def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
@@ -764,9 +755,8 @@ def run_admm(qp: QPData, scaling: Scaling, settings: Settings,
     `scaling`, iterates left scaled). z_off: optional scaled
     shifted-prox offset for L1/SOC rows; rho0: optional initial rho-bar
     (warm rho)."""
-    loop, it = run_phase(qp, x0, z0, y0, settings, backend, scaling=scaling,
-                         rho0=rho0, z_off=z_off)
-    return _carry(loop, it)
+    return _carry(run_phase(qp, x0, z0, y0, settings, backend,
+                            scaling=scaling, rho0=rho0, z_off=z_off))
 
 
 def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
@@ -777,14 +767,13 @@ def run_admm_lanes(qp: QPData, scaling: Scaling, settings: Settings,
     and so do the iterates (`run_phase`). Returns an AdmmCarry whose
     rho_bar, it, status, r_prim and r_dual are (B,) and hist (B,
     slots, 3)."""
-    loop, _ = run_phase(qp, x0, z0, y0, settings, backend, scaling=scaling,
-                        rho0=rho0, z_off=z_off)
-    return _carry(loop, None)
+    return _carry(run_phase(qp, x0, z0, y0, settings, backend,
+                            scaling=scaling, rho0=rho0, z_off=z_off))
 
 
-def _carry(loop, it) -> AdmmCarry:
+def _carry(loop) -> AdmmCarry:
     out, fac = loop.result("out", "fac")
     return AdmmCarry(x=out["x"], z=out["z"], y=out["y"], rho_bar=out["rho"],
-                     fac=fac, it=out["iters"] if it is None else it,
+                     fac=fac, it=out["iters"],
                      status=out["status"], r_prim=out["r_prim"],
                      r_dual=out["r_dual"], hist=out["history"])

@@ -1,44 +1,51 @@
-"""Captured residual checks: the port's counterpart of the JAX package's
-`jax.jit`-compiled phases.
+"""Captured residual checks and phases: the port's counterpart of the
+JAX package's `jax.jit`-compiled phases.
 
 The JAX package runs a whole phase as one XLA program, a
 `lax.while_loop` whose body runs `check_every` iterations and the
-residual check. Here the host loop of `core.admm.run_phase` (one
-problem or a lockstep batch of independent ones),
-`parallel.batch.run_admm_batch_shared`, of the partitioned drivers
+residual check, with the restart average and the refactor as
+`lax.cond`s inside it. Here the loops over checks of
+`core.admm.run_phase` (one problem or a lockstep batch of independent
+ones), `parallel.batch._run_batch`, of the partitioned drivers
 (`parallel.consensus.run_consensus`, `consensus_mc.run_consensus_mc`,
-`horizon._run_horizon`) and of `parallel.rowshard.solve_rowsharded`
-stays, and on the card each of its checks is one CUDA graph replay. The
-host reads one small flag tensor a check.
+`horizon._run_horizon`) and of `parallel.rowshard.solve_rowsharded` go
+through `CheckLoop.run_checks`, the counterpart of that
+`lax.while_loop`: on the card it is one segment, a CUDA graph whose
+WHILE node runs the checks, each check variant an IF node inside it and
+the refactor an IF node after it, so the host reads nothing between
+checks; outside a capture it is the plain host loop, one small flag
+tensor read after each check.
 
 A check is `step(state, variant) -> updates`: `state` is a dict of
 tensors (one level of nested dicts allowed: the problem data, the
 scaling, the KKT factor), `updates` the entries the check changes, and
 `variant` the check's static part, the restart boundary and the rho
-test (`(restart, rho_test)`), which selects one of up to four graphs. A
-variant may also name a segment that the host sequences, with host
-reads between segments: `parallel.batch`'s loop and
-`core.admm.run_phase` run a ("prologue",) (cast, scaling, factor and
-starting carry from the raw data), their checks, ("refactor",) segments
-and an ("epilogue",) (the unscale and the objective), and the drivers
-above them (the shared batch's re-centred rounds, `api`'s staged
-rounds) their own round segments; `api`'s polish and warm-start check
+test (`(restart, rho_test)`, `variant_at`), which selects one of up to
+four bodies. A variant may also name another segment:
+`parallel.batch`'s loop and `core.admm.run_phase` run a ("prologue",)
+(cast, scaling, factor and starting carry from the raw data), their
+checks, ("refactor",) segments and an ("epilogue",) (the unscale and
+the objective), and the drivers above them (the shared batch's
+re-centred rounds, `api`'s staged rounds) their own round segments,
+with host reads between segments; `api`'s polish and warm-start check
 are loops of one segment each. A segment may add entries to the
 state: its updates hold new keys, which get buffers of their own,
 allocated outside every graph's pool (a segment that adds entries is
-captured twice). A loop's
-static arguments enter the key as plain hashable values (a mesh by its
-shape and coordinates, never by identity). A step makes no host read and
-keeps no host counter: what it counts lives in the state.
+captured twice); a check or refactor inside a phase may add none. A
+loop's static arguments enter the key as plain hashable values (a mesh
+by its shape and coordinates, never by identity). A step makes no host
+read and keeps no host counter: what it counts lives in the state.
 
 A loop inside a step whose trip count the data decides, the matrix-free
 CGs' (ops/kkt.cg_solve, parallel/rowshard's), goes through
 `while_blocks`, the counterpart of `lax.while_loop`: inside a capture
 it is CUDA-graph conditional nodes whose condition a kernel sets on the
 card (csrc/graph_cond.cu), outside one the plain loop with a host read
-before each block.
+before each block. Nodes nest: a CG's WHILE node sits inside a check's
+IF node inside a phase's WHILE node, each depth captured on a body
+stream and into a body pool of its own.
 
-`CheckLoop` runs a loop's checks. Where `capturable` says no (CPU
+`CheckLoop` runs a loop's segments. Where `capturable` says no (CPU
 tensors, an eager-only backend, a mesh axis of size > 1) it
 applies each step's updates to a plain dict, the plain version of this
 module.
@@ -46,16 +53,19 @@ Where it says yes, the state lives in static buffers owned by an entry
 of a `CheckCache`, keyed by `check_key`; a later loop with the same key
 copies its data and starting carry into them. An entry's very first
 segment runs eagerly on the cache's side stream (the warm-up that
-capture needs: cuBLAS and cuSOLVER handles and workspaces) and is then
-captured for its next meeting; every other variant is captured there
-the first time it is met and replayed. So every variant a run meets is
-captured in that run, and a rerun captures nothing. No segment runs
-twice. A failure to capture or replay raises.
+capture needs: cuBLAS and cuSOLVER handles and workspaces; where that
+segment is a phase, only its first check) and is then captured for its
+next meeting; every other segment is captured there the first time it
+is met and replayed. So every segment a run meets is captured in that
+run, and a rerun captures nothing. No segment runs twice. A failure to
+build, capture or replay raises; nothing falls back to a host read per
+check.
 
 A hand-written kernel launched inside a capture is counted by the graph
 (`count_launch`): each replay adds the graph's launches to the kernel
-wrapper's `launches`, so that count stays the number of times the
-kernel ran.
+wrapper's `launches`, and a launch inside a conditional body adds one
+to a device counter of its own at each pass, read only when `launches`
+is asked for, so that count stays the number of times the kernel ran.
 """
 from __future__ import annotations
 
@@ -64,8 +74,10 @@ import contextlib
 import ctypes
 import functools
 import gc
+import math
 import time
 import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -74,27 +86,36 @@ import torch
 # shapes ('banded': two sweeps over the N blocks; 'spike': batched
 # interior products and a sweep over the separator blocks; a check of
 # config 2 on 'banded' is a graph of ~61,000 nodes), one launch of
-# kernel 2 an iteration ('pallas_cg', counted at each replay); and the
-# matrix-free CGs (ops/kkt's 'cg', parallel/rowshard's 'rowshard_cg'),
-# whose loops are conditional nodes (`while_blocks`).
+# kernel 2 an iteration ('pallas_cg'); and the matrix-free CGs
+# (ops/kkt's 'cg', parallel/rowshard's 'rowshard_cg'), whose loops are
+# conditional nodes (`while_blocks`).
 CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike", "pallas_cg", "cg",
                      "rowshard_cg")
-# The backends whose checks run `while_blocks`: a captured loop on one
-# of them loads the node library and makes the body stream first.
-NODE_BACKENDS = ("cg", "rowshard_cg")
+# The deepest nesting of conditional nodes: a phase's WHILE node, a
+# check variant's IF node, a CG's WHILE node.
+NODE_DEPTH = 3
+# The pass budget of a phase's WHILE node: never the bound that stops
+# it (the state's 'max_iter' is).
+PHASE_PASSES = 2 ** 31 - 1
 
 # Entries of the default cache; the oldest is dropped beyond this.
 CACHE_SIZE = 16
 
-# The Settings fields a check reads. max_iter is not among them: only
-# the host loop reads it. restart_every, adaptive_rho and
-# adaptive_rho_interval pick the variant on the host; the restart
-# average's divisor enters the key as the loop's `restart_checks`.
+# The Settings fields a check reads. max_iter is not among them: a phase
+# reads it from the state entry 'max_iter', so that loops that differ
+# only in it (the f64 continuation's chunks, the re-centred rounds)
+# share one capture. The check cadence (restart_every, adaptive_rho,
+# adaptive_rho_interval) picks the variant: it enters the phase's
+# variant (`Phase`), which keys its graph, and the restart average's
+# divisor enters the key as the loop's `restart_checks`.
 CHECK_FIELDS = (
     "check_every", "sigma", "alpha", "refine_steps", "cg_tol",
     "cg_max_iter", "rho_eq_scale", "rho_soc_scale", "eps_abs", "eps_rel",
     "eps_pinf", "eps_dinf", "adaptive_rho_tol", "rho_min", "rho_max",
     "stall_checks", "history")
+
+# The named segment of a loop that refactors after a check asks for it.
+REFACTOR = ("refactor",)
 
 
 def capturable(device, backend: str, mesh=None, kind=None) -> bool:
@@ -146,24 +167,222 @@ def is_check(variant) -> bool:
     return not isinstance(variant[0], str) or variant[0] == "check"
 
 
+def interval_checks(settings) -> int:
+    """The adaptive-rho test's cadence in checks (0: no test)."""
+    if not settings.adaptive_rho:
+        return 0
+    return max(1, settings.adaptive_rho_interval // settings.check_every)
+
+
+def variant_at(check, restart_checks: int, interval: int):
+    """(restart, rho_test) of check number `check`: whether it ends a
+    restart window of `restart_checks` checks and whether it runs the
+    adaptive-rho test (every `interval` checks; 0 for none). `check` is
+    a host int (bools out) or a 0-d tensor on the card (each part a 0-d
+    bool tensor, or False where its cadence is off): the plain loop and
+    the phase's nodes pick the variant with this one function."""
+    restart = bool(restart_checks) and (check % restart_checks
+                                        == restart_checks - 1)
+    rho_test = bool(interval) and check % interval == interval - 1
+    return restart, rho_test
+
+
+class Phase(NamedTuple):
+    """The variant of a loop's phase, the segment that runs its checks
+    (`CheckLoop.run_checks`): the cadence of its check variants, the
+    variants its checks can meet (`reachable`, each `tag` + (restart,
+    rho_test)), whether a check's flags[1] asks for a REFACTOR, and
+    whether flags[0] is 'done' rather than 'live'. `checks` bounds the
+    number of checks (the warm-up runs one); the graph of a phase is
+    keyed with None there. The key of its graph, with the check's
+    static arguments in the entry's key."""
+    name: str
+    tag: tuple
+    k: int
+    restart_checks: int
+    interval: int
+    reachable: tuple
+    refactor: bool
+    done: bool
+    checks: int | None = None
+
+    def covers(self, other) -> bool:
+        """Whether this phase's graph serves `other`: the same loop with
+        every variant `other` can reach."""
+        return (self._replace(reachable=(), checks=None)
+                == other._replace(reachable=(), checks=None)
+                and set(other.reachable) <= set(self.reachable))
+
+
+def _live(flags, done: bool):
+    """Whether the loop goes on after a check, from its flags (0-d)."""
+    return flags[0] == 0 if done else flags[0] != 0
+
+
+def plain_checks(run, read, phase: Phase, max_iter: int):
+    """The host loop over checks, the plain form of a phase: `run(variant)`
+    runs one segment, `read()` gives the check's flags as host values
+    (the one device-to-host read of a check); after a check whose
+    flags[1] asks for it, a REFACTOR."""
+    it, checks, live = 0, 0, True
+    while (live and it < max_iter
+           and (phase.checks is None or checks < phase.checks)):
+        run(phase.tag + variant_at(it // phase.k, phase.restart_checks,
+                                   phase.interval))
+        it += phase.k
+        checks += 1
+        flags = read()
+        live = not flags[0] if phase.done else bool(flags[0])
+        if phase.refactor and flags[1]:
+            run(REFACTOR)
+
+
+def _matches(parts, static):
+    """The 0-d bool tensor that holds where the device's variant `parts`
+    is `static`; None where no part is a tensor."""
+    cond = None
+    for part, want in zip(parts, static):
+        if isinstance(part, torch.Tensor):
+            hit = part if want else ~part
+            cond = hit if cond is None else cond & hit
+    return cond
+
+
+def _write_in_place(buffers, updates, path=()):
+    """`updates` copied into the existing `buffers`: what a check writes
+    inside a conditional body, whose replays must leave their results
+    in the state. A new key raises: its buffer would come from a body
+    pool."""
+    for key, value in updates.items():
+        dst = buffers.get(key)
+        if dst is None:
+            raise RuntimeError(
+                f"a segment inside a phase's nodes added the state entry "
+                f"{'/'.join(path + (key,))}; every entry must exist "
+                "before the phase is captured")
+        if isinstance(value, dict):
+            _write_in_place(dst, value, path + (key,))
+        elif value is not dst:
+            dst.copy_(value)
+
+
+def phase_nodes(runner, step, state, phase: Phase) -> None:
+    """The phase's checks as conditional nodes built by `runner`, on the
+    state's own tensors: a WHILE node that runs while flags[0] says live
+    and state['it'] < state['max_iter'] (before the first check only the
+    bound), whose body holds an IF node for each variant in
+    `phase.reachable` (its condition `variant_at` of it // k, all taken
+    before any check; the check itself where one variant is reachable),
+    then, for a loop that refactors, an IF node on flags[1] holding the
+    REFACTOR. Each body writes its segment's updates into the state in
+    place, so every value is the plain loop's, bit for bit."""
+    def run(variant):
+        _write_in_place(state, step(state, variant))
+
+    it = state["it"]
+    live = ((it < state["max_iter"])
+            & ((it == 0) | _live(state["flags"], phase.done)))
+    live = live.reshape(()).to(torch.bool, copy=True)
+    passes = getattr(runner, "pass_counter", None)
+
+    def one_pass():
+        parts = variant_at(state["it"] // phase.k, phase.restart_checks,
+                           phase.interval)
+        if len(phase.reachable) == 1:
+            picks = [(phase.reachable[0], None)]
+        else:
+            picks = [(v, _matches(parts, v[len(phase.tag):]))
+                     for v in phase.reachable]
+        for variant, cond in picks:
+            if cond is None:
+                run(variant)
+            else:
+                runner.node(cond, 1, functools.partial(run, variant))
+        if phase.refactor:
+            runner.node(state["flags"][1] != 0, 1,
+                        functools.partial(run, REFACTOR))
+        if passes is not None:
+            passes.add_(1)
+        live.copy_((state["it"] < state["max_iter"])
+                   & _live(state["flags"], phase.done))
+
+    runner.node(live, PHASE_PASSES, one_pass)
+
+
 # The capture under way in a CheckCache (a `_Capture`), else None.
 _capture = None
+# The kernel wrappers that count launches inside conditional bodies
+# (`Counted`), for `CheckCache.prepare_nodes`.
+_COUNTED = []
 
 
-def count_launch(kernel) -> None:
+class Counted:
+    """A hand-written kernel's wrapper and the times its kernel ran,
+    `launches`: eager launches and replays of graphs that hold it at top
+    level, counted on the host, plus the passes of conditional bodies
+    that launch it, counted on the card in a 0-d counter per device (made
+    by `CheckCache.prepare_nodes` before any capture) and read only when
+    `launches` is asked for. Setting `launches` sets the host count and
+    zeroes the card's."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self.host = 0
+        self.on_device = {}
+        _COUNTED.append(self)
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    @property
+    def launches(self) -> int:
+        return self.host + sum(int(c.item()) for c in self.on_device.values())
+
+    @launches.setter
+    def launches(self, value: int):
+        self.host = value
+        for c in self.on_device.values():
+            c.zero_()
+
+    def counter(self, device):
+        dev = torch.device(device)
+        if dev not in self.on_device:
+            self.on_device[dev] = torch.zeros((), dtype=torch.int64,
+                                              device=dev)
+        return self.on_device[dev]
+
+
+def _add_launch(kernel) -> None:
+    if isinstance(kernel, Counted):
+        kernel.host += 1
+    else:
+        kernel.launches += 1
+
+
+def count_launch(kernel, device=None) -> None:
     """One launch of the hand-written kernel whose wrapper is `kernel`
-    (it carries the `launches` count): counted at once, or, inside a
-    `CheckCache` capture, at every replay of the graph that holds it."""
+    (it carries the `launches` count) on `device`: counted at once; inside
+    a `CheckCache` capture at top level, at every replay of the graph
+    that holds it; inside a conditional body, by the body on the card at
+    every pass."""
     if _capture is not None:
-        if _capture.in_body:
-            raise RuntimeError("a kernel launch inside a conditional node "
-                               "runs a number of times no replay counts")
+        if _capture.depth:
+            counter = (kernel.on_device.get(torch.device(device))
+                       if isinstance(kernel, Counted) and device is not None
+                       else None)
+            if counter is None:
+                raise RuntimeError(
+                    "a kernel launch inside a conditional node needs its "
+                    "device counter, made by CheckCache.prepare_nodes")
+            counter.add_(1)
+            _capture.body_launched.append(kernel)
+            return
         _capture.launched.append(kernel)
         return
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("a kernel launch captured outside a CheckCache "
                            "would not be counted at its replays")
-    kernel.launches += 1
+    _add_launch(kernel)
 
 
 def _node_runner():
@@ -265,25 +484,38 @@ _ROUTE_STREAM = "_cuda_beginAllocateCurrentStreamToPool"
 
 class _Capture:
     """The capture under way in `_Entry._capture_once`: the kernel
-    wrappers launched in it (in launch order), its conditional nodes'
-    body node count, and whether a body is being captured."""
+    wrappers launched at its top level and in its conditional bodies (in
+    launch order), its conditional nodes' body node count, and the depth
+    of the body being captured (0 at top level)."""
 
     def __init__(self, entry):
         self.entry = entry
         self.launched = []
+        self.body_launched = []
         self.body_nodes = 0
-        self.in_body = False
+        self.depth = 0
+
+    @property
+    def pass_counter(self):
+        """The cache's count of phase WHILE passes on the entry's device."""
+        return self.entry.cache.passes.get(self.entry.device)
 
     def node(self, live, count, block):
-        """A conditional node after the work captured so far: `block()`,
-        captured once as its body, runs while the 0-d bool `live` holds,
-        at most `count` times (an IF node for a count of 1). Raises if
-        the node cannot be added or its body cannot be captured."""
+        """A conditional node after the work captured so far on the
+        current stream: `block()`, captured once as its body, runs while
+        the 0-d bool `live` holds, at most `count` times (an IF node for a
+        count of 1). The body is captured on the body stream of its
+        depth, its allocations routed into the entry's body pool of that
+        depth; a body may add nodes of its own. Raises if the node cannot
+        be added or its body cannot be captured."""
         dev = live.device
-        side = self.entry.cache.streams.get((dev, "body"))
+        depth = self.depth + 1
+        side = self.entry.cache.streams.get((dev, f"body{depth}"))
         if _cond is None or side is None:
-            raise RuntimeError("conditional nodes inside a capture need "
-                               "CheckCache.prepare_nodes before it")
+            raise RuntimeError(f"a conditional node at depth {depth} "
+                               "inside a capture needs "
+                               "CheckCache.prepare_nodes before it (at "
+                               f"most {NODE_DEPTH} deep)")
         lib = _cond
         passes = (torch.empty((), dtype=torch.int32, device=dev)
                   if count > 1 else None)
@@ -294,18 +526,19 @@ class _Capture:
             stream, side.cuda_stream, count, live.data_ptr(), pptr,
             ctypes.byref(handle)), "adding the node")
         try:
-            with torch.cuda.stream(side), self.entry.body_pool(dev):
-                self.in_body = True
+            with torch.cuda.stream(side), self.entry.body_pool(dev, depth):
+                self.depth = depth
                 block()
         except BaseException:
             # End the body's capture and the capture it sits in: torch
             # would instantiate a graph whose node holds a broken body
-            # (the process dies there) where it now raises.
+            # (the process dies there) where it now raises. An outer
+            # body's handler ends the captures above it in turn.
             lib.admm_cond_abort(side.cuda_stream)
             lib.admm_cond_abort(stream)
             raise
         finally:
-            self.in_body = False
+            self.depth = depth - 1
         body_nodes = ctypes.c_size_t()
         _cond_check(lib, lib.admm_cond_close(
             side.cuda_stream, count, handle.value, live.data_ptr(), pptr,
@@ -336,9 +569,10 @@ class _Entry:
         self.device = next(t for _, t in _leaves(state)).device
         self.cache = cache
         self.pool = None
-        self.body_pool_id = None
+        self.body_pool_ids = {}
         self.graphs = {}
         self.kernels = {}
+        self.body_kernels = {}
         self.body_nodes = {}
         self.warm = False
 
@@ -355,31 +589,33 @@ class _Entry:
         _write(self.buffers, updates)
 
     @contextlib.contextmanager
-    def body_pool(self, device):
-        """Routes the current stream's allocations, a conditional body's,
-        into the entry's body pool while it captures. A pool of its own
-        beside the graphs' `pool`: ending its routing cannot end the
-        routing of the capture it sits in. The entry holds one use of
-        the pool until it is dropped."""
+    def body_pool(self, device, depth: int = 1):
+        """Routes the current stream's allocations, a conditional body's
+        at `depth`, into the entry's body pool of that depth while it
+        captures. A pool of its own beside the graphs' `pool` and the
+        other depths' pools: ending a routing ends the first routing of
+        the same pool, which must not be the one of the capture it sits
+        in. The entry holds one use of each pool until it is dropped."""
         route = getattr(torch._C, _ROUTE_STREAM, None)
         if route is None:
             raise RuntimeError(f"torch {torch.__version__} has no "
                                f"{_ROUTE_STREAM}: a conditional body's "
                                "allocations cannot go to a graph pool")
-        first = self.body_pool_id is None
+        pool = self.body_pool_ids.get(depth)
+        first = pool is None
         if first:
-            self.body_pool_id = torch.cuda.graph_pool_handle()
+            pool = self.body_pool_ids[depth] = torch.cuda.graph_pool_handle()
         index = torch.device(device).index
-        route(index, self.body_pool_id)
+        route(index, pool)
         try:
             yield
         finally:
-            torch._C._cuda_endAllocateToPool(index, self.body_pool_id)
+            torch._C._cuda_endAllocateToPool(index, pool)
             if first:
                 weakref.finalize(self, torch._C._cuda_releasePool, index,
-                                 self.body_pool_id)
+                                 pool)
             else:
-                torch._C._cuda_releasePool(index, self.body_pool_id)
+                torch._C._cuda_releasePool(index, pool)
 
     def _replay(self, variant):
         timed = self.cache.replay_events
@@ -393,24 +629,30 @@ class _Entry:
             timed.append((start, end))
         self.cache.stats["replays"] += 1
         for kernel in self.kernels[variant]:
-            kernel.launches += 1
+            _add_launch(kernel)
 
     def run(self, variant):
         if variant not in self.graphs:
             stream = self.cache.stream(self.device)
             if not self.warm:
                 # The entry's first segment: eager on the capture stream
-                # (the warm-up), then captured for its next meeting.
+                # (the warm-up), then captured for its next meeting. A
+                # phase warms up on its first check and goes on in its
+                # graph.
+                warm = (variant._replace(checks=1)
+                        if isinstance(variant, Phase) else variant)
                 cur = torch.cuda.current_stream(self.device)
                 stream.wait_stream(cur)
                 with torch.cuda.stream(stream):
-                    self.write(self.step(self.buffers, variant))
+                    self.write(self.step(self.buffers, warm))
                 cur.wait_stream(stream)
                 self.warm = True
                 self.cache.stats["eager_checks"] += 1
                 self._capture(variant, stream)
-                return
-            self._capture(variant, stream)
+                if not isinstance(variant, Phase):
+                    return
+            else:
+                self._capture(variant, stream)
         self._replay(variant)
 
     def _capture(self, variant, stream):
@@ -453,6 +695,7 @@ class _Entry:
         stats["captures"] += 1
         self.graphs[variant] = graph
         self.kernels[variant] = cap.launched
+        self.body_kernels[variant] = cap.body_launched
         self.body_nodes[variant] = cap.body_nodes
 
     def _capture_once(self, variant, stream, grown):
@@ -477,10 +720,12 @@ class _Entry:
 class CheckCache:
     """Captured checks by `check_key`, at most `size` entries (the
     least recently used goes first), with counters for the measuring
-    scripts: captures, replays, eager segments (each entry's warm-up)
-    and the host milliseconds spent capturing. One side stream per
-    device serves every capture. With `keep_graphs` set, each graph
-    keeps its captured template beside its executable
+    scripts: captures, replays (graph launches), eager segments (each
+    entry's warm-up) and the host milliseconds spent capturing, and on
+    the card the passes of every phase's WHILE node (`while_passes`).
+    One side stream per device serves every capture, and one body stream
+    per device and depth every conditional body. With `keep_graphs` set,
+    each graph keeps its captured template beside its executable
     (`raw_cuda_graph()`), so that a measuring script can count its
     nodes; it costs host memory only. With `replay_events` a list, each
     replay records a pair of CUDA events around itself on the stream
@@ -494,6 +739,7 @@ class CheckCache:
         self.replay_events = None
         self.entries = collections.OrderedDict()
         self.streams = {}
+        self.passes = {}
         self.stats = dict(captures=0, replays=0, eager_checks=0,
                           capture_ms=0.0)
 
@@ -512,7 +758,8 @@ class CheckCache:
 
     def stream(self, device, role="capture"):
         """The stream of `role` on `device`: 'capture' runs every capture
-        and warm-up, 'body' captures the bodies of conditional nodes."""
+        and warm-up, 'body<d>' captures the bodies of conditional nodes
+        at depth d."""
         key = (torch.device(device), role)
         if key not in self.streams:
             stream = torch.cuda.Stream(device)
@@ -525,15 +772,28 @@ class CheckCache:
             self.streams[key] = stream
         return self.streams[key]
 
-    def body_stream(self, device):
-        return self.stream(device, "body")
+    def body_stream(self, device, depth: int = 1):
+        return self.stream(device, f"body{depth}")
 
     def prepare_nodes(self, device):
         """What a capture that adds conditional nodes on `device` needs
-        made before it: the node library, the body stream and its cuBLAS
-        workspace."""
+        made before it: the node library, a body stream (with its cuBLAS
+        workspace) for each depth, the launch counters of the kernel
+        wrappers and the count of WHILE passes."""
+        from ..ops import fused, pallas_cg  # noqa: F401 (their Counted)
+        dev = torch.device(device)
         nodes()
-        self.body_stream(device)
+        for depth in range(1, NODE_DEPTH + 1):
+            self.body_stream(dev, depth)
+        for kernel in _COUNTED:
+            kernel.counter(dev)
+        if dev not in self.passes:
+            self.passes[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def while_passes(self) -> int:
+        """The passes of every phase WHILE node replayed so far (a read
+        of the card)."""
+        return sum(int(c.item()) for c in self.passes.values())
 
     def replay_ms(self) -> float:
         """The device milliseconds of the replays timed since the last
@@ -551,7 +811,7 @@ CACHE = CheckCache()
 
 
 class CheckLoop:
-    """The state and the checks of one host loop.
+    """The state and the segments of one loop.
 
     `step(state, variant)` is the check (module docstring); `pre(state)`,
     where given, runs before the step in every check, inside the same
@@ -559,7 +819,7 @@ class CheckLoop:
     kernel's launch. Its updates reach the step and are not kept.
     `capture=None` follows `capturable`; `capture=True` for a loop that
     `capturable` refuses raises ValueError. `static` holds the step's
-    hashable arguments for the key.
+    hashable arguments for the key. `run_checks` runs the loop's checks.
     """
 
     def __init__(self, kind, step, state, settings, backend, mesh=None,
@@ -570,25 +830,70 @@ class CheckLoop:
             raise ValueError(f"a check on {dev} with backend {backend!r} "
                              "and this mesh is not captured")
         self.kind = kind
+        self.device = dev
         self.capture = allowed if capture is None else capture
         self.step = step if pre is None else _PreStep(pre, step)
         if self.capture:
             cache = CACHE if cache is None else cache
-            if backend in NODE_BACKENDS and dev.type == "cuda":
+            if dev.type == "cuda":
                 cache.prepare_nodes(dev)
             key = check_key(kind, backend, settings, state, **static)
-            self._entry = cache.entry(key, self.step, state)
+            self._phase_step = _LoopStep(self.step)
+            self._entry = cache.entry(key, self._phase_step, state)
             self.state = self._entry.buffers
         else:
             self.state = dict(state)
 
     def __call__(self, variant) -> None:
-        """Run one check or segment; after a check the caller reads
+        """Run one segment; after a check the caller may read
         state['flags']."""
         if self.capture:
             self._entry.run(variant)
         else:
             self.state.update(self.step(self.state, variant))
+
+    def run_checks(self, settings, restart_checks: int, *, tag=(),
+                   refactor: bool = True, done: bool = False, agree=None):
+        """The loop over checks, the counterpart of the JAX package's
+        `lax.while_loop` over checks: check number c is the variant `tag`
+        + `variant_at(c, restart_checks, interval_checks(settings))`,
+        each check runs check_every iterations and sets 'flags' (flags[0]
+        'live', or 'done' with `done`; with `refactor`, flags[1] asks for
+        a REFACTOR after the check), while it is live and state['it'] <
+        settings.max_iter.
+
+        Plain (`capture` off), it is the host loop, one read of the
+        flags a check (through `agree`, the ranks' agreement, where
+        given). Captured, it is one segment, the `Phase` whose graph's
+        WHILE node runs the checks on the card (`phase_nodes`) with no
+        read; its bound is the state entry 'max_iter', so a loop that
+        differs only in max_iter replays the same graph. The graph holds
+        the variants reachable within max_iter; a graph holding more
+        serves too."""
+        k = settings.check_every
+        n_checks = max(0, -(-settings.max_iter // k))
+        interval = interval_checks(settings)
+        period = math.lcm(restart_checks or 1, interval or 1)
+        reachable = tuple(sorted(
+            {tuple(tag) + variant_at(c, restart_checks, interval)
+             for c in range(min(n_checks, period))}))
+        phase = Phase("phase", tuple(tag), k, restart_checks, interval,
+                      reachable, refactor, done)
+        if not self.capture:
+            def read():
+                flags = self.state["flags"]
+                return (flags if agree is None else agree(flags)).tolist()
+            plain_checks(self, read, phase, settings.max_iter)
+            return
+        if not n_checks:
+            return
+        self.set(dict(max_iter=torch.full((), settings.max_iter,
+                                          dtype=torch.int64,
+                                          device=self.device)))
+        self._phase_step.host = (settings.max_iter, agree)
+        phase = next((v for v in self._entry.graphs
+                      if isinstance(v, Phase) and v.covers(phase)), phase)
+        self(phase)
 
     def set(self, updates):
         """Host-side updates between segments: copied into the static
@@ -607,6 +912,37 @@ class CheckLoop:
             out = [_map(torch.clone, v) if isinstance(v, dict) else v.clone()
                    for v in out]
         return out
+
+
+class _LoopStep:
+    """The step of a captured loop's entry: the loop's own step for its
+    segments, and for a `Phase` its checks, as conditional nodes inside a
+    capture (`phase_nodes`), else as the plain loop on a copy of the
+    state (the entry's warm-up), whose changed entries it returns.
+    `host` holds the host's (max_iter, agree) of the loop that runs it."""
+
+    def __init__(self, step):
+        self.step = step
+        self.host = None
+
+    def __call__(self, state, variant):
+        if not isinstance(variant, Phase):
+            return self.step(state, variant)
+        runner = _node_runner()
+        if runner is not None:
+            phase_nodes(runner, self.step, state, variant)
+            return {}
+        max_iter, agree = self.host
+        work = dict(state)
+
+        def run(v):
+            work.update(self.step(work, v))
+
+        def read():
+            flags = work["flags"]
+            return (flags if agree is None else agree(flags)).tolist()
+        plain_checks(run, read, variant, max_iter)
+        return work
 
 
 class _PreStep:

@@ -445,10 +445,11 @@ def fused_iterate_shared(A, Minv, M, q, rho_vec, lam, l, u, x, z, y,
         raise RuntimeError(
             f"fused_iterate_shared: CUDA launch failed ({rc}: "
             f"{err_str(rc).decode()})")
-    graph.count_launch(fused_iterate_shared)
+    graph.count_launch(fused_iterate_shared, x.device)
     return xo, zo, yo
 
 
-# Times the kernel ran: one per call on CUDA tensors, or, for a call
-# inside a captured graph (core/graph.py), one per replay of that graph.
-fused_iterate_shared.launches = 0
+# Times the kernel ran (graph.Counted): one per call on CUDA tensors; for
+# a call inside a captured graph (core/graph.py), one per replay of that
+# graph, or, inside a conditional body, one per pass of that body.
+fused_iterate_shared = graph.Counted(fused_iterate_shared)

@@ -314,7 +314,7 @@ def pallas_cg_solve_planned(M, rhs, x0=None, iters: int = 100,
     if rc != 0:
         raise RuntimeError(f"pallas_cg_solve: CUDA launch failed ({rc}: "
                            f"{err_str(rc).decode()}) for plan {plan}")
-    graph.count_launch(pallas_cg_solve)
+    graph.count_launch(pallas_cg_solve, rhs2.device)
     return out[0] if rhs.dim() == 1 else out
 
 
@@ -329,7 +329,8 @@ def pallas_cg_solve(M, rhs, x0=None, iters: int = 100, tol: float = 1e-7):
     return pallas_cg_solve_planned(M, rhs, x0, iters, tol)
 
 
-# Times a kernel ran (either design, from either entry point): one per
-# call on CUDA tensors, or, for a call inside a captured graph
-# (core/graph.py), one per replay of that graph.
-pallas_cg_solve.launches = 0
+# Times a kernel ran (either design, from either entry point;
+# graph.Counted): one per call on CUDA tensors; for a call inside a
+# captured graph (core/graph.py), one per replay of that graph, or,
+# inside a conditional body, one per pass of that body.
+pallas_cg_solve = graph.Counted(pallas_cg_solve)

@@ -9,17 +9,20 @@ keep honest per-lane iteration counts. On f32 'inv' batches each
 `check_every` block of iterations is one call of the fused CUDA kernel
 (ops/fused.py).
 
-The solve runs as a host loop over residual checks. Each check reads one
-small tensor from the device (loop liveness and the refactor flag);
-the restart boundary and the adaptive-rho cadence follow from the
-lockstep count, which the host keeps. Everything between those reads is
-a segment of the loop (core/graph.py), on the card one CUDA graph
-replay: the prologue (cast, Ruiz scaling, warm start, factor, starting
-carry), each check with its iterations (the fused kernel's launch a
-node of the check's graph), each refactor, and the epilogue (the best
-iterate, the unscale, the objective). The hybrid driver's work between
-phases (the rounds' set-up and safeguard, the f64 true residuals) is a
-loop of its own in the same way, with one host read before each later
+The solve runs as a loop over residual checks
+(`graph.CheckLoop.run_checks`): the restart boundary and the
+adaptive-rho cadence follow from the lockstep count. Each part is a
+segment of the loop (core/graph.py), on the card one CUDA graph replay:
+the prologue (cast, Ruiz scaling, warm start, factor, starting carry),
+the phase (one WHILE node over the checks, each check with its
+iterations, the fused kernel's launch a node of its body, and each
+refactor an IF node after it: no host read between checks), and the
+epilogue (the best iterate, the unscale, the objective). Outside a
+capture (the CPU, a mesh axis of size > 1) the checks run as the plain
+host loop, which reads one small tensor a check (loop liveness and the
+refactor flag). The hybrid driver's work between phases (the rounds'
+set-up and safeguard, the f64 true residuals) is a loop of its own in
+the same way, with one host read before each later
 round and one before the f64 fallback: the whole solve replays from
 graphs, as the JAX package runs it as one compiled program.
 
@@ -27,7 +30,8 @@ Data parallelism: `shard_batch` gives each rank of a `make_data_mesh`
 its slice of the lanes, and `solve_batch_shared(..., mesh=)` runs the
 same driver on it. P, A and the factor are whole on every rank; only the
 batch-global quantities cross the 'data' axis: the loop liveness and the
-refactor flag (one agreed read per check), the shared rho's geometric
+refactor flag (one agreed read per check, the plain loop's), the
+shared rho's geometric
 mean (a sum of logs and a count), the history's max residuals, and the
 Ruiz cost scale of a per-lane q. On a 1-rank mesh every collective is
 the identity, so the result is bitwise the solve without a mesh.
@@ -92,10 +96,15 @@ def _geomean_masked(v, mask, mesh: Mesh | None = None):
     return torch.exp(tot / torch.clamp(cnt, min=1))
 
 
+def _agree_flags(flags, mesh: Mesh):
+    """A segment's flags as int32, the same on every rank."""
+    return runtime.agree(flags.to(torch.int32), mesh)
+
+
 def _agreed(flags, mesh: Mesh | None):
     """The host's read of a segment's flags, the same on every rank."""
     if mesh is not None:
-        flags = runtime.agree(flags.to(torch.int32), mesh)
+        flags = _agree_flags(flags, mesh)
     return [bool(f) for f in flags.tolist()]
 
 
@@ -354,7 +363,8 @@ def _run_batch(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
                dtype, scale: str, scaling=None, rho0=None,
                z_off=None, mesh: Mesh | None = None) -> graph.CheckLoop:
     """The batch loop from raw data: PROLOGUE, the checks with a
-    REFACTOR wherever a check asks for one, EPILOGUE. Returns the loop;
+    REFACTOR wherever a check asks for one (one phase segment on the
+    card), EPILOGUE. Returns the loop;
     its state's 'out', 'rho_bar', 'iters_lane' and 'hist' are the
     result."""
     cone = qp.cone
@@ -390,17 +400,10 @@ def _run_batch(qp: QPData, x0, z0, y0, settings: Settings, backend: str, *,
         **{f: getattr(settings, f) for f in admm.PROLOGUE_FIELDS})
     kkt.prepare(backend, x0.shape[0], qp.n, dtype, x0.device)
     loop(PROLOGUE)
-    k = settings.check_every
-    it = 0
-    alive = True
-    while alive and it < settings.max_iter:
-        loop(admm.check_variant(it // k, settings, restart_checks))
-        it += k
-        # The one device-to-host read of this check, agreed over the
-        # mesh: liveness of any lane anywhere, and the rho decision.
-        alive, do = _agreed(loop.state["flags"], mesh)
-        if do:
-            loop(REFACTOR)
+    # The plain loop's read is agreed over the mesh: liveness of any lane
+    # anywhere, and the rho decision.
+    loop.run_checks(settings, restart_checks, agree=None if mesh is None
+                    else functools.partial(_agree_flags, mesh=mesh))
     loop(EPILOGUE)
     return loop
 

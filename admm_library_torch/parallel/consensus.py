@@ -25,9 +25,11 @@ same program.
 
 Every rank holds the global problem and keeps its slice of blocks along
 the mesh's horizon axis; the solution is gathered back to every rank.
-The host loop reads the device once per check (status and the rho
-decision, agreed over every rank before the read), as
-parallel.batch.run_admm_batch_shared does.
+The loop over checks is `graph.CheckLoop.run_checks`, as
+parallel.batch.run_admm_batch_shared's: on the card (a 1x1 mesh) one
+WHILE node runs the checks and the refactors with no host read; on a
+mesh with an axis > 1 the host loop reads the device once per check
+(status and the rho decision, agreed over every rank before the read).
 
 Scaling: ONE block-shared Ruiz equilibration (core.scaling.
 ruiz_equilibrate_blocks) with the left/right edge-row factors tied.
@@ -575,16 +577,47 @@ def consensus_check(state, variant, *, spec: ConsensusSpec,
     return out
 
 
+def consensus_refactor(state, *, settings: Settings, backend: str,
+                       edge_scale: float):
+    """The REFACTOR of both consensus loops: rho-bar takes the last
+    check's proposal ('new_rho'), and the factor follows it (`_Rho.
+    refresh` on the state's problem and penalty masks: matrix-free CG
+    only takes the new penalties, every other backend refactors)."""
+    rho_bar = state["new_rho"]
+    rho_vec = _rho_vec(rho_bar, state["box_eq"], state["edge"],
+                       settings.rho_eq_scale, edge_scale)
+    if backend == "cg":
+        fac = dict(state["fac"], rho=rho_vec)
+    else:
+        fac = kkt.factor_condensed(state["qp"]["P"], state["qp"]["A"],
+                                   settings.sigma, rho_vec, backend,
+                                   settings.band_block)
+    return dict(rho_bar=rho_bar, fac=fac)
+
+
+def consensus_step(state, variant, *, check, settings: Settings,
+                   backend: str, edge_scale: float, **kw):
+    """A segment of a consensus loop: REFACTOR (`consensus_refactor`), or
+    the check `variant` through `check` (`consensus_check` or
+    consensus_mc's)."""
+    if variant == graph.REFACTOR:
+        return consensus_refactor(state, settings=settings, backend=backend,
+                                  edge_scale=edge_scale)
+    return check(state, variant, settings=settings, backend=backend,
+                 edge_scale=edge_scale, **kw)
+
+
 def run_consensus(qp_blk: QPData, spec: ConsensusSpec, settings: Settings,
                   loc: Local, x0, z0, y0, backend: str, scaling_vecs,
                   z_off=None, rho0=None) -> PhaseResult:
-    """Rank-local driver: a lockstep host loop over residual checks
-    (`consensus_check`, on the card a CUDA graph replay where
-    `graph.capturable` allows). Every residual is reduced over the
-    horizon axis, so every rank takes the same decisions; the host reads
-    one agreed flag tensor a check. scaling_vecs = (d, e, c) of the
-    block-shared Ruiz scaling; residuals and termination are
-    UNSCALED."""
+    """Rank-local driver: a lockstep loop over residual checks
+    (`consensus_check`) and refactors (`consensus_refactor`),
+    `graph.CheckLoop.run_checks`: on the card one CUDA graph whose WHILE
+    node runs them where `graph.capturable` allows, else the host loop
+    that reads one agreed flag tensor a check. Every residual is reduced
+    over the horizon axis, so every rank takes the same decisions.
+    scaling_vecs = (d, e, c) of the block-shared Ruiz scaling; residuals
+    and termination are UNSCALED."""
     dtype, dev = qp_blk.dtype, qp_blk.device
     d_s, e_s, c_s = scaling_vecs
     cd_inv = 1.0 / (c_s * d_s)
@@ -604,32 +637,22 @@ def run_consensus(qp_blk: QPData, spec: ConsensusSpec, settings: Settings,
         max(settings.history, 0)))
     restart_checks = restart_cadence(settings)
     args, key = loop_static(spec, settings, loc, restart_checks)
-    step = functools.partial(consensus_check, settings=settings,
-                             backend=backend, mesh=loc.mesh, **args)
+    step = functools.partial(consensus_step, check=consensus_check,
+                             settings=settings, backend=backend,
+                             mesh=loc.mesh, **args)
     loop = graph.CheckLoop("run_consensus", step, state, settings, backend,
                            mesh=loc.mesh, **key)
-
-    k = settings.check_every
-    it = 0
-    done = False
-    while not done and it < settings.max_iter:
-        loop(admm.check_variant(it // k, settings, restart_checks))
-        it += k
-        # The one device-to-host read of this check, agreed over every
-        # rank.
-        done, do = (bool(f) for f in
-                    runtime.agree(loop.state["flags"], loc.mesh).tolist())
-        if do:
-            rho_bar = loop.state["new_rho"]
-            loop.set(dict(rho_bar=rho_bar,
-                          fac=rho.refresh(loop.state["fac"], rho_bar)))
-    x, z, y, status, r_prim, r_dual, rho_bar, hist = loop.result(
-        "x", "z", "y", "status", "r_prim", "r_dual", "rho_bar", "hist")
+    # flags: (status left UNSOLVED, refactor), agreed over every rank by
+    # the plain loop.
+    loop.run_checks(settings, restart_checks, done=True,
+                    agree=functools.partial(runtime.agree, mesh=loc.mesh))
+    x, z, y, status, it, r_prim, r_dual, rho_bar, hist = loop.result(
+        "x", "z", "y", "status", "it", "r_prim", "r_dual", "rho_bar",
+        "hist")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
                          status).to(torch.int32)
-    return PhaseResult(x, z, y, status,
-                       torch.tensor(it, dtype=torch.int32, device=dev),
-                       r_prim, r_dual, rho_bar, hist)
+    return PhaseResult(x, z, y, status, it.to(torch.int32), r_prim, r_dual,
+                       rho_bar, hist)
 
 
 def _scaled_inputs(scaling: Scaling, dtype, x0, z0, y0, z_off):

@@ -34,8 +34,8 @@ from .consensus import (ConsensusSolution, ConsensusSpec, Local,
                         PhaseResult, _backend, _balance, _l1_scale,
                         _linf_scen, _pmax, _ratio, _rho_vec, _Rho,
                         _scaled_inputs, _status, consensus_body,
-                        infeasibility_blocks, loop_static, phase_carry,
-                        phase_state, recentered_rounds_blocks,
+                        consensus_step, infeasibility_blocks, loop_static,
+                        phase_carry, phase_state, recentered_rounds_blocks,
                         restart_cadence, solve_pipeline)
 from .runtime import DATA_AXIS, HORIZON_AXIS, Mesh
 
@@ -142,10 +142,12 @@ def run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
                      settings: Settings, loc: Local, x0, z0, y0,
                      backend: str, scaling_vecs, z_off=None,
                      rho0=None) -> PhaseResult:
-    """Rank-local driver over both axes: a lockstep host loop over
-    residual checks (`consensus_mc_check`, on the card a CUDA graph
-    replay where `graph.capturable` allows) that reads one agreed flag
-    tensor a check.
+    """Rank-local driver over both axes: a lockstep loop over residual
+    checks (`consensus_mc_check`) and refactors
+    (`consensus.consensus_refactor`), `graph.CheckLoop.run_checks`: on
+    the card one CUDA graph whose WHILE node runs them where
+    `graph.capturable` allows, else the host loop that reads one agreed
+    flag tensor a check.
 
     qp_blk: block-local data with SCENARIO-BATCHED l/u of shape (B_loc,
     S, mb); P (S, nb, nb), A (S, mb, nb) and q (S, nb) shared (q may be
@@ -180,25 +182,15 @@ def run_consensus_mc(qp_blk: QPData, spec: ConsensusSpec,
     state["iters"] = torch.zeros(B_loc, dtype=torch.int32, device=dev)
     restart_checks = restart_cadence(settings)
     args, key = loop_static(spec, settings, loc, restart_checks)
-    step = functools.partial(consensus_mc_check, settings=settings,
-                             backend=backend, mesh=loc.mesh, **args)
+    step = functools.partial(consensus_step, check=consensus_mc_check,
+                             settings=settings, backend=backend,
+                             mesh=loc.mesh, **args)
     loop = graph.CheckLoop("run_consensus_mc", step, state, settings,
                            backend, mesh=loc.mesh, **key)
-
-    k = settings.check_every
-    it = 0
-    alive = True
-    while alive and it < settings.max_iter:
-        loop(admm.check_variant(it // k, settings, restart_checks))
-        it += k
-        # The one device-to-host read of this check: liveness over every
-        # scenario of the mesh, and the shared rho decision.
-        alive, do = (bool(f) for f in
-                     runtime.agree(loop.state["flags"], loc.mesh).tolist())
-        if do:
-            rho_bar = loop.state["new_rho"]
-            loop.set(dict(rho_bar=rho_bar,
-                          fac=rho.refresh(loop.state["fac"], rho_bar)))
+    # flags: (liveness over every scenario of the mesh, the shared rho
+    # decision), agreed over every rank by the plain loop.
+    loop.run_checks(settings, restart_checks,
+                    agree=functools.partial(runtime.agree, mesh=loc.mesh))
     x, z, y, status, iters, r_p, r_d, rho_bar, hist = loop.result(
         "x", "z", "y", "status", "iters", "r_prim", "r_dual", "rho_bar",
         "hist")

@@ -18,7 +18,10 @@ Traffic per iteration along 'horizon':
              part's last state block; Aᵀy returns the next part's first
              rows).
 Per check: a max over 'horizon' for the residuals, sums over 'data' for
-the shared rho, and one agreed read of the loop and refactor flags.
+the shared rho; the loop over checks is `graph.CheckLoop.run_checks`
+(on the card one WHILE node over the checks and refactors, with no host
+read; on a mesh with an axis > 1 one agreed read of the loop and
+refactor flags a check).
 
 Scope: box + L1 + uniform-SOC cones laid out [box | L1 | SOC] per part
 with the same per-type counts in every part (box and L1 rows padded with
@@ -37,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import admm, graph
+from ..core import graph
 from ..ops import banded as banded_ops
 from ..ops.kkt import cholesky_or_nan
 from ..ops.prox import project_cone
@@ -466,55 +469,78 @@ def horizon_check(state, variant, *, spec: HorizonSpec, settings: Settings,
         tol = settings.adaptive_rho_tol
         do = ((ratio > tol) | (ratio < 1.0 / tol)) & (cnt > 0)
     return dict(x=x, z=z, y=y, iters=iters, status=status, r_prim=r_p,
-                r_dual=r_d, new_rho=new_rho,
+                r_dual=r_d, new_rho=new_rho, it=state["it"] + k,
                 flags=torch.stack([still.any(), do]).to(torch.int32))
+
+
+def horizon_factor(hp: HorizonParts, rb, eq, soc_rows, settings: Settings,
+                   spec: HorizonSpec, loc: Local):
+    """The distributed-SPIKE factor of rho-bar `rb`: this rank's interior
+    Cholesky factors and the reduced separator system."""
+    dtype, dev = hp.q.dtype, hp.q.device
+    S = hp.q.shape[0]
+    ni, b, npb = spec.ni, spec.b, spec.npb
+    rv = _rho_vec(rb, eq, soc_rows, settings, spec.cone)
+    Mpp = (hp.A_loc.mT @ (rv[..., None] * hp.A_loc)
+           + settings.sigma * torch.eye(npb, dtype=dtype, device=dev)
+           + torch.diag_embed(hp.P_diag))
+    # The next part's A_haloᵀ ρ A_halo lands on OUR separator block.
+    corner = _neighbor_next(
+        (hp.A_halo.mT @ (rv[..., None] * hp.A_halo)).reshape(S, b * b),
+        loc).reshape(S, b, b)
+    Mpp[:, ni:, ni:] += torch.where(loc.is_last[:, :, None], 0.0, corner)
+    # E couples OUR first variable block to the previous part's
+    # separator: A_locᵀ ρ A_halo (partition_qp keeps it inside the first
+    # b variable rows).
+    E = (hp.A_loc.mT @ (rv[..., None] * hp.A_halo))[:, :b, :]
+    E = torch.where(loc.is_first[:, :, None], 0.0, E)
+    fac = _spike_factor_sharded(Mpp, E, spec, loc)
+    return {**fac, **_spike_reduce_factor(fac, loc)}
+
+
+def horizon_step(state, variant, *, spec: HorizonSpec, settings: Settings,
+                 mesh: Mesh):
+    """A segment of `_run_horizon`'s loop: REFACTOR (rho-bar takes the
+    last check's proposal, and `horizon_factor` its factor), or the check
+    `variant` (`horizon_check`)."""
+    if variant != graph.REFACTOR:
+        return horizon_check(state, variant, spec=spec, settings=settings,
+                             mesh=mesh)
+    loc = Local(mesh=mesh, block_ids=state["block_ids"],
+                n_blocks=spec.parts)
+    rho_bar = state["new_rho"]
+    return dict(rho_bar=rho_bar, fac=horizon_factor(
+        HorizonParts(**state["hp"]), rho_bar, state["eq"],
+        state["soc_rows"], settings, spec, loc))
 
 
 def _run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
                  loc: Local, x0, z0, y0):
-    """Rank-local driver: a lockstep host loop over residual checks
-    (`horizon_check`, on the card a CUDA graph replay where
-    `graph.capturable` allows for the 'spike' x-update).
+    """Rank-local driver: a lockstep loop over residual checks
+    (`horizon_check`) and refactors (`horizon_step`'s REFACTOR: the
+    interior Cholesky factors and the separator system),
+    `graph.CheckLoop.run_checks`: on the card, for the 'spike' x-update,
+    one CUDA graph whose WHILE node runs them where `graph.capturable`
+    allows, else the host loop that reads one agreed flag tensor a
+    check.
 
     hp holds this rank's parts, with l/u (B_loc, S, mp). Plain ADMM as
     parallel.batch.run_admm_batch_shared's core loop (x-solve, relax,
     prox, dual update, per-scenario freezing, shared adaptive rho) with
     the x-solve distributed. Every residual is reduced over 'horizon',
     so the ranks of a data row take the same decisions; the loop and
-    refactor flags are agreed over every rank. The refactor (interior
-    Cholesky factors and the separator system) stays on the host and is
-    written into the loop's state.
+    refactor flags are agreed over every rank.
     """
     dtype, dev = hp.q.dtype, hp.q.device
-    S = hp.q.shape[0]
-    ni, b, npb, mp = spec.ni, spec.b, spec.npb, spec.mp
+    mp = spec.mp
     B_loc = x0.shape[0]
     cone = spec.cone
     mb_loc, ml_loc = cone.m_box, cone.m_l1
-    is_first, is_last = loc.is_first, loc.is_last          # (S, 1)
-    l0, u0 = hp.l[0], hp.u[0]
+    l0 = hp.l[0]
     row_idx = torch.arange(mp, device=dev)
     # Only box rows are equalities (cf. problem.is_equality_row).
-    eq = (l0 == u0) & torch.isfinite(l0) & (row_idx < mb_loc)
+    eq = (l0 == hp.u[0]) & torch.isfinite(l0) & (row_idx < mb_loc)
     is_soc_row = row_idx >= mb_loc + ml_loc
-
-    def factor(rb):
-        rv = _rho_vec(rb, eq, is_soc_row, settings, cone)
-        Mpp = (hp.A_loc.mT @ (rv[..., None] * hp.A_loc)
-               + settings.sigma * torch.eye(npb, dtype=dtype, device=dev)
-               + torch.diag_embed(hp.P_diag))
-        # The next part's A_haloᵀ ρ A_halo lands on OUR separator block.
-        corner = _neighbor_next(
-            (hp.A_halo.mT @ (rv[..., None] * hp.A_halo)).reshape(S, b * b),
-            loc).reshape(S, b, b)
-        Mpp[:, ni:, ni:] += torch.where(is_last[:, :, None], 0.0, corner)
-        # E couples OUR first variable block to the previous part's
-        # separator: A_locᵀ ρ A_halo (partition_qp keeps it inside the
-        # first b variable rows).
-        E = (hp.A_loc.mT @ (rv[..., None] * hp.A_halo))[:, :b, :]
-        E = torch.where(is_first[:, :, None], 0.0, E)
-        fac = _spike_factor_sharded(Mpp, E, spec, loc)
-        return {**fac, **_spike_reduce_factor(fac, loc)}
 
     nq = _linf_scen(loc, hp.q[None])[0]
     if ml_loc:
@@ -529,16 +555,19 @@ def _run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
 
     rho_bar = torch.tensor(settings.rho, dtype=dtype, device=dev)
     big = torch.full((B_loc,), float("inf"), dtype=dtype, device=dev)
-    state = dict(hp=hp._asdict(), fac=factor(rho_bar), eq=eq,
-                 soc_rows=is_soc_row, block_ids=loc.block_ids, nq=nq,
+    state = dict(hp=hp._asdict(),
+                 fac=horizon_factor(hp, rho_bar, eq, is_soc_row, settings,
+                                    spec, loc),
+                 eq=eq, soc_rows=is_soc_row, block_ids=loc.block_ids, nq=nq,
                  x=x0, z=z0, y=y0, rho_bar=rho_bar, new_rho=rho_bar,
+                 it=torch.zeros((), dtype=torch.int64, device=dev),
                  iters=torch.zeros(B_loc, dtype=torch.int32, device=dev),
                  status=torch.full((B_loc,), _UNSOLVED, dtype=torch.int32,
                                    device=dev),
                  r_prim=big, r_dual=big,
                  flags=torch.ones(2, dtype=torch.int32, device=dev))
     mesh = loc.mesh
-    step = functools.partial(horizon_check, spec=spec, settings=settings,
+    step = functools.partial(horizon_step, spec=spec, settings=settings,
                              mesh=mesh)
     # The key holds plain values (cf. consensus.loop_static).
     loop = graph.CheckLoop(
@@ -546,20 +575,10 @@ def _run_horizon(hp: HorizonParts, spec: HorizonSpec, settings: Settings,
         spec=spec, block_ids=tuple(loc.block_ids.tolist()),
         mesh_shape=tuple(sorted(mesh.shape.items())),
         mesh_coords=tuple(sorted(mesh.coords.items())))
-
-    k = settings.check_every
-    it = 0
-    alive = True
-    while alive and it < settings.max_iter:
-        loop(admm.check_variant(it // k, settings, 0))
-        it += k
-        # The one device-to-host read of this check: liveness of any
-        # scenario on any rank, and the shared refactor decision.
-        alive, do = (bool(f) for f in
-                     runtime.agree(loop.state["flags"], mesh).tolist())
-        if do:
-            rho_bar = loop.state["new_rho"]
-            loop.set(dict(rho_bar=rho_bar, fac=factor(rho_bar)))
+    # flags: (liveness of any scenario on any rank, the shared refactor
+    # decision), agreed over every rank by the plain loop.
+    loop.run_checks(settings, 0,
+                    agree=functools.partial(runtime.agree, mesh=mesh))
     x, z, y, status, iters, r_p, r_d, rho_bar = loop.result(
         "x", "z", "y", "status", "iters", "r_prim", "r_dual", "rho_bar")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),

@@ -23,16 +23,17 @@ layout does not split evenly in order, the rows are interleaved so that
 every shard holds the same (m_box/ndev | m_l1/ndev | n_soc/ndev) mix,
 and z and y are permuted back at the end.
 
-The loop runs on `core/graph.CheckLoop`, one segment a check: its
+The loop runs on `core/graph.CheckLoop.run_checks`, a check its
 check_every iterations (each the CG of its x-update in blocks of
 `ops.kkt._CG_CHECK` steps through `core.graph.while_blocks`, the
 iteration's tail and the next CG start) and the residual check. On the
-card with a data axis of one rank a check is one CUDA graph replay, its
-CGs conditional nodes that test their stop flag on the card; with more
-ranks the collectives stay eager, the same segment runs as plain tensor
-code, and the host reads the CG's stop flag, agreed over every rank,
-before each block. The host reads the check's status once a check,
-agreed over every rank.
+card with a data axis of one rank the checks are one CUDA graph replay:
+a WHILE node over the checks, each check variant an IF node in it and
+its CGs WHILE nodes inside that, three deep, every stop flag tested on
+the card. With more ranks the collectives stay eager, the same checks
+run as plain tensor code, and the host reads the CG's stop flag,
+agreed over every rank, before each block, and the check's status once
+a check, agreed over every rank.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import admm, graph
+from ..core import graph
 from ..core.scaling import ruiz_equilibrate
 from ..ops.kkt import cg_blocks
 from ..ops.prox import project_cone
@@ -372,6 +373,7 @@ def rowshard_step(st, variant, *, settings: Settings, mesh: Mesh,
         new.update(cg_head(dict(st, **new), settings, mesh))
         st.update(new)
         out.update(new)
+    out["it"] = st["it"] + k
     return out
 
 
@@ -449,6 +451,7 @@ def solve_rowsharded(qp: QPData, mesh: Mesh, settings: Settings = Settings(),
         status=torch.tensor(_UNSOLVED, dtype=torch.int32, device=dev),
         r_p=inf, r_d=inf,
         flags=torch.zeros(1, dtype=torch.int32, device=dev),
+        it=torch.zeros((), dtype=torch.int64, device=dev),
         cg_steps=torch.zeros((), dtype=torch.int32, device=dev))
     state.update(cg_head(state, s, mesh))
     step = functools.partial(rowshard_step, settings=s, mesh=mesh,
@@ -462,16 +465,13 @@ def solve_rowsharded(qp: QPData, mesh: Mesh, settings: Settings = Settings(),
         permuted=perm is not None,
         mesh_shape=tuple(sorted(mesh.shape.items())),
         mesh_coords=tuple(sorted(mesh.coords.items())))
-    it = 0
-    done = False
-    while not done and it < s.max_iter:
-        loop(("check",) + admm.check_variant(it // k, s, restart_checks))
-        it += k
-        # The one device-to-host read of this check, agreed over every
-        # rank.
-        done = bool(runtime.agree(loop.state["flags"], mesh))
-    x, z, y, status, r_p, r_d, rho_bar, cg_steps = loop.result(
-        "x", "z", "y", "status", "r_p", "r_d", "rho_bar", "cg_steps")
+    # flags: (status left UNSOLVED), agreed over every rank by the plain
+    # loop.
+    loop.run_checks(s, restart_checks, tag=("check",), refactor=False,
+                    done=True, agree=functools.partial(runtime.agree,
+                                                       mesh=mesh))
+    x, z, y, status, r_p, r_d, rho_bar, cg_steps, it = loop.result(
+        "x", "z", "y", "status", "r_p", "r_d", "rho_bar", "cg_steps", "it")
     status = torch.where(status == _UNSOLVED, int(Status.MAX_ITER),
                          status).to(torch.int32)
 
@@ -484,7 +484,7 @@ def solve_rowsharded(qp: QPData, mesh: Mesh, settings: Settings = Settings(),
     return RowShardSolution(
         x=scaling.unscale_x(x), z=scaling.unscale_z(z),
         y=scaling.unscale_y(y), status=status,
-        iters=torch.tensor(it, dtype=torch.int32, device=dev),
+        iters=it.to(torch.int32),
         r_prim=r_p, r_dual=r_d, rho=rho_bar, cg_steps=cg_steps)
 
 

@@ -14,7 +14,13 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                allocator calls that route a stream's allocations to a
                graph pool; a tiny graph of an IF and a WHILE node
                (core/graph.while_blocks, csrc/graph_cond.cu) replayed
-               against the plain loop;
+               against the plain loop; a toy phase three deep
+               (CheckLoop.run_checks: its WHILE node, an IF node a check
+               variant, the check's own WHILE node, the refactor an IF
+               node) replayed for several stop points and bounds,
+               bitwise the same loop run plain on the card; kernel 1, a
+               cooperative launch, inside an IF node, bitwise the eager
+               launch, its launches counted on the card;
 3. kernel    — the fused ADMM iteration kernel against its plain PyTorch
                twin on the same inputs, at the flagship shape (batch 128,
                1024 and 1, the last config 2's shape through solve; k=25,
@@ -100,8 +106,8 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                the card's rounding, reported), x within X_AGREE of the
                'inv' solve, a rerun bitwise identical that captures
                nothing, every path bitwise the same solve with every
-               segment eager; the host's reads of a rerun at most its
-               checks and PHASE_READS more; wall-clock, graph nodes (the
+               segment eager; the host's reads of a rerun at most
+               PHASE_READS, none per check; wall-clock, graph nodes (the
                conditional bodies' too) and capture ms, the segments of
                a rerun and the device time of its replays (CUDA events;
                no profiled run: a profile loses the kernels inside
@@ -114,9 +120,9 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                25 iterations (the JAX reference on the CPU), controls
                within X_AGREE of the monolithic f64 solve at eps 1e-9,
                the f32 phase's boundary copies of z bitwise equal, a
-               rerun bitwise identical; wall-clock of both runs, and
-               kernels launched per iteration, device busy time and idle
-               share from one run under torch.profiler;
+               rerun bitwise identical, bitwise the same solve with
+               every segment eager; wall-clock of both runs and the
+               device time of the rerun's replays;
 14. consensus_mc — the reference's consensus_mc_1024 cell at full width
                (1024 scenarios, the JAX draw of the dispersions in
                models/consensus_mc_s0_seed0.npz): every lane SOLVED at
@@ -131,7 +137,7 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                SOLVED, the f64 block KKT residuals within the mixed
                criterion, bitwise the same solve with every segment
                eager, a rerun bitwise identical, its host reads at most
-               its checks and PHASE_READS more.
+               PHASE_READS.
 
 15. data_axis — config 5 at 1024 through the data axis at one rank:
                shard_batch on make_data_mesh(1), solve_batch_shared(...,
@@ -147,8 +153,8 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                one; captures, replays, warm-ups and capture ms of the
                first run and two reruns (the second captures nothing),
                nodes per graph, peak memory, the host's reads (of the
-               eager solve, and of a rerun: at most its checks and
-               PHASE_READS more), the device time of a rerun's replays
+               eager solve, and of a rerun: at most PHASE_READS), the
+               device time of a rerun's replays
                and iterations beside the TPU's on JAX's draw (no
                profiled run: a profile loses the kernels inside
                conditional bodies);
@@ -158,40 +164,38 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                SOLVED at solve_batch_shared's iterations (backend
                'chol'), x within 1e-8 relative; in f32 under the
                reference gate's settings every lane SOLVED at 125 ± 25
-               lockstep iterations (JAX on the CPU); reruns bitwise, one
-               profiled run each;
+               lockstep iterations (JAX on the CPU); reruns bitwise, each
+               bitwise the same solve with every segment eager;
 18. checkpoint — phase 4's b128 solution saved (utils/checkpoint), loaded
                back onto the card and resumed: SOLVED within one check;
-19. graph    — the captured residual checks (core/graph.py) on configs 3
-               and 4 (and config 3 on 'pallas_cg', config 1 on 'cg': its
-               checks' nodes, their conditional bodies' beside, and
-               capture ms) and the config-5
-               batch at 128 and 1024, each from an
-               empty cache and on a rerun: captures, replays, warm-ups,
-               capture ms, device operations per graph, and from one
-               profiled rerun the host's launch calls and the idle share
-               (config 4: under GRAPH_HOST_LAUNCHES_PER_ITER an
-               iteration); a rerun captures and warms nothing. For the
-               batch, whose whole solve_batch_shared is captured
-               segments (prologue, checks with kernel 1 inside their
-               graphs, refactors, epilogue, the re-centred rounds'
-               set-up and safeguard, the f64 residuals): the host's
-               launch calls of a profiled first run too, a rerun under
-               GRAPH_RERUN_HOST_LAUNCHES, graphs that hold kernel 1, the
-               captured solve bitwise the same solve with every segment
-               eager, kernel 1 counted alike in both. A replayed check
-               bitwise the eager check from the same state, every
-               variant, for an f64 chunk of config 4, a b128 re-centred
-               round, consensus_mc_1024's f32 phase and
+19. graph    — the captured phases (core/graph.py) on configs 3 and 4,
+               the config-5 batch at 128 and 1024, solve_batch, config 1
+               at 'single' and 'double', config 3 on 'pallas_cg' and
+               config 1 on 'cg', each from an empty cache and on a
+               rerun: captures, graph launches (a phase one), WHILE
+               passes, warm-ups, capture ms, device operations per graph
+               (the conditional bodies' beside) and the device time of a
+               rerun's replays (no profile: a profile of a graph with
+               conditional nodes faulted with an illegal address); a
+               rerun captures and warms nothing and launches at most
+               GRAPH_RERUN_LAUNCHES graphs (configs 3, 4, b128, b1024);
+               every path bitwise the same solve with every segment
+               eager, each kernel launched as often; for the batch the
+               graphs that hold kernel 1 (in the phases' bodies). A
+               replayed check bitwise the eager check from the same
+               state, every variant, for an f64 chunk of config 4, a
+               b128 re-centred round, consensus_mc_1024's f32 phase and
                horizon_spike_1024's.
 
-Every solve above runs its checks as captured graphs where the capture
-rule admits its backend ('inv', 'chol', 'banded', 'spike', 'pallas_cg',
-'cg', and the row-sharded CG) and mesh
-(none, or 1 rank). Config 3's 'pallas_cg' solve is held bitwise to the
-same solve with every segment eager, kernel 2 launched as often. A
-kernel's launches count the times it ran: one per eager launch, and one
-per replay of a graph that holds it.
+Every solve above runs each phase as one captured graph where the
+capture rule admits its backend ('inv', 'chol', 'banded', 'spike',
+'pallas_cg', 'cg', and the row-sharded CG) and mesh (none, or 1 rank):
+a WHILE node over its checks, the host reading nothing between them.
+Every captured path is held bitwise to the same solve with every
+segment eager, each kernel launched as often. A kernel's launches count
+the times it ran: one per eager launch, one per replay of a graph that
+holds it at top level, and one per pass of a conditional body that
+launches it (counted on the card).
 Phases 9-18 run no kernel of their own: their backends are plain
 PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
 to (phase 15 runs the fused kernel on its lanes).
@@ -230,10 +234,9 @@ ITER_SLACK = 25                # one check interval
 CG_REFERENCE_ITERS = {"config1": 100, "config2": 750, "config3": 600,
                       "config5": 400, "solve_batch": 200}
 CG_ITERS_HELD = ("config1", "config2", "solve_batch")
-# The host's reads a solve makes outside its checks (each check reads
-# one flag): the reference's `# host sync` reads of a stage's or a
-# round's verdict, a few on every path (config 1 on 'pallas_cg' reads 6
-# times in all, 4 of them its checks).
+# The host's reads of a rerun on a captured path: the reference's
+# `# host sync` reads of a stage's or a round's verdict, a few on every
+# path (config 1 on 'pallas_cg' reads 2 times; no check reads).
 PHASE_READS = 16
 # Lanes of consensus_mc's draw that phase consensus_cg solves on 'cg'.
 CONSENSUS_CG_LANES = 64
@@ -294,29 +297,17 @@ F64_ERR_FLOOR = 1e-8
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at
 # 700 W): f32 and f64 outside the tensor cores, and HBM3.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-# The host's calls that put work on the card, as CUPTI names them: kernel
-# launches (plain, cooperative, extended) and CUDA graph launches.
-HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
-                     "cuGraphLaunch")
-# The host's wait for the card at each read of a device value (.item(),
-# .tolist(), a device-to-host copy), as CUPTI names it: host_syncs
-# counts the host's reads.
-HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cuStreamSynchronize")
-# Config 4's whole solve (f32 pass, rounds, f64 fallback, chunks, their
-# prologues and polish) under the captured checks: host launches an
-# iteration.
-GRAPH_HOST_LAUNCHES_PER_ITER = 2.0
-# A rerun of the config-5 batch with the whole solve_batch_shared
-# captured: host launch calls a solve (graph replays, ~14 checks, and
-# the few eager calls around them).
-GRAPH_RERUN_HOST_LAUNCHES = 120
-# Host launch calls of a rerun of solve with its phases, polish, rounds
-# and warm-start check captured: config 3 (the staged path: 24 checks,
-# four phases' prologues, refactors and epilogues, up to four polishes,
-# two rounds' set-up and join, ~20 eager calls) and config 4 (the B=1
-# shared pass, ~58 calls, then ~7 continuation chunks of ~80 checks and
-# a few segments each).
-GRAPH_HOST_LAUNCHES = {"config3": 200, "config4": 1500}
+# Graph launches of a rerun with every phase one graph (its checks and
+# refactors inside a WHILE node), counted by the cache (`replays`, a
+# phase's graph one launch): config 3 (the staged path: the f32 phase's
+# prologue, phase and epilogue, a polish; measured 4), config 4 (the B=1
+# shared pass, 7 continuation chunks of three launches, their polishes;
+# measured 47) and the config-5 batch (phase 1, the rounds and the
+# driver's segments; measured 10). The host's launch calls are not
+# counted: a profile of a graph with conditional nodes faulted with an
+# illegal address on the card.
+GRAPH_RERUN_LAUNCHES = {"config3": 8, "config4": 60, "b128": 12,
+                        "b1024": 12}
 PEAK_HBM_BYTES = 3.35e12
 # Two solved points of the same problem: each meets the 1e-6 residual
 # criterion; the MPC states carry only a 1e-8 regularisation.
@@ -473,6 +464,106 @@ def _node_probe(dev):
         (False, False)])
 
 
+def _nested_probe(dev):
+    """A phase of a toy loop whose checks run a WHILE node of their own:
+    the phase's WHILE node holds an IF node for each check variant, which
+    holds a WHILE node of at most 4 unit blocks (m < it % 3 + 1), and an
+    IF node for the refactor, three deep. Replayed for several stop
+    points and max_iter bounds and held bitwise to the same loop run
+    plain on the card, then its WHILE passes counted. Returns the
+    record."""
+    import torch
+    from admm_library_torch import Settings
+    from admm_library_torch.core import graph
+
+    def step(state, variant):
+        if variant == graph.REFACTOR:
+            return dict(r=state["r"] * 3 + state["it"])
+        restart, rho_test = variant
+        it = state["it"]
+        inner = graph.while_blocks(
+            dict(m=torch.zeros_like(it)), lambda c: c["m"] < it % 3 + 1,
+            lambda c, steps: dict(m=c["m"] + steps), [1] * 4)
+        acc = state["acc"] * 7 + 2 * int(restart) + int(rho_test) + inner["m"]
+        it = it + 1
+        return dict(acc=acc, it=it, flags=torch.stack(
+            [it < state["stop"], rho_test & (it % 2 == 0)]))
+
+    def run(capture, stop, max_iter, cache):
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        state = dict(it=zero, acc=zero.clone(), r=zero.clone(),
+                     stop=torch.tensor(stop, device=dev),
+                     flags=torch.ones(2, dtype=torch.bool, device=dev))
+        loop = graph.CheckLoop("node_probe_nested", step, state, None, "cg",
+                               capture=capture, cache=cache)
+        loop.run_checks(Settings(check_every=1, max_iter=max_iter,
+                                 adaptive_rho_interval=2), 3)
+        return [int(loop.state[k]) for k in ("it", "acc", "r")]
+
+    cache = graph.CheckCache()
+    cache.prepare_nodes(dev)
+    got = {}
+    for stop, max_iter in ((5, 20), (9, 20), (30, 13), (1, 20), (12, 20),
+                           (7, 7)):
+        want = run(False, stop, max_iter, None)
+        got[f"{stop}/{max_iter}"] = have = run(True, stop, max_iter, cache)
+        check(have == want, f"device: the nested nodes ran to {have} "
+              f"(stop {stop}, max_iter {max_iter}), the plain loop to "
+              f"{want}")
+    entry, = cache.entries.values()
+    (phase, nodes), = entry.body_nodes.items()
+    check(len(phase.reachable) == 4, "device: the nested probe's phase does "
+          "not hold the four check variants")
+    return dict(nested_probe=got, nested_probe_body_nodes=nodes,
+                nested_probe_captures=cache.stats["captures"],
+                nested_probe_while_passes=cache.while_passes())
+
+
+def _kernel1_if_probe(dev):
+    """Kernel 1, a cooperative launch, inside an IF node of a captured
+    segment: replayed with the flag on and off, its output bitwise the
+    eager launch's, and its launches counted at the body's passes on
+    the card."""
+    import torch
+    from admm_library_torch.core import graph
+    from admm_library_torch.ops import fused
+    args, kw = _args_of(lambda d: _flagship_inputs(d, 8))(dev)
+    A, Minv, M, q, rho, lam, l, u, x, z, y = args
+    kw = dict(kw, k=5)
+    want = fused.fused_iterate_shared(*args, **kw)
+
+    def step(state, variant):
+        return graph.while_blocks(
+            dict(x=state["x"], z=state["z"], y=state["y"]),
+            lambda c: state["go"], lambda c, steps: dict(zip(
+                "xzy", fused.fused_iterate_shared(
+                    A, Minv, M, q, rho, lam, l, u, c["x"], c["z"], c["y"],
+                    **kw))), [1])
+
+    cache = graph.CheckCache()
+    cache.prepare_nodes(dev)
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    loop = graph.CheckLoop("kernel1_if_probe", step,
+                           dict(x=x, z=z, y=y, go=go), None, "inv",
+                           cache=cache)
+    loop((False, False))                 # the warm-up, eager
+    torch.cuda.synchronize()
+    fused.fused_iterate_shared.launches = 0
+    out = {}
+    for flag in (True, False, True):
+        loop.set(dict(x=x, z=z, y=y, go=torch.tensor(flag, device=dev)))
+        loop((False, False))
+        same = all(torch.equal(loop.state[k], w if flag else v)
+                   for k, w, v in zip("xzy", want, (x, z, y)))
+        check(same, f"device: kernel 1 in an IF body (flag {flag}) is not "
+              "the eager launch")
+        out[str(flag)] = same
+    launches = fused.fused_iterate_shared.launches
+    check(launches == 2, f"device: kernel 1 in an IF body counted "
+          f"{launches} launches over two passes")
+    return dict(kernel1_if_probe=out, kernel1_if_probe_launches=launches)
+
+
 def phase_device(dev):
     import torch
     smi = subprocess.run(
@@ -489,7 +580,7 @@ def phase_device(dev):
          cuda=torch.version.cuda, nvidia_smi=smi,
          cuda_graph_if_node=if_node,
          allocator_calls={n: hasattr(torch._C, n) for n in POOL_CALLS},
-         **_node_probe(dev))
+         **_node_probe(dev), **_nested_probe(dev), **_kernel1_if_probe(dev))
     return smi
 
 
@@ -778,18 +869,21 @@ def _kernels():
             "pallas_cg_solve": pallas_cg.pallas_cg_solve}
 
 
-def _timed_run(fn, *args):
+def _timed_run(fn, *args, reads=None):
     """fn(*args) from zeroed launch counts: (result, seconds, launches
-    of each kernel)."""
+    of each kernel). With `reads` (a `_HostReads`), the host's reads of
+    the run itself are counted, not those of the counts."""
+    import contextlib
     import torch
     kernels = _kernels()
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
-    t0 = time.perf_counter()
-    out = fn(*args)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with reads if reads is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     return out, secs, {name: k.launches for name, k in kernels.items()}
 
 
@@ -859,9 +953,9 @@ def _captured_runs(fn, *args, reruns=1):
     """fn(*args) from an empty check cache, then `reruns` reruns: every
     result, and a record of the captured checks (core/graph.py) with
     each run's wall-clock, kernel launches, segments run by name
-    (`_SegmentCount`), the host's reads (`_HostReads`) and
-    graph.CACHE.stats deltas
-    (captures, replays, warm-ups, capture ms; `graph_rerun` the last
+    (`_SegmentCount`), the host's reads (`_HostReads`), the passes of the
+    phases' WHILE nodes and graph.CACHE.stats deltas (captures, replays
+    (graph launches), warm-ups, capture ms; `graph_rerun` the last
     rerun, `graph_reruns` each where there are more), the cache's
     entries, the nodes of each graph (counted after the last run, so
     that a variant captured in a rerun counts too) and the peak device
@@ -876,11 +970,14 @@ def _captured_runs(fn, *args, reruns=1):
         before = dict(graph.CACHE.stats)
         if i == reruns:
             graph.CACHE.replay_events = []
-        with _SegmentCount() as segments, _HostReads() as reads:
-            sol, wall, launches = _timed_run(fn, *args)
+        passes = graph.CACHE.while_passes()
+        reads = _HostReads()
+        with _SegmentCount() as segments:
+            sol, wall, launches = _timed_run(fn, *args, reads=reads)
         sols.append(sol)
         runs.append(dict(wall_s=wall, launches=launches,
                          segments=segments.counts, host_reads=reads.count,
+                         while_passes=graph.CACHE.while_passes() - passes,
                          **{
                              k: graph.CACHE.stats[k] - before[k]
                              for k in before}))
@@ -930,38 +1027,57 @@ def _captured_fields(tag, sols, rec, fn, *args, twin=False):
     check(rec["graph_rerun"]["launches"] == out["launches"],
           f"{tag}: the rerun launched the kernels another number of times")
     if twin:
-        eager, wall, launches = _capture_off(fn, *args)
-        out.update(eager_wall_s=wall, eager_launches=launches,
-                   captured_is_eager_bitwise=_bitwise(sols[0], eager))
-        check(out["captured_is_eager_bitwise"],
-              f"{tag}: the captured solve differs from the capture-off one")
-        check(launches == out["launches"],
-              f"{tag}: kernel launches differ between the captured and "
-              "the capture-off solve")
+        out.update(_capture_off_fields(tag, sols[0], out["launches"], fn,
+                                       *args))
+    return out
+
+
+def _capture_off_fields(tag, sol, launches, fn, *args):
+    """The same solve with every segment eager (`_capture_off`): its
+    wall-clock and kernel launches, held bitwise to the captured `sol`
+    and to its `launches`. Returns the record's fields."""
+    eager, wall, eager_launches = _capture_off(fn, *args)
+    out = dict(eager_wall_s=wall, eager_launches=eager_launches,
+               captured_is_eager_bitwise=_bitwise(sol, eager))
+    check(out["captured_is_eager_bitwise"],
+          f"{tag}: the captured solve differs from the capture-off one")
+    check(eager_launches == launches,
+          f"{tag}: kernel launches differ between the captured and the "
+          "capture-off solve")
     return out
 
 
 def _check_reads(tag, rec):
-    """A rerun's host reads: one a check, and at most PHASE_READS more
-    (no read inside a check, none before a CG block). Returns (reads,
-    checks)."""
+    """A rerun's host reads: at most PHASE_READS, none per check (every
+    phase's checks run in its graph's WHILE node; no read inside a check,
+    none before a CG block). Returns (reads, checks)."""
     rerun = rec["graph_rerun"]
     checks = rerun["segments"].get("check", 0)
-    check(rerun["host_reads"] <= checks + PHASE_READS,
-          f"{tag}: {rerun['host_reads']} host reads in a rerun of "
-          f"{checks} checks")
+    check(rerun["host_reads"] <= PHASE_READS and checks == 0,
+          f"{tag}: {rerun['host_reads']} host reads and {checks} host-run "
+          "checks in a rerun")
     return rerun["host_reads"], checks
 
 
+def _variant_label(variant):
+    """A graph's variant as a short label: a phase by its reachable check
+    variants."""
+    from admm_library_torch.core import graph
+    if isinstance(variant, graph.Phase):
+        return f"phase{list(variant.reachable)}"
+    return str(variant)
+
+
 def _body_nodes():
-    """The nodes inside the conditional bodies of every check graph of
-    the default cache, by entry and variant (`_graph_nodes`' labels)."""
+    """The nodes inside the conditional bodies of every graph of the
+    default cache that holds them, by entry and variant (`_graph_nodes`'
+    labels)."""
     from admm_library_torch.core import graph
     out = {}
     for i, (key, entry) in enumerate(graph.CACHE.entries.items()):
         for variant, n in entry.body_nodes.items():
-            if graph.is_check(variant):
-                out[f"{i}:{key[0]} {variant}"] = n
+            if n:
+                out[f"{i}:{key[0]} {_variant_label(variant)}"] = n
     return out
 
 
@@ -979,6 +1095,7 @@ def _check_captured(tag, rec):
     check(rerun["replays"] > 0, f"{tag}: the rerun replayed no check")
     check(min(rec["nodes_per_graph"].values()) > 0,
           f"{tag}: an empty graph")
+    _check_reads(tag, rec)
 
 
 def phase_slice(batch, dev):
@@ -1337,7 +1454,7 @@ def phase_solve(dev):
         sols, graph_rec = _captured_runs(solve, qp, s)
         sol = sols[0]
         fields = _captured_fields(f"solve {name}", sols, graph_rec, solve,
-                                  qp, s, twin=name == "config2")
+                                  qp, s, twin=True)
         launches = fields["launches"]
         inv = solve(qp, s.replace(backend="inv"))
         r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
@@ -1774,7 +1891,6 @@ def phase_banded(dev):
                       graph_rec["graph_first"]["launches"])
     wall2 = graph_rec["graph_rerun"]["wall_s"]
     iters = int(sol.iters)
-    prof = _profiled(solve, qp, s)
     inv = solve(qp, s.replace(backend="inv"))
     r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
     kkt_ms = _kkt_solve_ms(qp, s)
@@ -1794,8 +1910,8 @@ def phase_banded(dev):
                inv_x_max_abs_diff=float((sol.x - inv.x).abs().max()),
                rollout_terminal_err=float(
                    rollout(spec, s0, sol.x)[-1].abs().max()),
-               resolve_backend_auto=picked, kkt_solve_ms=kkt_ms,
-               **_profile_fields(prof, iters, wall2), **graph_rec)
+               resolve_backend_auto=picked, kkt_solve_ms=kkt_ms, **graph_rec,
+               **_capture_off_fields("banded", sol, launches, solve, qp, s))
     emit("banded", **rec)
     check(int(sol.status) == int(Status.SOLVED), "banded: not SOLVED")
     check(r_p <= eps_p and r_d <= eps_d,
@@ -1834,7 +1950,6 @@ def phase_horizon_spike(dev, x_inv):
     wall2 = graph_rec["graph_rerun"]["wall_s"]
     r_p, r_d, _ = kkt_residuals(qp, sol.x, sol.z, sol.y)
     lockstep = int(sol.iters.max())
-    prof = _profiled(solve_batch_shared, qp, s)
     solved = int((sol.status == int(Status.SOLVED)).sum())
     rec = dict(cell="horizon_spike_1024", batch=batch, n=qp.n, m=qp.m,
                spike_parts=10, solved=solved, lockstep_iters=lockstep,
@@ -1845,7 +1960,9 @@ def phase_horizon_spike(dev, x_inv):
                wall_rerun_s=wall2, launches=launches,
                rerun_bitwise_identical=_bitwise(sol, sol2),
                inv_x_max_abs_diff=float((sol.x - x_inv).abs().max()),
-               **_profile_fields(prof, lockstep, wall2), **graph_rec)
+               **graph_rec,
+               **_capture_off_fields("horizon_spike", sol, launches,
+                                     solve_batch_shared, qp, s))
     emit("horizon_spike", **rec)
     check(solved == batch, f"horizon_spike: {batch - solved} lanes not "
           "SOLVED")
@@ -1969,53 +2086,6 @@ def _copies_x_gap(x, ns):
     return float((x[..., 1:, :ns] - x[..., :-1, -ns:]).abs().max())
 
 
-def _profiled(fn, *args):
-    """fn(*args) once under torch.profiler, device activity only: a dict
-    of the kernels launched, the device operations (kernels, copies and
-    memsets), the device busy ms over all of them, and the profiled
-    run's wall-clock. Reads the raw events: building the profiler's event
-    tree for ~80k kernels takes longer than the run. Copies and memsets
-    are told from kernels by the names CUPTI gives them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        fn(*args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = p.profiler.kineto_results.events()
-    ops = [e for e in events
-           if e.device_type() == torch.autograd.DeviceType.CUDA]
-    kernels = sum(not e.name().startswith(("Memcpy", "Memset"))
-                  for e in ops)
-    host = [e.name() for e in events
-            if e.device_type() != torch.autograd.DeviceType.CUDA]
-    launches = [n for n in host if n.startswith(HOST_LAUNCH_CALLS)]
-    check(kernels > 0, "profiler: no kernel activity recorded")
-    check(launches, "profiler: no host launch call recorded")
-    return dict(kernels=kernels, device_ops=len(ops),
-                busy_ms=sum(e.duration_ns() for e in ops) / 1e6,
-                profiled_wall_s=wall, host_launches=len(launches),
-                graph_launches=sum("Graph" in n for n in launches),
-                host_syncs=sum(n.startswith(HOST_SYNC_CALLS) for n in host))
-
-
-def _profile_fields(prof, iters, wall):
-    """The profile's record fields; the idle share is taken against the
-    unprofiled run's wall-clock `wall`."""
-    return dict(kernels_launched=prof["kernels"],
-                kernels_per_iteration=prof["kernels"] / iters,
-                host_launches=prof["host_launches"],
-                host_launches_per_iteration=prof["host_launches"] / iters,
-                graph_launches=prof["graph_launches"],
-                host_syncs=prof["host_syncs"],
-                device_ops=prof["device_ops"],
-                device_busy_ms=prof["busy_ms"],
-                idle_share=1.0 - prof["busy_ms"] / 1e3 / wall,
-                profiled_wall_s=prof["profiled_wall_s"])
-
-
 def _mono_controls(s0s, dev):
     """Controls (K, N, nu) of the monolithic config-2 MPC (N=50, dim 3)
     from each initial state of s0s (K, 6), built in f64 and solved at
@@ -2077,7 +2147,6 @@ def phase_consensus(dev, scale):
     wall, launches = (graph_rec["graph_first"]["wall_s"],
                       graph_rec["graph_first"]["launches"])
     wall2 = graph_rec["graph_rerun"]["wall_s"]
-    prof = _profiled(consensus.consensus_solve, qp, spec, mesh, s)
     iters = int(sol.iters)
     ml, ns = spec.m_local, spec.ns
     f32_phase = cap.first_plain()
@@ -2092,14 +2161,15 @@ def phase_consensus(dev, scale):
                f32_phase_iters=int(f32_phase.iters),
                r_prim=float(sol.r_prim), r_dual=float(sol.r_dual),
                wall_s=wall, wall_rerun_s=wall2,
-               **_profile_fields(prof, iters, wall2),
                mono_reference_s=mono_s, hand_written_launches=launches,
                controls_max_abs_diff_mono=ctrl_diff,
                f32_phase_z_copies_bitwise=_copies_bitwise(f32_phase.z, ml,
                                                           ns),
                x_copies_max_gap=_copies_x_gap(sol.x, ns),
                rerun_bitwise_identical=_bitwise(sol, sol2), **graph_rec,
-               **scale)
+               **_capture_off_fields("consensus", sol, launches,
+                                     consensus.consensus_solve, qp, spec,
+                                     mesh, s), **scale)
     emit("consensus", **rec)
     check(int(sol.status) == int(Status.SOLVED), "consensus: not SOLVED")
     check(abs(iters - CONSENSUS_REFERENCE_ITERS) <= ITER_SLACK,
@@ -2142,7 +2212,6 @@ def phase_consensus_mc(dev, scale):
     wall, launches = (graph_rec["graph_first"]["wall_s"],
                       graph_rec["graph_first"]["launches"])
     wall2 = graph_rec["graph_rerun"]["wall_s"]
-    prof = _profiled(consensus_mc.consensus_solve_mc, qp, spec, mesh, s)
     it = sol.iters.double()
     lockstep = int(it.max())
     solved = int((sol.status == int(Status.SOLVED)).sum())
@@ -2167,7 +2236,6 @@ def phase_consensus_mc(dev, scale):
                r_prim_max=float(sol.r_prim.max()),
                r_dual_max=float(sol.r_dual.max()),
                wall_s=wall, wall_rerun_s=wall2,
-               **_profile_fields(prof, lockstep, wall2),
                mono_reference_s=mono_s, hand_written_launches=launches,
                lanes_held=held,
                controls_max_abs_diff_mono=ctrl_diff,
@@ -2175,7 +2243,9 @@ def phase_consensus_mc(dev, scale):
                                                           ns),
                x_copies_max_gap=_copies_x_gap(sol.x, ns),
                rerun_bitwise_identical=_bitwise(sol, sol2), **graph_rec,
-               **scale)
+               **_capture_off_fields("consensus_mc", sol, launches,
+                                     consensus_mc.consensus_solve_mc, qp,
+                                     spec, mesh, s), **scale)
     emit("consensus_mc", **rec)
     check(solved == batch, f"consensus_mc: {batch - solved} lanes not "
           "SOLVED")
@@ -2419,7 +2489,6 @@ def phase_horizon_sharded(dev, scale):
                           graph_rec["graph_first"]["launches"])
         wall2 = graph_rec["graph_rerun"]["wall_s"]
         lockstep = int(sol.iters.max())
-        prof = _profiled(solve_horizon_sharded, hp, hspec, mesh, s)
         rec = dict(precision=name, batch=batch, parts=hspec.parts,
                    npb=hspec.npb, mp=hspec.mp,
                    solved=int((sol.status == int(Status.SOLVED)).sum()),
@@ -2427,12 +2496,13 @@ def phase_horizon_sharded(dev, scale):
                    iters_lane_min=int(sol.iters.min()),
                    r_prim_max=float(sol.r_prim.max()),
                    r_dual_max=float(sol.r_dual.max()), wall_s=wall,
-                   wall_rerun_s=wall2,
-                   **_profile_fields(prof, lockstep, wall2),
-                   hand_written_launches=launches,
+                   wall_rerun_s=wall2, hand_written_launches=launches,
                    rerun_bitwise_identical=all(
                        torch.equal(getattr(sol, f), getattr(sol2, f))
-                       for f in sol._fields), **graph_rec, **scale)
+                       for f in sol._fields), **graph_rec,
+                   **_capture_off_fields(f"horizon_sharded {name}", sol,
+                                         launches, solve_horizon_sharded,
+                                         hp, hspec, mesh, s), **scale)
         if name == "double":
             ref, ref_wall, _ = _timed_run(
                 solve_batch_shared, qp32.astype(torch.float64),
@@ -2617,30 +2687,25 @@ def _graph_nodes():
             rc = cuda.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()),
                                       None, ctypes.byref(n))
             check(rc == 0, f"graph nodes: cuGraphGetNodes returned {rc}")
-            out[f"{label} {variant}"] = (n.value
-                                         + entry.body_nodes.get(variant, 0))
+            out[f"{label} {_variant_label(variant)}"] = (
+                n.value + entry.body_nodes.get(variant, 0))
     return out
 
 
 def _batch_graph_fields(fn, qp, s, sol, runs):
-    """For a config-5 batch: the host's launch calls of a profiled first
-    run from an empty cache (beside those of the profiled rerun), the
-    graphs that hold kernel 1, and the same solve with every segment
+    """For a config-5 batch: the graphs that hold kernel 1 (at top level
+    or in a conditional body), and the same solve with every segment
     eager (its wall-clock, kernel launches and whether the captured
-    solve is bitwise the same). Leaves the cache warm."""
+    solve is bitwise the same)."""
     import torch
     from admm_library_torch.core import graph
     from admm_library_torch.ops import fused
-    graph.CACHE.clear()
-    first = _profiled(fn, qp, s)
     kernel_graphs = sum(
-        fused.fused_iterate_shared in e.kernels.get(v, ())
+        fused.fused_iterate_shared in (e.kernels.get(v, [])
+                                       + e.body_kernels.get(v, []))
         for e in graph.CACHE.entries.values() for v in e.graphs)
     eager, wall, launches = _capture_off(fn, qp, s)
     return dict(
-        first_host_launches=first["host_launches"],
-        first_graph_launches=first["graph_launches"],
-        first_profiled_wall_s=first["profiled_wall_s"],
         graphs_holding_kernel_1=kernel_graphs,
         eager_wall_s=wall,
         eager_launches=launches["fused_iterate_shared"],
@@ -2653,10 +2718,7 @@ def _batch_graph_fields(fn, qp, s, sol, runs):
 
 def _check_batch_graph(name, rec):
     check(rec["graphs_holding_kernel_1"] > 0,
-          f"graph {name}: no check graph holds kernel 1")
-    check(rec["host_launches"] <= GRAPH_RERUN_HOST_LAUNCHES,
-          f"graph {name}: {rec['host_launches']} host launch calls in a "
-          f"rerun, above {GRAPH_RERUN_HOST_LAUNCHES}")
+          f"graph {name}: no graph holds kernel 1")
     check(rec["captured_is_eager_bitwise"],
           f"graph {name}: the captured solve differs from the eager one")
     check(rec["launches_equal"] and rec["eager_launches"] > 0,
@@ -2732,25 +2794,26 @@ def phase_graph(dev):
         runs = []
         for _ in range(2):
             before = dict(graph.CACHE.stats)
+            passes = graph.CACHE.while_passes()
             sol, wall, launches = _timed_run(fn, qp, s)
             runs.append(dict(wall_s=wall, **launches, **{
-                k: graph.CACHE.stats[k] - before[k] for k in before}))
+                k: graph.CACHE.stats[k] - before[k] for k in before},
+                while_passes=graph.CACHE.while_passes() - passes))
             if len(runs) == 1:
+                first_launches = launches
                 nodes = _graph_nodes()
         iters = int(sol.iters.max())
         bodies = _body_nodes()
-        if any(bodies.values()):
-            # A profile loses the kernels inside conditional bodies: the
-            # device time of a rerun's replays instead.
-            graph.CACHE.replay_events = []
-            _, wall3, _ = _timed_run(fn, qp, s)
-            ms = graph.CACHE.replay_ms()
-            graph.CACHE.replay_events = None
-            device = dict(replay_device_ms=ms,
-                          replay_idle_share=1.0 - ms / 1e3 / wall3)
-        else:
-            device = _profile_fields(_profiled(fn, qp, s), iters,
-                                     runs[1]["wall_s"])
+        # No profile: it loses the kernels inside conditional bodies, the
+        # phases' checks, and a profile of a graph with conditional nodes
+        # faulted with an illegal address. The device time of a rerun's
+        # replays instead.
+        graph.CACHE.replay_events = []
+        _, wall3, _ = _timed_run(fn, qp, s)
+        ms = graph.CACHE.replay_ms()
+        graph.CACHE.replay_events = None
+        device = dict(replay_device_ms=ms,
+                      replay_idle_share=1.0 - ms / 1e3 / wall3)
         rec = dict(path=name, iters=iters,
                    solved=int((sol.status == int(Status.SOLVED)).sum()),
                    entries=len(graph.CACHE.entries),
@@ -2758,6 +2821,9 @@ def phase_graph(dev):
                    nodes_per_graph=nodes, cg_body_nodes=bodies, **device)
         if name in ("b128", "b1024"):
             rec.update(_batch_graph_fields(fn, qp, s, sol, runs))
+        else:
+            rec.update(_capture_off_fields(f"graph {name}", sol,
+                                           first_launches, fn, qp, s))
         emit("graph", **rec)
         check(runs[0]["captures"] > 0 and runs[0]["replays"] > 0,
               f"graph {name}: no check was captured and replayed")
@@ -2770,14 +2836,10 @@ def phase_graph(dev):
         if name in ("b128", "b1024"):
             _check_batch_graph(name, rec)
         out[name] = rec
-    check(out["config4"]["host_launches_per_iteration"]
-          < GRAPH_HOST_LAUNCHES_PER_ITER,
-          f"graph config4: {out['config4']['host_launches_per_iteration']:.2f}"
-          " host launches an iteration")
-    for name, bar in GRAPH_HOST_LAUNCHES.items():
-        check(out[name]["host_launches"] <= bar,
-              f"graph {name}: {out[name]['host_launches']} host launch "
-              f"calls a solve, above {bar}")
+    for name, bar in GRAPH_RERUN_LAUNCHES.items():
+        check(out[name]["rerun"]["replays"] <= bar,
+              f"graph {name}: {out[name]['rerun']['replays']} graph "
+              f"launches a rerun, above {bar}")
 
     # A replayed check is the eager check, from the same state.
     entry = lt.reference_continuation_entry(dev)
@@ -2907,7 +2969,8 @@ def main():
         "library_ms": lt_case["library_ms"],
         "at": "config 4, B=1, n=2000, m=2206, k=25; library: torch.matmul "
               "products only (cuBLAS, one CUDA graph); launches: eager "
-              "launches and replays of the check graphs that hold it"}, {
+              "launches and passes of the phases' bodies that launch it "
+              "(counted on the card)"}, {
         "name": "pallas_cg_solve", "route": "cuda",
         "source": "admm_library_torch/csrc/pallas_cg.cu",
         "replaces": "admm_library_tpu/ops/pallas_cg.py:82",
@@ -2923,8 +2986,9 @@ def main():
         "library_ms": cw_case["library_ms"],
         "at": "config 3, B=1, n=60, 200 steps, f32; library: "
               "torch.cholesky_solve on a precomputed factor; launches: "
-              "replays of the check graphs that hold it (eager_launches: "
-              "the same solve with every segment eager)"}]}))
+              "passes of the phases' bodies that launch it, counted on "
+              "the card (eager_launches: the same solve with every "
+              "segment eager)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,11 +39,13 @@ and the summary holds max |x_tree - x_parent| and whether the statuses
 and iterations are equal. Prints one JSON line per (side, turn, path),
 one summary line per path (medians over every turn, the tree's median
 rerun over the parent's), then the card's nvidia-smi name and power
-limit. Each record also holds the host's reads of each rerun counted
-in Python (`host_reads`: item, tolist, bool, float and int on CUDA
-tensors), which needs no profiler and so covers the paths whose
-kernels the profiler cannot hold. Needs a CUDA card; no JAX. `_scratch/` is git-ignored, and
-copied to the card with the rest of the checkout.
+limit. Each record also holds the passes of the phases' WHILE nodes
+where the side counts them (`while_passes`, since the phase loop runs
+on the card) and the host's reads of each rerun counted in Python
+(`host_reads`: item, tolist, bool, float and int on CUDA tensors),
+which needs no profiler and so covers the paths whose kernels the
+profiler cannot hold. Needs a CUDA card; no JAX. `_scratch/` is
+git-ignored, and copied to the card with the rest of the checkout.
 """
 import argparse
 import json
@@ -224,19 +226,23 @@ class _HostReads:
 
 
 def _timed(fn, *args):
-    """(fn(*args), seconds, the check cache's counters it added and the
-    host's reads)."""
+    """(fn(*args), seconds, the check cache's counters it added (replays
+    are graph launches), the host's reads and, where the side's cache
+    counts them, the passes of its phases' WHILE nodes)."""
     import torch
     from admm_library_torch.core import graph
+    passes = getattr(graph.CACHE, "while_passes", lambda: 0)
     before = dict(graph.CACHE.stats)
     torch.cuda.synchronize()
+    passes0 = passes()
     with _HostReads() as reads:
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
-    return out, secs, dict(stats, host_reads=reads.count)
+    return out, secs, dict(stats, host_reads=reads.count,
+                           while_passes=passes() - passes0)
 
 
 def _profiled(fn, *args):
@@ -395,6 +401,9 @@ def main():
                             if "host_syncs" in r],
                 host_reads=sorted({n for r in recs
                                    for n in r["host_reads"]}),
+                graph_launches_per_rerun=sorted({
+                    r["graph_reruns"]["replays"] / len(r["rerun_s"])
+                    for r in recs if r["rerun_s"]}),
                 replay_device_ms=[r["replay_device_ms"] for r in recs
                                   if "replay_device_ms" in r],
                 replay_idle_share=[r["replay_idle_share"] for r in recs

@@ -966,9 +966,21 @@ def _eager_and_captured(monkeypatch, fn, *args):
         eager = fn(*args)
     graph.CACHE.clear()
     before = dict(graph.CACHE.stats)
+    passes = graph.CACHE.while_passes()
     captured = fn(*args)
     stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
+    stats["while_passes"] = graph.CACHE.while_passes() - passes
     return eager, captured, stats
+
+
+def _assert_checks_in_phases(stats):
+    """The captured run's checks ran inside phase graphs: a phase in the
+    cache, captured and launched, its WHILE node passed."""
+    from admm_library_torch.core import graph
+    phases = [v for e in graph.CACHE.entries.values() for v in e.graphs
+              if isinstance(v, graph.Phase)]
+    assert phases and stats["while_passes"] > 0
+    assert stats["captures"] >= len(phases) and stats["replays"] >= 1
 
 
 def _small_l1_soc(dev, dtype=torch.float64):
@@ -1005,22 +1017,23 @@ def test_captured_loop_is_the_eager_loop_through_refactors(
     ("run_admm_batch_shared", "pallas_cg", 13)])
 def test_captured_cg_loop_is_the_eager_loop(loop, backend, cg_max_iter, dev,
                                             monkeypatch):
-    """The same on the CG backends: on 'cg' each check one replay, its
-    CGs conditional nodes (a WHILE node of 8-step blocks, and an IF node
-    of 5 steps at cg_max_iter 13), on 'pallas_cg' kernel 2 a node of
-    each check graph, counted at each replay as often as the eager loop
-    launches it."""
+    """The same on the CG backends: on 'cg' the checks inside the phase's
+    WHILE node, their CGs conditional nodes nested in it (a WHILE node of
+    8-step blocks, and an IF node of 5 steps at cg_max_iter 13), on
+    'pallas_cg' kernel 2 a node of each check body, counted on the card
+    at each pass as often as the eager loop launches it."""
     from admm_library_torch.core import graph
     from admm_library_torch.ops import pallas_cg as pcg
     counts = _captured_loop_is_eager(loop, backend, dev, monkeypatch,
                                      cg_max_iter=cg_max_iter)
     if backend == "pallas_cg":
+        # Every launch of the captured run came from the phase's bodies,
+        # counted on the card.
         assert counts[0] > 0 and counts[0] == counts[1]
-        assert any(pcg.pallas_cg_solve in e.kernels.get(v, ())
-                   for e in graph.CACHE.entries.values() for v in e.graphs)
+        assert pcg.pallas_cg_solve.host == 0
     else:
         bodies = [e.body_nodes[v] for e in graph.CACHE.entries.values()
-                  for v in e.graphs if graph.is_check(v)]
+                  for v in e.graphs if isinstance(v, graph.Phase)]
         assert bodies and min(bodies) > 0
 
 
@@ -1121,7 +1134,7 @@ def _captured_loop_is_eager(loop, backend, dev, monkeypatch, **kw):
         else:
             assert a == b, f
     assert not torch.all(captured.rho_bar == s.rho)      # refactored
-    assert stats["captures"] >= 2 and stats["replays"] > stats["captures"]
+    _assert_checks_in_phases(stats)
     return counts
 
 
@@ -1253,10 +1266,10 @@ def test_first_meeting_capture_is_the_eager_segment(dev, monkeypatch):
 
 
 def test_launch_counter_counts_replays(dev, monkeypatch):
-    """Kernel 1's count is the number of times it ran: inside a graph
-    one per replay, not one per capture. The captured b128 solve and
-    its rerun count what the eager solve counts, and the rerun's all
-    come from replays."""
+    """Kernel 1's count is the number of times it ran: inside a phase's
+    body one per pass, counted on the card, not one per capture. The
+    captured b128 solve and its rerun count what the eager solve counts,
+    and the rerun's all come from the card's counter."""
     from admm_library_torch.core import graph
     qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128), device=dev)[
         0].astype(torch.float64)
@@ -1275,9 +1288,9 @@ def test_launch_counter_counts_replays(dev, monkeypatch):
         counts.append(fused.fused_iterate_shared.launches)
     assert counts[0] > 0 and counts == [counts[0]] * 3
     assert graph.CACHE.stats["captures"] == before["captures"]
-    held = sum(len(e.kernels.get(v, ())) for e in graph.CACHE.entries.values()
-               for v in e.graphs)
-    assert held > 0
+    # The rerun's launches all came from the phases' bodies, counted on
+    # the card.
+    assert fused.fused_iterate_shared.host == 0
 
 
 def test_an_added_entry_outlives_the_replays_of_earlier_graphs(dev):
@@ -1439,7 +1452,7 @@ def test_captured_partitioned_solve_is_the_eager_solve(name, dev,
         assert torch.equal(getattr(eager, f), getattr(captured, f)), f
     settings = args[-1]
     assert float(captured.rho) != settings.rho          # refactored
-    assert stats["captures"] >= 2 and stats["replays"] > stats["captures"]
+    _assert_checks_in_phases(stats)
 
 
 # ---- the row-sharded loop's segments as captured graphs ----
@@ -1504,7 +1517,7 @@ def test_captured_rowsharded_solve_is_the_eager_solve(name, dev,
         assert int(captured.status) == int(Status.SOLVED)
     else:
         assert int(captured.iters) > 60                 # rounds ran
-    assert stats["captures"] >= 4 and stats["replays"] > stats["captures"]
+    _assert_checks_in_phases(stats)
     before = dict(graph.CACHE.stats)
     again = fn(*args)
     for f in fields:
@@ -1519,7 +1532,9 @@ def test_captured_rowsharded_solve_is_the_eager_solve(name, dev,
 
 def _recorded_segments(monkeypatch, fn, *args):
     """fn(*args) with (kind, step, variant, a clone of the state before
-    it) of every segment any CheckLoop runs. Returns the records."""
+    it) of every segment any CheckLoop runs, every loop plain (a captured
+    phase runs its checks and refactors inside its graph). Returns the
+    records."""
     from admm_library_torch.core import graph
     runs = []
     real = graph.CheckLoop.__call__
@@ -1530,6 +1545,7 @@ def _recorded_segments(monkeypatch, fn, *args):
         return real(loop, variant)
     with monkeypatch.context() as m:
         m.setattr(graph.CheckLoop, "__call__", call)
+        m.setattr(graph, "capturable", lambda *a, **k: False)
         fn(*args)
     return runs
 
@@ -1746,7 +1762,7 @@ def _cond_probe():
             if seg["address"] <= ptr < seg["address"] + seg["total_size"]:
                 return tuple(seg["segment_pool_id"])
         return None
-    assert pool_of(ptrs["body"][-1]) == tuple(entry.body_pool_id)
+    assert pool_of(ptrs["body"][-1]) == tuple(entry.body_pool_ids[1])
     assert pool_of(ptrs["after"][-1]) == tuple(entry.pool)
     print("ok")
 
@@ -1831,3 +1847,97 @@ def test_cg_solve_in_a_capture_is_the_plain_cg(dev):
             got = loop.state["x"].clone()
             assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
         assert cache.stats["captures"] == 1 and cache.stats["replays"] == 2
+
+
+# ---- the phase loop: checks inside a WHILE node, nested nodes ----
+
+def _nested_step(state, variant):
+    """A toy check whose body holds a WHILE node of its own (m counts to
+    it % 3 + 1 in unit blocks), fingerprints its variant into 'acc' and
+    stops at 'stop'; its rho-test variant asks for a refactor on even
+    counts, which folds the count into 'r'."""
+    from admm_library_torch.core import graph
+    if variant == graph.REFACTOR:
+        return dict(r=state["r"] * 3 + state["it"])
+    restart, rho_test = variant
+    it = state["it"]
+    inner = graph.while_blocks(
+        dict(m=torch.zeros_like(it)), lambda c: c["m"] < it % 3 + 1,
+        lambda c, steps: dict(m=c["m"] + steps), [1] * 4)
+    acc = state["acc"] * 7 + 2 * int(restart) + int(rho_test) + inner["m"]
+    it = it + 1
+    return dict(acc=acc, it=it, flags=torch.stack(
+        [it < state["stop"], rho_test & (it % 2 == 0)]))
+
+
+@pytest.mark.parametrize("stop,max_iter", [(5, 20), (9, 20), (30, 13),
+                                           (1, 20), (7, 7)])
+def test_nested_phase_nodes_are_the_plain_loop(stop, max_iter, dev):
+    """A phase three deep on the card (its WHILE node, an IF node a check
+    variant, the check's own WHILE node; the refactor an IF node),
+    bitwise the same loop run plain on the card, whatever the stop and
+    the bound; the second loop of the key replays the first's graph."""
+    from admm_library_torch.core import graph
+    s = Settings(check_every=1, max_iter=max_iter, adaptive_rho_interval=2)
+    cache = graph.CheckCache()
+    got = []
+    for capture in (False, True, True):
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        state = dict(it=zero, acc=zero.clone(), r=zero.clone(),
+                     stop=torch.tensor(stop, device=dev),
+                     flags=torch.ones(2, dtype=torch.bool, device=dev))
+        loop = graph.CheckLoop("nested", _nested_step, state, None, "cg",
+                               capture=capture, cache=cache)
+        loop.run_checks(s, 3)
+        got.append([int(loop.state[k]) for k in ("it", "acc", "r")])
+    assert got[1] == got[0] and got[2] == got[0]
+    assert got[0][0] == min(stop, max_iter)
+    assert cache.stats["captures"] == 1 and cache.stats["replays"] == 2
+    entry, = cache.entries.values()
+    (phase, nodes), = entry.body_nodes.items()
+    assert isinstance(phase, graph.Phase) and nodes > 0
+    assert len(phase.reachable) == (4 if max_iter >= 6 else 3)
+
+
+def test_kernel_1_in_an_if_body_is_the_eager_launch(dev):
+    """Kernel 1, a cooperative launch, inside an IF node: each replay
+    with the flag set is bitwise the eager launch, with it clear leaves
+    the iterates, and the launches are counted on the card, one a pass
+    that ran."""
+    from admm_library_torch.core import graph
+    qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(0),
+                                  batch=8, N=10, dim=2, device=dev)
+    qps, _ = ruiz_equilibrate(qp, 10)
+    s = Settings()
+    rho = admm.rho_vec_of(torch.tensor(s.rho, device=dev),
+                          admm.is_equality_row_shared(qps), s)
+    fac = kkt.factor_condensed(qps.P, qps.A, s.sigma, rho, "inv")
+    x, z, y = (torch.zeros((8, w), device=dev)
+               for w in (qps.n, qps.m, qps.m))
+    args = (qps.A, fac["Minv"], fac["M"], qps.q, rho, qps.lam, qps.l,
+            qps.u)
+    kw = dict(cone=qps.cone, sigma=s.sigma, alpha=s.alpha, k=5)
+    want = fused.fused_iterate_shared(*args, x, z, y, **kw)
+
+    def step(state, variant):
+        return graph.while_blocks(
+            dict(x=state["x"], z=state["z"], y=state["y"]),
+            lambda c: state["go"], lambda c, steps: dict(zip(
+                "xzy", fused.fused_iterate_shared(*args, c["x"], c["z"],
+                                                  c["y"], **kw))), [1])
+
+    cache = graph.CheckCache()
+    loop = graph.CheckLoop("kernel1_if", step, dict(
+        x=x, z=z, y=y, go=torch.ones((), dtype=torch.bool, device=dev)),
+        None, "inv", cache=cache)
+    loop((False, False))                 # the warm-up, eager
+    fused.fused_iterate_shared.launches = 0
+    for flag in (True, False, True):
+        loop.set(dict(x=x, z=z, y=y, go=torch.tensor(flag, device=dev)))
+        loop((False, False))
+        for key, w, v in zip("xzy", want, (x, z, y)):
+            assert torch.equal(loop.state[key], w if flag else v), (flag,
+                                                                    key)
+    assert fused.fused_iterate_shared.launches == 2
+    assert fused.fused_iterate_shared.host == 0
+    assert cache.stats["captures"] == 1 and cache.stats["replays"] == 3

@@ -157,24 +157,52 @@ class TraceNodes:
         block()
 
 
+def node_kind(block):
+    """What a conditional node's body is: 'cg' (a block of
+    `graph.while_blocks`), 'phase' (the WHILE body of `graph.phase_nodes`)
+    or 'segment' (a check variant's or the refactor's IF body there)."""
+    fn = getattr(block, "func", block)
+    name = fn.__qualname__
+    if name.startswith("while_blocks"):
+        return "cg"
+    if name.startswith("phase_nodes") and block is not fn:
+        return "segment"
+    return "phase"
+
+
 class HostNodes:
     """A stand-in for the node builder of a capture that runs each node
     as the card would, reading its flag on the host: the body while the
-    flag holds, at most `count` passes. `graph.while_blocks`' captured
-    form (the carry copied, each block written into it in place) then
-    runs on the CPU. Counts the nodes and the passes of their bodies."""
+    flag holds, at most `count` passes. `graph.while_blocks`' and
+    `graph.phase_nodes`' captured forms (the state written in place) then
+    run on the CPU. Counts the nodes and the passes of their bodies,
+    with each node's kind (`node_kind`), the passes of the CGs' bodies
+    and the segments whose IF bodies ran."""
 
     def __init__(self):
         self.nodes = []
+        self.kinds = []
         self.passes = 0
+        self.cg_passes = 0
+        self.segments = []
 
     def node(self, live, count, block):
+        kind = node_kind(block)
         self.nodes.append(count)
+        self.kinds.append(kind)
         for _ in range(count):
             if not bool(live):
                 break
             block()
             self.passes += 1
+            if kind == "cg":
+                self.cg_passes += 1
+            elif kind == "segment":
+                self.segments.append(block.args[0])
+
+    def cg_nodes(self):
+        """The counts of the CGs' nodes, in the order they were built."""
+        return [c for c, k in zip(self.nodes, self.kinds) if k == "cg"]
 
 
 def install_nodes(monkeypatch, builder):
@@ -293,6 +321,10 @@ def test_fake_mode_catches_a_host_read(read, monkeypatch):
 def _equal(a, b):
     if isinstance(a, dict):
         return sorted(a) == sorted(b) and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor) and isinstance(b, int):
+        # An iteration count the host loop kept as an int, now the
+        # device's counter.
+        return a.dim() == 0 and not a.is_floating_point() and int(a) == b
     if isinstance(a, torch.Tensor):
         return a.dtype == b.dtype and torch.equal(a, b)
     return a == b

@@ -281,11 +281,12 @@ def test_buffered_solve_is_the_frozen_solve(case, monkeypatch):
     for p, old in zip((qp, other, qp), want + want[:1]):
         _assert_bitwise(fn(p, s), old)
     assert len(cache.entries) >= 1 and cache.stats["replays"] > 0
-    met = {v for _, _, v, _ in rec.runs}
+    # The checks and refactors ran inside the phases' nodes.
+    met = {v for _, _, v, _ in rec.runs} | set(nodes.segments)
     assert admm.REFACTOR in met
     assert any(graph.is_check(v) and v[0] for v in met)     # a restart
     # On 'cg' the checks' CGs ran as conditional nodes.
-    assert (nodes.passes > 0) == (s.backend == "cg")
+    assert (nodes.cg_passes > 0) == (s.backend == "cg")
     assert lead == qp.P.shape[:-2]
 
 

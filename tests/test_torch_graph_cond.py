@@ -243,8 +243,9 @@ def test_solves_with_cg_nodes_are_the_frozen_solves(case, monkeypatch):
     # Each CG: a WHILE node of one 8-step block and an IF node of 5
     # steps (13), or an IF node of 3 steps.
     per_cg = [c for _, c in graph._runs(kkt.cg_blocks(s.cg_max_iter))]
-    assert nodes.nodes == per_cg * (len(nodes.nodes) // len(per_cg))
-    assert nodes.nodes and nodes.passes > 0
+    cg = nodes.cg_nodes()
+    assert cg == per_cg * (len(cg) // len(per_cg))
+    assert cg and nodes.cg_passes > 0
 
 
 # ---------------------------------------------------------------- (d)
@@ -294,7 +295,7 @@ def test_consensus_on_cg_nodes_is_the_eager_solve(driver, precision,
     _buffered(monkeypatch)
     nodes = install_nodes(monkeypatch, HostNodes())
     _assert_bitwise(fn(qp, spec, mesh, s), want)
-    assert {"run_" + driver} <= set(kinds) and nodes.passes > 0
+    assert {"run_" + driver} <= set(kinds) and nodes.cg_passes > 0
     assert float(want.rho.max()) != s.rho                  # rho moved
 
 
@@ -381,5 +382,6 @@ def test_rowshard_cgs_are_nodes_of_its_check(max_iter, monkeypatch):
     nodes = install_nodes(monkeypatch, HostNodes())
     _assert_bitwise(rowshard.solve_rowsharded(qp, _mesh(), s), want)
     per_cg = [c for _, c in graph._runs(kkt.cg_blocks(max_iter))]
-    assert nodes.nodes == per_cg * (len(nodes.nodes) // max(len(per_cg), 1))
-    assert (len(nodes.nodes) > 0) == (max_iter > 0)
+    cg = nodes.cg_nodes()
+    assert cg == per_cg * (len(cg) // max(len(per_cg), 1))
+    assert (len(cg) > 0) == (max_iter > 0)

@@ -19,6 +19,14 @@ package's, whose work between host reads is segments, bitwise to them.
 Every loop here iterates through `_ref_iterate_block`, whose 'cg' solve
 is the frozen one-loop `_ref_cg_solve` (tests/test_torch_graph_cg.py
 holds the package's 'cg' segments to it).
+
+`HOST_LOOPS` holds the six loops over checks as they ran on the host
+before `graph.CheckLoop.run_checks` (a host counter, the variant picked
+on the host, one read of the flags a check; the partitioned drivers'
+refactor rebuilt on the host and written with `loop.set`), by loop
+kind: tests/test_torch_phase_loop.py runs the package's drivers with
+these in place of `run_checks` and holds the helper's plain and node
+forms bitwise to them.
 """
 import dataclasses
 import math
@@ -44,6 +52,7 @@ from admm_library_torch.parallel.consensus import (
 from admm_library_torch.parallel.horizon import (
     HorizonParts, HorizonSpec, _neighbor_next, _neighbor_prev,
     _spike_factor_sharded, _spike_reduce_factor, _spike_solve_sharded)
+from admm_library_torch.parallel.horizon import _rho_vec as _horizon_rho_vec
 from admm_library_torch.parallel.rowshard import (
     RowShardSolution, uniform_row_permutation)
 from admm_library_torch.parallel.runtime import DATA_AXIS, Mesh
@@ -1938,3 +1947,150 @@ def _ref_solve_batch(qp_batch: QPData, settings: Settings = Settings(),
     if y0 is None:
         y0 = torch.zeros_like(z0)
     return _ref_solve_core(qp_batch, x0, z0, y0, settings, backend)
+
+
+# ---- The loops over checks as host loops (before run_checks), by the
+# kind of the loop they drive: `loop` is the driver's graph.CheckLoop,
+# every segment one call of it. ----
+
+def _host_phase_loop(loop, settings: Settings, restart_checks: int):
+    """core.admm.run_phase's loop."""
+    k = settings.check_every
+    it = 0
+    alive = True
+    while alive and it < settings.max_iter:
+        loop(admm.check_variant(it // k, settings, restart_checks))
+        it += k
+        alive, do = loop.state["flags"].tolist()
+        if do:
+            loop(admm.REFACTOR)
+
+
+def _host_batch_loop(loop, settings: Settings, restart_checks: int):
+    """parallel.batch._run_batch's loop (its mesh in the step, which a
+    fused loop wraps with its pre)."""
+    step = getattr(loop.step, "step", loop.step)
+    mesh = step.keywords["mesh"]
+    k = settings.check_every
+    it = 0
+    alive = True
+    while alive and it < settings.max_iter:
+        loop(admm.check_variant(it // k, settings, restart_checks))
+        it += k
+        alive, do = _agreed(loop.state["flags"], mesh)
+        if do:
+            loop(admm.REFACTOR)
+
+
+def _host_rho(loop):
+    """The consensus drivers' `_Rho`, rebuilt from the loop's state and
+    the step's static arguments."""
+    kw = loop.step.keywords
+    state = loop.state
+    qp = QPData(**state["qp"], cone=kw["spec"].cone)
+    return _Rho(qp, kw["spec"], kw["settings"], kw["backend"],
+                state["box_eq"])
+
+
+def _host_consensus_loop(loop, settings: Settings, restart_checks: int):
+    """parallel.consensus.run_consensus's loop: 'done' in flags[0], the
+    refactor on the host."""
+    mesh = loop.step.keywords["mesh"]
+    k = settings.check_every
+    it = 0
+    done = False
+    while not done and it < settings.max_iter:
+        loop(admm.check_variant(it // k, settings, restart_checks))
+        it += k
+        done, do = (bool(f) for f in
+                    runtime.agree(loop.state["flags"], mesh).tolist())
+        if do:
+            rho_bar = loop.state["new_rho"]
+            loop.set(dict(rho_bar=rho_bar, fac=_host_rho(loop).refresh(
+                loop.state["fac"], rho_bar)))
+
+
+def _host_consensus_mc_loop(loop, settings: Settings, restart_checks: int):
+    """parallel.consensus_mc.run_consensus_mc's loop: the refactor on the
+    host."""
+    mesh = loop.step.keywords["mesh"]
+    k = settings.check_every
+    it = 0
+    alive = True
+    while alive and it < settings.max_iter:
+        loop(admm.check_variant(it // k, settings, restart_checks))
+        it += k
+        alive, do = (bool(f) for f in
+                     runtime.agree(loop.state["flags"], mesh).tolist())
+        if do:
+            rho_bar = loop.state["new_rho"]
+            loop.set(dict(rho_bar=rho_bar, fac=_host_rho(loop).refresh(
+                loop.state["fac"], rho_bar)))
+
+
+def _host_horizon_factor(loop, rb):
+    """parallel.horizon._run_horizon's factor of rho-bar `rb` as the
+    driver built it on the host, from the loop's state."""
+    kw = loop.step.keywords
+    spec, settings, mesh = kw["spec"], kw["settings"], kw["mesh"]
+    state = loop.state
+    hp = HorizonParts(**state["hp"])
+    loc = Local(mesh=mesh, block_ids=state["block_ids"], n_blocks=spec.parts)
+    dtype, dev = hp.q.dtype, hp.q.device
+    S = hp.q.shape[0]
+    ni, b, npb = spec.ni, spec.b, spec.npb
+    is_first, is_last = loc.is_first, loc.is_last
+    rv = _horizon_rho_vec(rb, state["eq"], state["soc_rows"], settings,
+                          spec.cone)
+    Mpp = (hp.A_loc.mT @ (rv[..., None] * hp.A_loc)
+           + settings.sigma * torch.eye(npb, dtype=dtype, device=dev)
+           + torch.diag_embed(hp.P_diag))
+    corner = _neighbor_next(
+        (hp.A_halo.mT @ (rv[..., None] * hp.A_halo)).reshape(S, b * b),
+        loc).reshape(S, b, b)
+    Mpp[:, ni:, ni:] += torch.where(is_last[:, :, None], 0.0, corner)
+    E = (hp.A_loc.mT @ (rv[..., None] * hp.A_halo))[:, :b, :]
+    E = torch.where(is_first[:, :, None], 0.0, E)
+    fac = _spike_factor_sharded(Mpp, E, spec, loc)
+    return {**fac, **_spike_reduce_factor(fac, loc)}
+
+
+def _host_horizon_loop(loop, settings: Settings, restart_checks: int):
+    """parallel.horizon._run_horizon's loop: no restart, the refactor on
+    the host."""
+    mesh = loop.step.keywords["mesh"]
+    k = settings.check_every
+    it = 0
+    alive = True
+    while alive and it < settings.max_iter:
+        loop(admm.check_variant(it // k, settings, 0))
+        it += k
+        alive, do = (bool(f) for f in
+                     runtime.agree(loop.state["flags"], mesh).tolist())
+        if do:
+            rho_bar = loop.state["new_rho"]
+            loop.set(dict(rho_bar=rho_bar,
+                          fac=_host_horizon_factor(loop, rho_bar)))
+
+
+def _host_rowshard_loop(loop, settings: Settings, restart_checks: int):
+    """parallel.rowshard.solve_rowsharded's loop: 'done' in flags[0], no
+    refactor (rho adapts inside the check)."""
+    mesh = loop.step.keywords["mesh"]
+    k = settings.check_every
+    it = 0
+    done = False
+    while not done and it < settings.max_iter:
+        loop(("check",) + admm.check_variant(it // k, settings,
+                                             restart_checks))
+        it += k
+        done = bool(runtime.agree(loop.state["flags"], mesh))
+
+
+HOST_LOOPS = {
+    "run_admm": _host_phase_loop, "run_admm_lanes": _host_phase_loop,
+    "run_admm_batch_shared": _host_batch_loop,
+    "run_consensus": _host_consensus_loop,
+    "run_consensus_mc": _host_consensus_mc_loop,
+    "run_horizon": _host_horizon_loop,
+    "solve_rowsharded": _host_rowshard_loop}
