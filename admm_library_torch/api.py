@@ -19,16 +19,17 @@ hybrid; no polish, no re-centred rounds) over a leading lane axis in one
 lockstep loop (core.admm.run_phase).
 
 Every stage runs on the problem's device; the f64 stages use the
-device's native f64. The programs that the JAX package compiles run as
-segments of `core.graph.CheckLoop`s, on the card one CUDA graph replay
-each: a phase (`_solve_one_phase`: cast, Ruiz scaling, factor; the
-checks and refactors, one graph whose WHILE node runs them; unscale;
-the second phase of `_solve_core` also takes the first's iterates and
-joins the two), the staged path's rounds (`rounds_step`), `polish` and
-the warm-start check. The host reads the device only where the JAX
-package does (`# host sync` there): the branches of
-`_recentered_rounds`, `_f64_continuation`, `_solve_staged` and
-`solve`, never between checks.
+device's native f64. The programs that the JAX package compiles run on
+`core.graph`: `_solve_core` (the counterpart of `_solve_jit`) and the
+shared pass (`_solve_shared_jit`) are each one `graph.program`, on the
+card one graph launch with no host read; a phase alone
+(`_solve_one_phase`: cast, Ruiz scaling, factor; the checks and
+refactors, one graph whose WHILE node runs them; unscale), the staged
+path's rounds (`rounds_step`), `polish` and the warm-start check are
+`core.graph.CheckLoop`s, one CUDA graph replay a segment. The host
+reads the device only where the JAX package does (`# host sync`
+there): the branches of `_recentered_rounds`, `_f64_continuation`,
+`_solve_staged` and `solve`, never between checks.
 """
 from __future__ import annotations
 
@@ -129,26 +130,54 @@ def _finish(sol: Solution, sol32: Solution, out_dtype) -> Solution:
         out_dtype))
 
 
+def _core_program(inputs, *, cone, settings: Settings,
+                  backend: str) -> dict:
+    """The driver of `_solve_core`'s program: the solve by precision
+    strategy from its inputs ('raw' problem, warm start 'x0', 'z0',
+    'y0'); returns the Solution's leaves. The phases pass their iterates
+    on the device."""
+    f32, f64 = torch.float32, torch.float64
+    qp = QPData(**inputs["raw"], cone=cone)
+    x0, z0, y0 = inputs["x0"], inputs["z0"], inputs["y0"]
+    if settings.precision == "single":
+        sol = _solve_one_phase(qp, x0, z0, y0, settings, backend)
+    elif settings.precision == "double":
+        sol = _solve_one_phase(qp, x0, z0, y0, settings, backend,
+                               dtype=f64)
+    else:
+        sol32 = _solve_one_phase(qp, x0, z0, y0, _s32_of(settings), backend,
+                                 dtype=f32)
+        sol = _solve_one_phase(
+            qp, sol32.x, sol32.z, sol32.y,
+            settings.replace(precision="single", warm_start=True), backend,
+            dtype=f64, p1=sol32)
+    return sol.leaves()
+
+
 def _solve_core(qp: QPData, x0, z0, y0, settings: Settings,
                 backend: str) -> Solution:
     """One problem, or a lockstep batch of independent ones (every leaf
     with a leading lane axis), by precision strategy: 'single' in qp's
     dtype, 'double' in f64, 'hybrid' as an f32 phase to hybrid_eps and
     a warm-started f64 phase to the target, the counterpart of the JAX
-    package's `_solve_jit`. The phases pass their iterates on the
-    device: no host read between them."""
-    f32, f64 = torch.float32, torch.float64
-    if settings.precision == "single":
-        return _solve_one_phase(qp, x0, z0, y0, settings, backend)
-    if settings.precision == "double":
-        return _solve_one_phase(qp, x0, z0, y0, settings, backend,
-                                dtype=f64)
-    sol32 = _solve_one_phase(qp, x0, z0, y0, _s32_of(settings), backend,
-                             dtype=f32)
-    return _solve_one_phase(
-        qp, sol32.x, sol32.z, sol32.y,
-        settings.replace(precision="single", warm_start=True), backend,
-        dtype=f64, p1=sol32)
+    package's `_solve_jit`: one `graph.program` (`_core_program`), on
+    the card one graph launch with no host read."""
+    return Solution(**graph.program(
+        "solve_core",
+        functools.partial(_core_program, cone=qp.cone, settings=settings,
+                          backend=backend),
+        dict(raw=qp_leaves(qp), x0=x0, z0=z0, y0=y0), backend,
+        **_program_key(settings, qp.cone)))
+
+
+def _program_key(settings: Settings, cone) -> dict:
+    """The static part of `_solve_core`'s program key (`graph.program`):
+    every field of the caller's settings and of each settings the solve
+    derives (the f32 phase's, the f64 phase's), and the cone."""
+    derived = (settings, _s32_of(settings),
+               settings.replace(precision="single", warm_start=True))
+    return dict(cone=cone, derived=tuple(dataclasses.astuple(s)
+                                         for s in derived))
 
 
 # The segments of `_recentered_rounds`' loop.

@@ -17,8 +17,8 @@ checks; outside a capture it is the plain host loop, one small flag
 tensor read after each check.
 
 A check is `step(state, variant) -> updates`: `state` is a dict of
-tensors (one level of nested dicts allowed: the problem data, the
-scaling, the KKT factor), `updates` the entries the check changes, and
+tensors (nested dicts at any depth: the problem data, the scaling, the
+KKT factor), `updates` the entries the check changes, and
 `variant` the check's static part, the restart boundary and the rho
 test (`(restart, rho_test)`, `variant_at`), which selects one of up to
 four bodies. A variant may also name another segment:
@@ -26,15 +26,32 @@ four bodies. A variant may also name another segment:
 (cast, scaling, factor and starting carry from the raw data), their
 checks, ("refactor",) segments and an ("epilogue",) (the unscale and
 the objective), and the drivers above them (the shared batch's
-re-centred rounds, `api`'s staged rounds) their own round segments,
-with host reads between segments; `api`'s polish and warm-start check
-are loops of one segment each. A segment may add entries to the
-state: its updates hold new keys, which get buffers of their own,
-allocated outside every graph's pool (a segment that adds entries is
-captured twice); a check or refactor inside a phase may add none. A
-loop's static arguments enter the key as plain hashable values (a mesh
-by its shape and coordinates, never by identity). A step makes no host
-read and keeps no host counter: what it counts lives in the state.
+re-centred rounds, `api`'s staged rounds) their own round segments;
+`api`'s polish and warm-start check are loops of one segment each. A
+segment may add entries to the state: its updates hold new keys, which
+get buffers of their own, allocated outside every graph's pool (a
+segment that adds entries is captured twice); a check or refactor
+inside a phase may add none. A loop's static arguments enter the key as
+plain hashable values (a mesh by its shape and coordinates, never by
+identity). A step makes no host read and keeps no host counter: what it
+counts lives in the state.
+
+A whole solve, the counterpart of one compiled program of the JAX
+package (`_solve_shared_jit`, `_solve_jit`), is a `program`: a driver
+function whose loops (each a `CheckLoop`, each phase's checks and the
+segments around them) and whose host branches (`cond`, the reference's
+`lax.cond`; `repeat`, a `lax.while_loop` over rounds) make one entry
+of the cache. Plain, the driver runs as written: its loops are plain
+loops and each branch reads its flag on the host. Captured, every loop
+keeps its state in the entry, under a name of its own, and the whole
+driver is one graph: each phase a WHILE node, each `cond` an IF node,
+each `repeat` a WHILE node, nested as the driver nests them (at most
+`NODE_DEPTH` deep), so a rerun is one graph launch and no host read.
+The entry's first run is the driver run eagerly into the entry's
+buffers (the warm-up: every loop's state made, every library call it
+takes made once outside a capture; a branch that run does not take
+makes its loops' entries without running their checks), then the
+driver is captured for the next run.
 
 A loop inside a step whose trip count the data decides, the matrix-free
 CGs' (ops/kkt.cg_solve, parallel/rowshard's), goes through
@@ -91,9 +108,10 @@ import torch
 # conditional nodes (`while_blocks`).
 CAPTURED_BACKENDS = ("inv", "chol", "banded", "spike", "pallas_cg", "cg",
                      "rowshard_cg")
-# The deepest nesting of conditional nodes: a phase's WHILE node, a
-# check variant's IF node, a CG's WHILE node.
-NODE_DEPTH = 3
+# The deepest nesting of conditional nodes: a program's WHILE node over
+# rounds (or its IF node on a fallback), a phase's WHILE node, a check
+# variant's IF node, a CG's WHILE node.
+NODE_DEPTH = 4
 # The pass budget of a phase's WHILE node: never the bound that stops
 # it (the state's 'max_iter' is).
 PHASE_PASSES = 2 ** 31 - 1
@@ -257,13 +275,25 @@ def _write_in_place(buffers, updates, path=()):
         dst = buffers.get(key)
         if dst is None:
             raise RuntimeError(
-                f"a segment inside a phase's nodes added the state entry "
+                f"a segment inside a capture's nodes added the state entry "
                 f"{'/'.join(path + (key,))}; every entry must exist "
-                "before the phase is captured")
+                "before the phase or program is captured")
         if isinstance(value, dict):
             _write_in_place(dst, value, path + (key,))
         elif value is not dst:
             dst.copy_(value)
+
+
+def _write_missing(buffers, updates):
+    """The entries of `updates` that `buffers` lacks, cloned in; every
+    existing entry is left as it is (a program's warm-up making the
+    entries of a branch its run did not take)."""
+    for key, value in updates.items():
+        dst = buffers.get(key)
+        if isinstance(value, dict):
+            _write_missing(buffers.setdefault(key, {}), value)
+        elif dst is None:
+            buffers[key] = value.clone()
 
 
 def phase_nodes(runner, step, state, phase: Phase) -> None:
@@ -443,6 +473,167 @@ def while_blocks(carry: dict, live_fn, body, blocks):
     return carry
 
 
+# The program under way (a `_Program`), else None.
+_program = None
+# The one variant of a program's entry.
+PROGRAM = ("program",)
+
+
+class _Program:
+    """A program's driver run over its entry (`program`): where its
+    loops keep their state (`entry.loops`, by a name that the driver's
+    structure fixes: the loop's place among the loops of its branch
+    body, and the body's among the branches above it) and how its
+    segments, phases and branches run (`mode`): 'warm', eagerly into the
+    entry's buffers, each branch read on the host; 'make', only the
+    entries a branch the warm run did not take would add, its phases
+    running no check; 'nodes', every write in place and every branch a
+    conditional node (inside a capture)."""
+
+    def __init__(self, entry, mode: str):
+        self.entry = entry
+        self.mode = mode
+        self.scope = ()
+        self.counts = {}
+
+    def name(self, what: str) -> tuple:
+        i = self.counts.get(what, 0)
+        self.counts[what] = i + 1
+        return self.scope + (f"{what}{i}",)
+
+    def loop_state(self, kind: str) -> dict:
+        """The state of the next loop of the driver, a dict of the
+        entry's `loops` (empty the first time)."""
+        name = "/".join(self.name("loop")) + ":" + kind
+        return self.entry.loops.setdefault(name, {})
+
+    def write(self, buffers, updates) -> None:
+        if self.mode == "nodes":
+            _write_in_place(buffers, updates)
+        elif self.mode == "make":
+            _write_missing(buffers, updates)
+        else:
+            _write(buffers, updates)
+
+    def body(self, name, block):
+        """`block()` as the body of the branch `name`: the loops it
+        builds are named inside it, the same at every pass."""
+        outer = self.scope, self.counts
+        self.scope, self.counts = name, {}
+        try:
+            block()
+        finally:
+            self.scope, self.counts = outer
+
+    @contextlib.contextmanager
+    def making(self):
+        outer, self.mode = self.mode, "make"
+        try:
+            yield
+        finally:
+            self.mode = outer
+
+    def runner(self):
+        runner = _node_runner()
+        if runner is None:
+            raise RuntimeError("a program's branch as a conditional node "
+                               "outside a capture")
+        return runner
+
+
+def cond(pred, body, read) -> None:
+    """The counterpart of `lax.cond` in a driver: `body()` where `pred`
+    (a tensor of one element) holds. Plain (no program, or a program's
+    warm-up), `read(pred)` is the host's read of the flag (agreed over a
+    mesh where the caller's `read` does that); inside a captured program
+    it is an IF node, its body captured whether or not a run takes it.
+    A warm-up that does not take the branch makes its entries."""
+    prog = _program
+    if prog is None:
+        if read(pred):
+            body()
+        return
+    name = prog.name("node")
+    run = functools.partial(prog.body, name, body)
+    if prog.mode == "nodes":
+        prog.runner().node(pred.reshape(()).to(torch.bool, copy=True), 1,
+                           run)
+    elif prog.mode == "warm" and read(pred):
+        run()
+    else:
+        with prog.making():
+            run()
+
+
+def repeat(count: int, body, pred, read) -> None:
+    """The counterpart of a `lax.while_loop` over rounds in a driver:
+    `body()` at most `count` times, the first pass always, each later
+    one while `pred()` (a tensor of one element, read after the pass
+    before) holds. Plain, `read(pred())` is the host's read before each
+    later pass; inside a captured program it is one WHILE node of budget
+    `count` whose body, captured once, is one pass."""
+    prog = _program
+    if prog is None:
+        for r in range(count):
+            body()
+            if r + 1 < count and not read(pred()):
+                break
+        return
+    if count <= 0:
+        return
+    name = prog.name("node")
+    if prog.mode != "nodes":
+        for r in range(count):
+            prog.body(name, body)
+            if (prog.mode == "make" or r + 1 == count
+                    or not read(pred())):
+                break
+        return
+    live = torch.ones((), dtype=torch.bool, device=prog.entry.device)
+
+    def one_pass():
+        body()
+        live.copy_(pred().reshape(()))
+    prog.runner().node(live, count, functools.partial(prog.body, name,
+                                                      one_pass))
+
+
+def _drive(entry, driver, mode: str):
+    """`driver(entry.buffers)` as a `_Program` over `entry` in `mode`;
+    returns the driver's outputs."""
+    global _program
+    outer = _program
+    _program = _Program(entry, mode)
+    try:
+        return driver(entry.buffers)
+    finally:
+        _program = outer
+
+
+def program(kind: str, driver, inputs: dict, backend: str, mesh=None,
+            **static) -> dict:
+    """A whole solve, `driver(inputs) -> outputs` (dicts of tensors), the
+    counterpart of one compiled program of the JAX package (module
+    docstring). Where `capturable` allows, it is one entry of `CACHE`,
+    keyed by `kind`, `backend`, the inputs' paths, shapes, dtypes and
+    devices and `static`, which must hold every value the driver reads
+    besides its inputs (its settings, whole): the first run is the
+    driver eagerly into the entry (its warm-up) and captured after it,
+    each later run a copy of the inputs into the entry, one graph launch
+    and a copy of the outputs out. Elsewhere (the CPU, a mesh axis of
+    size > 1) it is `driver(inputs)`, the plain host form. A program
+    inside a program is its driver, its loops the outer one's. A capture
+    or a node that fails raises."""
+    dev = next(t for _, t in _leaves(inputs)).device
+    if _program is not None or not capturable(dev, backend, mesh, kind):
+        return driver(inputs)
+    if dev.type == "cuda":
+        CACHE.prepare_nodes(dev)
+    entry = CACHE.entry(check_key(kind, backend, None, inputs, **static),
+                        None, inputs)
+    return _map(torch.clone, entry.run_program(PROGRAM, driver))
+
+
 # The conditional-node library (csrc/graph_cond.cu), loaded by `nodes`.
 _cond = None
 
@@ -469,6 +660,28 @@ def nodes():
         _cond_check(lib, lib.admm_cond_init(), "loading its kernels")
         _cond = lib
     return _cond
+
+
+# libcuda, for `_upload` (loaded at its first call).
+_libcuda = None
+
+
+def _upload(graph, device) -> None:
+    """The graph's executable uploaded to the card on the current stream
+    (cuGraphUpload), so that its first launch does not pay the upload:
+    a program's first replay comes in a later call than its capture,
+    and a graph of ~10^4-10^5 nodes takes milliseconds to upload."""
+    global _libcuda
+    if _libcuda is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuGraphUpload.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.cuGraphUpload.restype = ctypes.c_int
+        _libcuda = lib
+    rc = _libcuda.cuGraphUpload(
+        ctypes.c_void_p(graph.raw_cuda_graph_exec()),
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphUpload returned {rc}")
 
 
 def _cond_check(lib, rc, what):
@@ -561,11 +774,15 @@ def check_key(kind: str, backend: str, settings, state, **static):
 
 
 class _Entry:
-    """Static buffers of one key and its captured variants."""
+    """Static buffers of one key and its captured variants; for a
+    program, the state of each of its loops (`loops`) and the outputs of
+    its graph (`outputs`)."""
 
     def __init__(self, step, state, cache):
         self.step = step
         self.buffers = _map(torch.clone, state)
+        self.loops = {}
+        self.outputs = {}
         self.device = next(t for _, t in _leaves(state)).device
         self.cache = cache
         self.pool = None
@@ -641,13 +858,7 @@ class _Entry:
                 # graph.
                 warm = (variant._replace(checks=1)
                         if isinstance(variant, Phase) else variant)
-                cur = torch.cuda.current_stream(self.device)
-                stream.wait_stream(cur)
-                with torch.cuda.stream(stream):
-                    self.write(self.step(self.buffers, warm))
-                cur.wait_stream(stream)
-                self.warm = True
-                self.cache.stats["eager_checks"] += 1
+                self._warm(lambda: self.write(self.step(self.buffers, warm)))
                 self._capture(variant, stream)
                 if not isinstance(variant, Phase):
                     return
@@ -655,13 +866,49 @@ class _Entry:
                 self._capture(variant, stream)
         self._replay(variant)
 
-    def _capture(self, variant, stream):
+    def run_program(self, variant, driver):
+        """One run of the program `driver` (`program`): its outputs. The
+        first run is the driver eagerly into the entry's buffers on the
+        capture stream (the warm-up; its outputs are this run's), then
+        the driver is captured; later runs replay the graph."""
+        if variant not in self.graphs:
+            stream = self.cache.stream(self.device)
+            out = None
+            if not self.warm:
+                out = self._warm(lambda: _drive(self, driver, "warm"))
+
+            def body(grown):
+                self.outputs[variant] = _drive(self, driver, "nodes")
+            self._capture(variant, stream, body)
+            if out is not None:
+                return out
+        self._replay(variant)
+        return self.outputs[variant]
+
+    def _warm(self, fn):
+        """fn() eagerly on the capture stream, the entry's warm-up."""
+        stream = self.cache.stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = fn()
+        cur.wait_stream(stream)
+        self.warm = True
+        self.cache.stats["eager_checks"] += 1
+        return out
+
+    def _capture(self, variant, stream, body=None):
         # A segment that adds state entries is captured twice: the first
         # capture lists them, their buffers are then allocated outside
         # the graph's pool, and the second capture writes into them. A
         # buffer allocated inside a capture would take pool blocks that
         # an earlier capture's scratch freed, and that graph's replays
-        # would overwrite it.
+        # would overwrite it. A program's entries all exist before its
+        # capture (its warm-up made them): it adds none.
+        if body is None:
+            def body(grown):
+                _write(self.buffers, self.step(self.buffers, variant),
+                       grown)
         stats = self.cache.stats
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -674,7 +921,7 @@ class _Entry:
         gc.disable()
         try:
             grown = []
-            graph, cap = self._capture_once(variant, stream, grown)
+            graph, cap = self._capture_once(body, stream, grown)
             if grown:
                 for buffers, key, value in grown:
                     buffers[key] = torch.empty_like(value)
@@ -682,7 +929,7 @@ class _Entry:
                 # second capture.
                 del graph, value
                 grown.clear()
-                graph, cap = self._capture_once(variant, stream, grown)
+                graph, cap = self._capture_once(body, stream, grown)
                 if grown:
                     raise RuntimeError(f"segment {variant} added state "
                                        "entries at its second capture")
@@ -691,6 +938,7 @@ class _Entry:
                 gc.enable()
         if self.cache.keep_graphs:
             graph.instantiate()
+        _upload(graph, self.device)
         stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
         stats["captures"] += 1
         self.graphs[variant] = graph
@@ -698,7 +946,7 @@ class _Entry:
         self.body_kernels[variant] = cap.body_launched
         self.body_nodes[variant] = cap.body_nodes
 
-    def _capture_once(self, variant, stream, grown):
+    def _capture_once(self, body, stream, grown):
         global _capture
         graph = torch.cuda.CUDAGraph(keep_graph=self.cache.keep_graphs)
         # capture_begin/end rather than torch.cuda.graph, which would
@@ -709,8 +957,7 @@ class _Entry:
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=self.pool)
             try:
-                _write(self.buffers, self.step(self.buffers, variant),
-                       grown)
+                body(grown)
             finally:
                 _capture = None
                 graph.capture_end()
@@ -820,19 +1067,28 @@ class CheckLoop:
     `capture=None` follows `capturable`; `capture=True` for a loop that
     `capturable` refuses raises ValueError. `static` holds the step's
     hashable arguments for the key. `run_checks` runs the loop's checks.
+    A loop built inside a captured `program`'s driver is part of the
+    program: its state lives in the program's entry, and its segments
+    and checks run as the program runs (`_Program`).
     """
 
     def __init__(self, kind, step, state, settings, backend, mesh=None,
                  pre=None, capture=None, cache=None, **static):
         dev = next(t for _, t in _leaves(state)).device
+        self.kind = kind
+        self.device = dev
+        self.step = step if pre is None else _PreStep(pre, step)
+        self._prog = _program
+        if self._prog is not None:
+            self.capture = False
+            self.state = self._prog.loop_state(kind)
+            self._prog.write(self.state, state)
+            return
         allowed = capturable(dev, backend, mesh, kind)
         if capture and not allowed:
             raise ValueError(f"a check on {dev} with backend {backend!r} "
                              "and this mesh is not captured")
-        self.kind = kind
-        self.device = dev
         self.capture = allowed if capture is None else capture
-        self.step = step if pre is None else _PreStep(pre, step)
         if self.capture:
             cache = CACHE if cache is None else cache
             if dev.type == "cuda":
@@ -847,7 +1103,9 @@ class CheckLoop:
     def __call__(self, variant) -> None:
         """Run one segment; after a check the caller may read
         state['flags']."""
-        if self.capture:
+        if self._prog is not None:
+            self._prog.write(self.state, self.step(self.state, variant))
+        elif self.capture:
             self._entry.run(variant)
         else:
             self.state.update(self.step(self.state, variant))
@@ -879,6 +1137,9 @@ class CheckLoop:
              for c in range(min(n_checks, period))}))
         phase = Phase("phase", tuple(tag), k, restart_checks, interval,
                       reachable, refactor, done)
+        if self._prog is not None:
+            self._program_checks(phase, settings.max_iter, n_checks, agree)
+            return
         if not self.capture:
             def read():
                 flags = self.state["flags"]
@@ -895,18 +1156,40 @@ class CheckLoop:
                       if isinstance(v, Phase) and v.covers(phase)), phase)
         self(phase)
 
+    def _program_checks(self, phase: Phase, max_iter: int, n_checks: int,
+                        agree):
+        """The checks of a program's loop: the plain loop in its warm-up
+        (none where it makes a branch's entries), the phase's nodes in its
+        capture; the bound 'max_iter' in the state (the program's key
+        holds it)."""
+        prog = self._prog
+        prog.write(self.state, dict(max_iter=torch.full(
+            (), max_iter, dtype=torch.int64, device=self.device)))
+        if prog.mode == "nodes":
+            if n_checks:
+                phase_nodes(prog.runner(), self.step, self.state, phase)
+        elif prog.mode == "warm":
+            def read():
+                flags = self.state["flags"]
+                return (flags if agree is None else agree(flags)).tolist()
+            plain_checks(self, read, phase, max_iter)
+
     def set(self, updates):
         """Host-side updates between segments: copied into the static
         buffers (a new key gets buffers of their own), or rebound in the
-        plain dict."""
-        if self.capture:
+        plain dict; in a program, written as its segments are."""
+        if self._prog is not None:
+            self._prog.write(self.state, updates)
+        elif self.capture:
             self._entry.write(updates)
         else:
             self.state.update(updates)
 
     def result(self, *keys):
         """The entries `keys` of the state, owned by the caller: clones
-        of the static buffers, which the next loop of the key reuses."""
+        of the static buffers, which the next loop of the key reuses (a
+        program's loop gives its entry's tensors: the program copies its
+        outputs out)."""
         out = [self.state[k] for k in keys]
         if self.capture:
             out = [_map(torch.clone, v) if isinstance(v, dict) else v.clone()

@@ -12,19 +12,21 @@ keep honest per-lane iteration counts. On f32 'inv' batches each
 The solve runs as a loop over residual checks
 (`graph.CheckLoop.run_checks`): the restart boundary and the
 adaptive-rho cadence follow from the lockstep count. Each part is a
-segment of the loop (core/graph.py), on the card one CUDA graph replay:
-the prologue (cast, Ruiz scaling, warm start, factor, starting carry),
-the phase (one WHILE node over the checks, each check with its
-iterations, the fused kernel's launch a node of its body, and each
-refactor an IF node after it: no host read between checks), and the
-epilogue (the best iterate, the unscale, the objective). Outside a
-capture (the CPU, a mesh axis of size > 1) the checks run as the plain
-host loop, which reads one small tensor a check (loop liveness and the
-refactor flag). The hybrid driver's work between phases (the rounds'
-set-up and safeguard, the f64 true residuals) is a loop of its own in
-the same way, with one host read before each later
-round and one before the f64 fallback: the whole solve replays from
-graphs, as the JAX package runs it as one compiled program.
+segment of the loop (core/graph.py): the prologue (cast, Ruiz scaling,
+warm start, factor, starting carry), the phase (the checks, each with
+its iterations, the fused kernel's launch inside the check, and each
+refactor after the check that asks for it) and the epilogue (the best
+iterate, the unscale, the objective). The hybrid driver's work between
+phases (the rounds' set-up and safeguard, the f64 true residuals) is a
+loop of its own in the same way, and its branches (a later round, the
+f64 fallback) are `graph.repeat` and `graph.cond`. The whole solve is
+one `graph.program`, as the JAX package runs it as one compiled
+program: on the card one graph launch, each phase a WHILE node, the
+rounds a WHILE node and the fallback an IF node, no host read. Outside
+a capture (the CPU, a mesh axis of size > 1) it runs as the plain host
+loop, which reads one small tensor a check (loop liveness and the
+refactor flag), one before each later round and one before the f64
+fallback.
 
 Data parallelism: `shard_batch` gives each rank of a `make_data_mesh`
 its slice of the lanes, and `solve_batch_shared(..., mesh=)` runs the
@@ -38,6 +40,7 @@ the identity, so the result is bitwise the solve without a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -545,8 +548,9 @@ def _true_ratio(qp64, settings, x, y, z):
 
 
 # The segments of the re-centred driver.
-START, SAFEGUARD, FINAL, JOIN = ("start",), ("safeguard",), ("final",), \
-    ("join",)
+START, CARRY, SETUP, SAFEGUARD, FINAL, JOIN = (
+    ("start",), ("carry",), ("setup",), ("safeguard",), ("final",),
+    ("join",))
 
 
 def recentered_step(state, variant, *, cone, settings: Settings,
@@ -558,9 +562,9 @@ def recentered_step(state, variant, *, cone, settings: Settings,
     fallback's solution 'f64'; 'flags' holds one flag for the host's
     next branch, 'out' the solve's result.
 
-    START: phase 1's Ruiz scaling of the f32 data. ("setup", first): a
-    round's data shifted around the carry (with `first`, the carry
-    taken from phase 1 first). SAFEGUARD: accept a lane's round only
+    START: phase 1's Ruiz scaling of the f32 data. CARRY: the rounds'
+    carry from phase 1. SETUP: a round's data shifted around the carry.
+    SAFEGUARD: accept a lane's round only
     where it improves the true residual ratio; flag: a lane is neither
     SOLVED in the round nor frozen. FINAL: the true residuals and
     status in f64, the result without fallback; flag: a lane is neither
@@ -571,21 +575,18 @@ def recentered_step(state, variant, *, cone, settings: Settings,
     if variant == START:
         _, scaling1 = _ruiz(qp.astype(f32), settings, mesh)
         return dict(sc=dict(d=scaling1.d, e=scaling1.e, c=scaling1.c))
+    if variant == CARRY:
+        p1 = state["p1"]
+        return dict(carry=dict(
+            x=clean64(p1["x"]), y=clean64(p1["y"]), z=clean64(p1["z"]),
+            iters=p1["iters"], rho=p1["rho"],
+            frozen=torch.zeros(p1["x"].shape[0], dtype=torch.bool,
+                               device=p1["x"].device)))
     qp64 = qp.astype(f64)
     d = qp.dtype
-    if variant[0] == "setup":
-        if variant[1]:
-            p1 = state["p1"]
-            carry = dict(x=clean64(p1["x"]), y=clean64(p1["y"]),
-                         z=clean64(p1["z"]), iters=p1["iters"],
-                         rho=p1["rho"],
-                         frozen=torch.zeros(p1["x"].shape[0],
-                                            dtype=torch.bool,
-                                            device=p1["x"].device))
-        else:
-            carry = state["carry"]
-        return dict(carry=carry, **_round_setup(qp, qp64, carry, settings))
     carry = state["carry"]
+    if variant == SETUP:
+        return _round_setup(qp, qp64, carry, settings)
     x_t, y_t, z_t = carry["x"], carry["y"], carry["z"]
     if variant == SAFEGUARD:
         solc = state["solc"]
@@ -687,6 +688,35 @@ def _round_setup(qp: QPData, qp64: QPData, carry, settings: Settings):
     return out
 
 
+def _round_settings(settings: Settings) -> Settings:
+    """The re-centred rounds' settings: phase 1's, with absolute eps at
+    the target tolerance and the SOC rows' rho boost back."""
+    return _s32_of_shared(settings).replace(
+        eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
+        rho_soc_scale=settings.rho_soc_scale)
+
+
+def _f64_settings(settings: Settings) -> Settings:
+    """The f64 fallback's settings: a warm-started, capped last-digit
+    refiner that exits on a plateau whatever the caller's stall_checks."""
+    return settings.replace(precision="single", warm_start=True,
+                            recenter_rounds=0,
+                            stall_checks=max(settings.stall_checks, 16),
+                            max_iter=min(settings.max_iter, _F64_MAX_ITER))
+
+
+def _program_key(settings: Settings, cone) -> dict:
+    """The static part of a solve's program key (`graph.program`): every
+    field of the caller's settings and of each settings the solve
+    derives (phase 1's, the rounds', the fallback's, the two-phase
+    f64 phase's), and the cone."""
+    derived = (settings, _s32_of_shared(settings), _round_settings(settings),
+               _f64_settings(settings),
+               settings.replace(precision="single", warm_start=True))
+    return dict(cone=cone, derived=tuple(dataclasses.astuple(s)
+                                         for s in derived))
+
+
 def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
                              backend: str, mesh=None) -> Solution:
     """Hybrid precision via f32 re-centring (all cone types).
@@ -700,16 +730,16 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     warm-started f64 phase runs only for lanes the rounds left unsolved.
 
     The work between the phases runs as the segments of one loop of its
-    own (`recentered_step`), so on the card each is a graph replay. Its
-    host branches (skip the later rounds, skip the f64 phase) read one
-    flag each, agreed over the mesh.
+    own (`recentered_step`). Its branches are the reference's: the
+    rounds after the first run while a lane is neither solved in its
+    round nor frozen (`graph.repeat`), the f64 phase where a lane is
+    unsolved and feasible (`graph.cond`); plain, each reads one flag,
+    agreed over the mesh.
     """
     f32, f64 = torch.float32, torch.float64
     cone = qp.cone
     s1 = _s32_of_shared(settings)
-    # Correction rounds: absolute eps at the target tolerance.
-    s_c = s1.replace(eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
-                     rho_soc_scale=settings.rho_soc_scale)
+    s_c = _round_settings(settings)
     step = functools.partial(recentered_step, cone=cone, settings=settings,
                              mesh=mesh)
     drv = graph.CheckLoop(
@@ -724,13 +754,10 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     drv.set(dict(p1=dict(x=sol.x, y=sol.y, z=sol.z, status=sol.status,
                          iters=sol.iters, rho=sol.rho,
                          history=sol.history)))
-    for r in range(max(settings.recenter_rounds, 0)):
-        # Later rounds are skipped once every lane met the round
-        # criterion or froze: a round costs a factorisation and
-        # check_every iterations even when it converges at once.
-        if r > 0 and not _agreed(drv.state["flags"], mesh)[0]:
-            break
-        drv(("setup", r == 0))
+    drv(CARRY)
+
+    def round_():
+        drv(SETUP)
         rnd = drv.state["rnd"]
         solc = _phase(QPData(**{f: rnd[f] for f in admm.QP_FIELDS}, cone=cone),
                       rnd["x0"], rnd["z0"], rnd["y0"], s_c, backend,
@@ -740,54 +767,81 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
                                status=solc.status, iters=solc.iters,
                                rho=solc.rho)))
         drv(SAFEGUARD)
-    drv(FINAL)
-    if _agreed(drv.state["flags"], mesh)[0]:
+
+    def fallback():
         # f64 fallback for targets below the f32 dual floor: a
         # warm-started, capped last-digit refiner (native f64 on the
-        # device) that exits on a plateau whatever the caller's
-        # stall_checks.
-        s64 = settings.replace(precision="single", warm_start=True,
-                               recenter_rounds=0,
-                               stall_checks=max(settings.stall_checks, 16),
-                               max_iter=min(settings.max_iter,
-                                            _F64_MAX_ITER))
+        # device).
         c = drv.state["carry"]
-        sol64 = _phase(qp, c["x"], c["z"], c["y"], s64, backend, mesh=mesh,
-                       dtype=f64)
+        sol64 = _phase(qp, c["x"], c["z"], c["y"], _f64_settings(settings),
+                       backend, mesh=mesh, dtype=f64)
         drv.set(dict(f64=sol64.leaves()))
         drv(JOIN)
+
+    def agreed(flags):
+        return _agreed(flags, mesh)[0]
+
+    # Later rounds are skipped once every lane met the round criterion
+    # or froze: a round costs a factorisation and check_every iterations
+    # even when it converges at once.
+    graph.repeat(max(settings.recenter_rounds, 0), round_,
+                 lambda: drv.state["flags"], agreed)
+    drv(FINAL)
+    graph.cond(drv.state["flags"], fallback, agreed)
     out, = drv.result("out")
     return Solution(**out)
 
 
+def _shared_program(inputs, *, cone, settings: Settings, backend: str,
+                    mesh) -> dict:
+    """The driver of `_solve_shared_core`'s program: the solve by
+    precision strategy from its inputs ('raw' problem, warm start 'x0',
+    'z0', 'y0'); returns the Solution's leaves."""
+    qp = QPData(**inputs["raw"], cone=cone)
+    x0, z0, y0 = inputs["x0"], inputs["z0"], inputs["y0"]
+    precision = settings.precision
+    f32, f64 = torch.float32, torch.float64
+    if precision == "single":
+        sol = _phase(qp, x0, z0, y0, settings, backend, mesh=mesh)
+    elif precision == "double":
+        sol = _phase(qp, x0, z0, y0, settings, backend, mesh=mesh,
+                     dtype=f64)
+    elif settings.recenter_rounds > 0:
+        sol = _solve_shared_recentered(qp, x0, z0, y0, settings, backend,
+                                       mesh)
+    else:
+        # recenter_rounds=0: the classic f32 -> f64 two-phase.
+        sol32 = _phase(qp, x0, z0, y0, _s32_of_shared(settings), backend,
+                       mesh=mesh, dtype=f32)
+        sol64 = _phase(qp, clean64(sol32.x), clean64(sol32.z),
+                       clean64(sol32.y),
+                       settings.replace(precision="single", warm_start=True),
+                       backend, mesh=mesh, dtype=f64)
+        p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)
+        d = qp.dtype
+        sol = Solution(
+            x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
+            status=torch.where(p1_inf, sol32.status, sol64.status),
+            iters=sol32.iters + sol64.iters,
+            r_prim=sol64.r_prim.to(d), r_dual=sol64.r_dual.to(d),
+            obj=sol64.obj.to(d), rho=sol64.rho.to(d),
+            history=sol64.history)
+    return sol.leaves()
+
+
 def _solve_shared_core(qp, x0, z0, y0, settings: Settings,
                        backend: str, mesh=None) -> Solution:
-    precision = settings.precision
-    if precision == "single":
-        return _phase(qp, x0, z0, y0, settings, backend, mesh=mesh)
-    f64 = torch.float64
-    if precision == "double":
-        return _phase(qp, x0, z0, y0, settings, backend, mesh=mesh,
-                      dtype=f64)
-    if settings.recenter_rounds > 0:
-        return _solve_shared_recentered(qp, x0, z0, y0, settings, backend,
-                                        mesh)
-    # recenter_rounds=0: the classic f32 -> f64 two-phase.
-    f32 = torch.float32
-    sol32 = _phase(qp, x0, z0, y0, _s32_of_shared(settings), backend,
-                   mesh=mesh, dtype=f32)
-    sol64 = _phase(qp, clean64(sol32.x), clean64(sol32.z),
-                   clean64(sol32.y),
-                   settings.replace(precision="single", warm_start=True),
-                   backend, mesh=mesh, dtype=f64)
-    p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)
-    d = qp.dtype
-    return Solution(
-        x=sol64.x.to(d), z=sol64.z.to(d), y=sol64.y.to(d),
-        status=torch.where(p1_inf, sol32.status, sol64.status),
-        iters=sol32.iters + sol64.iters,
-        r_prim=sol64.r_prim.to(d), r_dual=sol64.r_dual.to(d),
-        obj=sol64.obj.to(d), rho=sol64.rho.to(d), history=sol64.history)
+    """The shared-batch solve as one `graph.program` (`_shared_program`),
+    the counterpart of the JAX package's `_solve_shared_jit`: on the card
+    one graph launch with no host read, elsewhere the plain host
+    driver."""
+    cone = qp.cone
+    return Solution(**graph.program(
+        "solve_batch_shared",
+        functools.partial(_shared_program, cone=cone, settings=settings,
+                          backend=backend, mesh=mesh),
+        dict(raw=admm.qp_leaves(qp), x0=x0, z0=z0, y0=y0), backend,
+        mesh=mesh, **_program_key(settings, cone)))
 
 
 def solve_batch_shared(qp: QPData, settings: Settings = Settings(),

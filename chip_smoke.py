@@ -53,14 +53,17 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                m=456): SOLVED, f64 KKT residuals within the 1e-6 mixed
                criterion, 100 ± 25 and 750 ± 25 iterations, the kernel
                launched inside the captured check graphs, a rerun
-               bitwise identical that captures nothing, config 2 bitwise
-               the same solve with every segment eager;
+               bitwise identical that captures nothing and is one graph
+               launch with no host read (the shared pass at B=1, one
+               program), each bitwise the same solve with every segment
+               eager;
 7. slice_pcg — the config-5 batch at 128 with backend='pallas_cg': every
                lane SOLVED, f64 KKT <= 1e-6, 350 ± 25 lockstep
                iterations, the kernel launched inside the captured
                check graphs, x within 5e-4 of the 'inv' path, a rerun
-               bitwise identical that captures nothing, bitwise the
-               same solve with every segment eager;
+               bitwise identical that captures nothing, one graph launch
+               and no host read, bitwise the same solve with every
+               segment eager;
 8. solve_l1_soc — solve on config 3 (the CW min-fuel LP of the
                reference bench, seed 0, n=60, m=66; the staged path) with
                'auto' (= 'inv') and with 'pallas_cg', and on config 4
@@ -107,7 +110,9 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
                'inv' solve, a rerun bitwise identical that captures
                nothing, every path bitwise the same solve with every
                segment eager; the host's reads of a rerun at most
-               PHASE_READS, none per check; wall-clock, graph nodes (the
+               PHASE_READS, none per check, and on every path but config
+               3 (the staged path) one graph launch and no host read;
+               wall-clock, graph nodes (the
                conditional bodies' too) and capture ms, the segments of
                a rerun and the device time of its replays (CUDA events;
                no profiled run: a profile loses the kernels inside
@@ -141,7 +146,8 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 
 15. data_axis — config 5 at 1024 through the data axis at one rank:
                shard_batch on make_data_mesh(1), solve_batch_shared(...,
-               mesh=): bitwise phase 4's solve, the kernel launched;
+               mesh=): bitwise phase 4's solve, the kernel launched, a
+               rerun one graph launch with no host read;
 16. rowshard — the reference's rowshard_qp4096 cell (n=4096, m=8192, f32
                data, eps 1e-6) on the port's own seeded draw, through
                solve_rowsharded_hybrid on a 1-rank data mesh, its loop
@@ -169,19 +175,24 @@ PyTorch built for CUDA (no JAX needed). Phases, one JSON line each:
 18. checkpoint — phase 4's b128 solution saved (utils/checkpoint), loaded
                back onto the card and resumed: SOLVED within one check;
 19. graph    — the captured phases (core/graph.py) on configs 3 and 4,
-               the config-5 batch at 128 and 1024, solve_batch, config 1
-               at 'single' and 'double', config 3 on 'pallas_cg' and
-               config 1 on 'cg', each from an empty cache and on a
-               rerun: captures, graph launches (a phase one), WHILE
-               passes, warm-ups, capture ms, device operations per graph
-               (the conditional bodies' beside) and the device time of a
-               rerun's replays (no profile: a profile of a graph with
-               conditional nodes faulted with an illegal address); a
-               rerun captures and warms nothing and launches at most
-               GRAPH_RERUN_LAUNCHES graphs (configs 3, 4, b128, b1024);
-               every path bitwise the same solve with every segment
-               eager, each kernel launched as often; for the batch the
-               graphs that hold kernel 1 (in the phases' bodies). A
+               the config-5 batch at 128 and 1024 and at 128 with a 1e-9
+               target (FALLBACK_EPS: the f64 fallback's IF node taken,
+               its phase's iterations read from its loop's state),
+               solve_batch, config 1 at 'single' and 'double', config 3
+               on 'pallas_cg' and config 1 on 'cg', each from an empty
+               cache and on a rerun: captures, graph launches, host
+               reads, WHILE passes, warm-ups, capture ms, device
+               operations per graph (the conditional bodies' beside) and
+               the device time of a rerun's replays (no profile: a
+               profile of a graph with conditional nodes faulted with an
+               illegal address); a rerun captures and warms nothing,
+               each program call of it (PROGRAM_CALLS: solve_batch_shared
+               and api._solve_core) one graph launch with no host read,
+               and launches at most GRAPH_RERUN_LAUNCHES graphs (configs
+               3 and 4); every path bitwise the same solve with every
+               segment eager, each kernel launched as often; for the
+               batches the graphs that hold kernel 1 (in the phases'
+               bodies). A
                replayed check bitwise the eager check from the same
                state, every variant, for an f64 chunk of config 4, a
                b128 re-centred round, consensus_mc_1024's f32 phase and
@@ -191,6 +202,11 @@ Every solve above runs each phase as one captured graph where the
 capture rule admits its backend ('inv', 'chol', 'banded', 'spike',
 'pallas_cg', 'cg', and the row-sharded CG) and mesh (none, or 1 rank):
 a WHILE node over its checks, the host reading nothing between them.
+A whole solve_batch_shared or api._solve_core (solve_batch, solve at
+'single' and 'double', and the shared pass of a box-only or SOC solve)
+is one program, one graph launch with no host read: its rounds a
+WHILE node, its f64 fallback an IF node, each phase a WHILE node
+inside; its first run is its eager warm-up, then its capture.
 Every captured path is held bitwise to the same solve with every
 segment eager, each kernel launched as often. A kernel's launches count
 the times it ran: one per eager launch, one per replay of a graph that
@@ -298,16 +314,26 @@ F64_ERR_FLOOR = 1e-8
 # 700 W): f32 and f64 outside the tensor cores, and HBM3.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # Graph launches of a rerun with every phase one graph (its checks and
-# refactors inside a WHILE node), counted by the cache (`replays`, a
-# phase's graph one launch): config 3 (the staged path: the f32 phase's
-# prologue, phase and epilogue, a polish; measured 4), config 4 (the B=1
-# shared pass, 7 continuation chunks of three launches, their polishes;
-# measured 47) and the config-5 batch (phase 1, the rounds and the
-# driver's segments; measured 10). The host's launch calls are not
-# counted: a profile of a graph with conditional nodes faulted with an
-# illegal address on the card.
-GRAPH_RERUN_LAUNCHES = {"config3": 8, "config4": 60, "b128": 12,
-                        "b1024": 12}
+# refactors inside a WHILE node) and every whole solve one program,
+# counted by the cache (`replays`, a graph one launch): config 3 (the
+# staged path: the f32 phase's prologue, phase and epilogue, a polish;
+# measured 4) and config 4 (the B=1 shared pass one program, 7
+# continuation chunks of three launches, their polishes; measured 29).
+# The host's launch calls are not counted: a profile of a graph with
+# conditional nodes faulted with an illegal address on the card.
+GRAPH_RERUN_LAUNCHES = {"config3": 8, "config4": 32}
+# The paths of phase graph whose solve is whole-solve programs
+# (graph.program), by the number of program calls of a solve: each call
+# one graph launch and no host read in a rerun (`_check_program`).
+# Config 4's shared pass is one; its continuation runs around it.
+PROGRAM_CALLS = {"b128": 1, "b1024": 1, "b128_fallback": 1,
+                 "solve_batch": 1, "config1_single": 1, "config1_double": 1,
+                 "config4": 1}
+# Phase graph's config-5 batches (kernel 1 in their graphs).
+BATCH_PATHS = ("b128", "b1024", "b128_fallback")
+# A target below the f32 rounds' floor, so that the f64 fallback runs
+# (the JAX package's test of its fallback uses 1e-9).
+FALLBACK_EPS = 1e-9
 PEAK_HBM_BYTES = 3.35e12
 # Two solved points of the same problem: each meets the 1e-6 residual
 # criterion; the MPC states carry only a 1e-8 regularisation.
@@ -972,11 +998,12 @@ def _captured_runs(fn, *args, reruns=1):
             graph.CACHE.replay_events = []
         passes = graph.CACHE.while_passes()
         reads = _HostReads()
-        with _SegmentCount() as segments:
+        with _SegmentCount() as segments, _ProgramCalls(reads) as progs:
             sol, wall, launches = _timed_run(fn, *args, reads=reads)
         sols.append(sol)
         runs.append(dict(wall_s=wall, launches=launches,
                          segments=segments.counts, host_reads=reads.count,
+                         programs=progs.calls,
                          while_passes=graph.CACHE.while_passes() - passes,
                          **{
                              k: graph.CACHE.stats[k] - before[k]
@@ -1081,13 +1108,63 @@ def _body_nodes():
     return out
 
 
+def _check_program(tag, rec, calls=1, alone=True):
+    """A path that calls `calls` whole-solve programs (graph.program:
+    solve_batch_shared, api._solve_core): in a rerun each call is one
+    graph launch and no host read; with `alone` (nothing else runs
+    around them) the whole rerun is those launches, no host read and no
+    segment run on the host."""
+    rerun = rec["graph_rerun"]
+    progs = rerun["programs"]
+    check(len(progs) == calls
+          and all(p["replays"] == 1 and p["host_reads"] == 0
+                  for p in progs),
+          f"{tag}: a rerun's program calls {progs}, not {calls} of one "
+          "graph launch and no host read each")
+    check(not alone or (rerun["replays"] == calls
+                        and rerun["host_reads"] == 0
+                        and not rerun["segments"]),
+          f"{tag}: {rerun['replays']} graph launches, {rerun['host_reads']}"
+          f" host reads and the segments {rerun['segments']} in a rerun")
+
+
+class _ProgramCalls:
+    """Records each graph.program call inside the block: its kind and
+    the graph launches and host reads (of `reads`, the `_HostReads` open
+    around the block) made inside it."""
+
+    def __init__(self, reads):
+        self.reads = reads
+        self.calls = []
+
+    def __enter__(self):
+        from admm_library_torch.core import graph
+        self.graph, self.real = graph, graph.program
+
+        def program(kind, *a, **k):
+            r0 = getattr(self.reads, "count", 0)
+            l0 = graph.CACHE.stats["replays"]
+            out = self.real(kind, *a, **k)
+            self.calls.append(dict(
+                kind=kind, replays=graph.CACHE.stats["replays"] - l0,
+                host_reads=getattr(self.reads, "count", 0) - r0))
+            return out
+        graph.program = program
+        return self
+
+    def __exit__(self, *exc):
+        self.graph.program = self.real
+
+
 def _check_captured(tag, rec):
-    """The captured-check bars of a path: its first run captured and
-    replayed a check, its rerun warmed no variant up (every key stayed
-    in the cache), and no graph is empty."""
+    """The captured-check bars of a path: its first run captured a
+    graph (a program's first run is its eager warm-up, then its capture;
+    a loop's segments are replayed there too), its rerun warmed no
+    variant up (every key stayed in the cache), and no graph is
+    empty."""
     first, rerun = rec["graph_first"], rec["graph_rerun"]
-    check(first["captures"] > 0 and first["replays"] > 0,
-          f"{tag}: no check was captured and replayed")
+    check(first["captures"] > 0,
+          f"{tag}: no check was captured")
     # A variant met once in the first run was only warmed there; its
     # capture comes at its second check, in the rerun.
     check(rerun["eager_checks"] == 0,
@@ -1455,6 +1532,8 @@ def phase_solve(dev):
         sol = sols[0]
         fields = _captured_fields(f"solve {name}", sols, graph_rec, solve,
                                   qp, s, twin=True)
+        # A box-only hybrid solve is the shared pass at B=1: one program.
+        _check_program(f"solve {name}", graph_rec)
         launches = fields["launches"]
         inv = solve(qp, s.replace(backend="inv"))
         r_p, r_d, eps_p, eps_d = _mixed_kkt(qp, sol)
@@ -1500,6 +1579,7 @@ def phase_slice_pcg(dev):
     sol = sols[0]
     fields = _captured_fields("pcg batch", sols, graph_rec,
                               solve_batch_shared, qp, s, twin=True)
+    _check_program("pcg batch", graph_rec)
     launches = fields["launches"]
     inv = solve_batch_shared(qp, s.replace(backend="inv"))
     r_p, r_d, _ = kkt_residuals(qp, sol.x, sol.z, sol.y)
@@ -1608,6 +1688,8 @@ def phase_cg_paths(dev):
         fields = _captured_fields(tag, sols, graph_rec, fn, qp, st,
                                   twin=True)
         reads, checks = _check_reads(tag, graph_rec)
+        if name != "config3":       # config 3 takes the staged path
+            _check_program(tag, graph_rec)
         inv = fn(qp, st.replace(backend="inv"))
         kkt_ok, kkt_worst = _kkt_within(qp, sol, eps)
         solved = int((sol.status == int(Status.SOLVED)).sum())
@@ -1667,8 +1749,14 @@ class _Stages:
             setattr(mod, name, fn)
 
     def _wrap(self, name, fn):
+        import torch
+
         def wrapped(*a, **k):
             out = fn(*a, **k)
+            if torch.cuda.is_current_stream_capturing():
+                # A program's capture: its stages run on the card at
+                # replay, not here (its warm-up ran them eagerly).
+                return out
             if name == "_phase":
                 name_ = ("f64_fallback" if a[0].dtype.itemsize == 8 else
                          "round" if k.get("z_off") is not None else "f32")
@@ -1927,6 +2015,7 @@ def phase_banded(dev):
     check(picked == {"config2": "inv", "config4": "inv", "n4096": "banded"},
           f"banded: resolve_backend on the card picked {picked}")
     _check_captured("banded", rec)
+    _check_program("banded", rec)
     return rec
 
 
@@ -1976,6 +2065,7 @@ def phase_horizon_spike(dev, x_inv):
     check(rec["rerun_bitwise_identical"], "horizon_spike: rerun not "
           "bitwise identical")
     _check_captured("horizon_spike", rec)
+    _check_program("horizon_spike", rec)
     return rec
 
 
@@ -2354,6 +2444,7 @@ def phase_data_axis(dev, sol1024):
     import torch
     from admm_library_torch import (Settings, make_data_mesh, shard_batch,
                                     solve_batch_shared)
+    from admm_library_torch.core import graph
     from admm_library_torch.models import monte_carlo as mc
 
     qp32, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(1024),
@@ -2366,14 +2457,28 @@ def phase_data_axis(dev, sol1024):
     s = Settings(eps_abs=EPS, eps_rel=EPS)
     sol, wall, launches = _timed_run(
         lambda: solve_batch_shared(qs, s, mesh=mesh))
+    # A rerun: the 1-rank mesh keys as none, one program launch.
+    before = dict(graph.CACHE.stats)
+    reads = _HostReads()
+    sol2, wall2, launches2 = _timed_run(
+        lambda: solve_batch_shared(qs, s, mesh=mesh), reads=reads)
+    rerun = {k: graph.CACHE.stats[k] - before[k] for k in before}
     rec = dict(batch=1024, mesh=dict(mesh.shape), wall_s=wall,
+               wall_rerun_s=wall2, rerun=rerun, rerun_host_reads=reads.count,
                lockstep_iters=int(sol.iters.max()),
                kernel_launches=launches["fused_iterate_shared"],
-               bitwise_equal_to_slice=_bitwise(sol, sol1024))
+               bitwise_equal_to_slice=_bitwise(sol, sol1024),
+               rerun_bitwise_identical=_bitwise(sol, sol2))
     emit("data_axis", **rec)
     check(rec["kernel_launches"] > 0, "data_axis: kernel 1 never launched")
     check(rec["bitwise_equal_to_slice"],
           "data_axis: not bitwise the solve without a mesh")
+    check(rec["rerun_bitwise_identical"] and launches2 == launches,
+          "data_axis: the rerun differs from the first run")
+    check(rerun["replays"] == 1 and rerun["captures"] == 0
+          and reads.count == 0,
+          f"data_axis: the rerun took {rerun['replays']} graph launches, "
+          f"{rerun['captures']} captures and {reads.count} host reads")
     return rec
 
 
@@ -2596,12 +2701,14 @@ class _Loops:
     """Records (kind, step, state at the first check) of every
     graph.CheckLoop built inside the block (the loop's own step, which
     runs its pre inside its checks), and in `raw` its initial state; the
-    loops run as before."""
+    loops run as before, every one plain (`graph.capturable` off), so
+    that a program's loops are met once and nothing of the recording
+    enters a graph."""
 
     def __enter__(self):
-        import torch
         from admm_library_torch.core import graph
         self.graph, self.real, self.loops = graph, graph.CheckLoop, []
+        self.capturable = graph.capturable
         self.raw = []       # (kind, step, initial state) of each loop
 
         def spy(kind, step, state, *a, **kw):
@@ -2611,10 +2718,12 @@ class _Loops:
             self.raw.append((kind, loop.step, state))
             return loop
         graph.CheckLoop = spy
+        graph.capturable = lambda *a, **k: False
         return self
 
     def __exit__(self, *exc):
         self.graph.CheckLoop = self.real
+        self.graph.capturable = self.capturable
 
 
 def _replay_is_eager(step, state):
@@ -2716,6 +2825,18 @@ def _batch_graph_fields(fn, qp, s, sol, runs):
         == launches["fused_iterate_shared"])
 
 
+def _fallback_iters():
+    """The iterations the f64 fallback's phase ran in the last replay of
+    the default cache's shared-batch program: the state of its loop, the
+    first loop inside the program's second branch (graph.cond; the
+    rounds' graph.repeat is the first), read on the host."""
+    from admm_library_torch.core import graph
+    entry = next(e for k, e in graph.CACHE.entries.items()
+                 if k[0] == "solve_batch_shared")
+    state = entry.loops["node1/loop0:run_admm_batch_shared"]
+    return int(state["it"])
+
+
 def _check_batch_graph(name, rec):
     check(rec["graphs_holding_kernel_1"] > 0,
           f"graph {name}: no graph holds kernel 1")
@@ -2778,6 +2899,11 @@ def phase_graph(dev):
         "config4": (solve, qp4, s4),
         "b128": (solve_batch_shared, b[128], s5),
         "b1024": (solve_batch_shared, b[1024], s5),
+        # A target below the f32 rounds' floor: the f64 fallback's IF
+        # node is taken on the card.
+        "b128_fallback": (solve_batch_shared, b[128],
+                          Settings(eps_abs=FALLBACK_EPS,
+                                   eps_rel=FALLBACK_EPS)),
         "solve_batch": (solve_batch, qp1b, Settings(
             eps_abs=BATCH_EPS, eps_rel=BATCH_EPS, max_iter=20000)),
         "config1_single": (solve, qp1, s1.replace(precision="single")),
@@ -2795,10 +2921,14 @@ def phase_graph(dev):
         for _ in range(2):
             before = dict(graph.CACHE.stats)
             passes = graph.CACHE.while_passes()
-            sol, wall, launches = _timed_run(fn, qp, s)
+            reads = _HostReads()
+            with _SegmentCount() as segments, _ProgramCalls(reads) as progs:
+                sol, wall, launches = _timed_run(fn, qp, s, reads=reads)
             runs.append(dict(wall_s=wall, **launches, **{
                 k: graph.CACHE.stats[k] - before[k] for k in before},
-                while_passes=graph.CACHE.while_passes() - passes))
+                while_passes=graph.CACHE.while_passes() - passes,
+                host_reads=reads.count, segments=segments.counts,
+                programs=progs.calls))
             if len(runs) == 1:
                 first_launches = launches
                 nodes = _graph_nodes()
@@ -2819,23 +2949,29 @@ def phase_graph(dev):
                    entries=len(graph.CACHE.entries),
                    first=runs[0], rerun=runs[1],
                    nodes_per_graph=nodes, cg_body_nodes=bodies, **device)
-        if name in ("b128", "b1024"):
+        if name in BATCH_PATHS:
             rec.update(_batch_graph_fields(fn, qp, s, sol, runs))
         else:
             rec.update(_capture_off_fields(f"graph {name}", sol,
                                            first_launches, fn, qp, s))
+        if name == "b128_fallback":
+            rec["fallback_iters"] = _fallback_iters()
         emit("graph", **rec)
-        check(runs[0]["captures"] > 0 and runs[0]["replays"] > 0,
-              f"graph {name}: no check was captured and replayed")
+        check(runs[0]["captures"] > 0, f"graph {name}: nothing was captured")
         # Every variant met in the first run was captured there (each
         # entry ran one segment eagerly): a rerun captures and warms
         # nothing.
         check(runs[1]["eager_checks"] == 0 and runs[1]["captures"] == 0,
               f"graph {name}: the rerun warmed or captured a variant")
         check(min(nodes.values()) > 0, f"graph {name}: an empty graph")
-        if name in ("b128", "b1024"):
+        if name in BATCH_PATHS:
             _check_batch_graph(name, rec)
+        if name in PROGRAM_CALLS:
+            _check_program(f"graph {name}", dict(graph_rerun=runs[1]),
+                           PROGRAM_CALLS[name], alone=name != "config4")
         out[name] = rec
+    check(out["b128_fallback"]["fallback_iters"] > 0,
+          "graph b128_fallback: the f64 fallback's phase ran no check")
     for name, bar in GRAPH_RERUN_LAUNCHES.items():
         check(out[name]["rerun"]["replays"] <= bar,
               f"graph {name}: {out[name]['rerun']['replays']} graph "

@@ -2,7 +2,9 @@
 """The port at two commits, in turns, on one CUDA card: configs 1 (at
 hybrid, single and double precision) and 2 (on 'inv'), 3 and 4 through
 `solve`, the config-5 batch at 128 and 1024 lanes
-through `solve_batch_shared`, `solve_batch` on 128 config-1 draws,
+through `solve_batch_shared` (and at 128 with a 1e-9 target,
+`b128_fallback`, where the f64 fallback runs), `solve_batch` on 128
+config-1 draws,
 configs 1-3 and the batch at 128 on 'pallas_cg' (`config1_pcg`, ...,
 `b128_pcg`) and configs 1-2, the batch at 128, `solve_batch` and the
 consensus drivers on 'cg' (`config1_cg`, ..., `solve_batch_cg`,
@@ -33,7 +35,10 @@ nodes (the tree's CG paths), whose bodies' kernels a profile loses,
 one more rerun with each replay between CUDA events instead: the
 replays' device time and the idle share beside it. Each record also holds
 the captured checks of its first run and reruns (`graph.CACHE.stats`
-deltas: captures, replays, warm-ups, capture ms). Each side saves its
+deltas: captures, replays, warm-ups, capture ms) and the nodes of every
+graph the path left in the cache (`graph_nodes`: each graph's own nodes,
+read from its kept template with libcuda's cuGraphGetNodes, plus the
+nodes of its conditional bodies). Each side saves its
 first run's x and status of every path under `_scratch/compare_parent/`,
 and the summary holds max |x_tree - x_parent| and whether the statuses
 and iterations are equal. Prints one JSON line per (side, turn, path),
@@ -57,7 +62,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = ("config1", "config1_single", "config1_double", "config2_inv",
-         "config3", "config4", "b128", "b1024",
+         "config3", "config4", "b128", "b1024", "b128_fallback",
          "solve_batch", "consensus", "consensus_mc_1024",
          "horizon_f64_plain", "horizon_f32_gate", "horizon_spike_1024",
          "config2_banded", "rowshard_qp4096", "config1_pcg", "config2_pcg",
@@ -116,12 +121,13 @@ def _path(name, dev):
                 T.Settings(eps_abs=1e-6, eps_rel=5e-8, band_block=spec.block,
                            max_iter=50000, rho_soc_scale=100.0,
                            stall_checks=16, backend="inv"))
-    if name in ("b128", "b1024"):
+    if name in ("b128", "b1024", "b128_fallback"):
         from admm_library_torch.models import monte_carlo as mc
-        qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(int(name[1:])),
-                                        device=dev)[0]
+        eps = 1e-9 if name == "b128_fallback" else 1e-6
+        qp = mc.monte_carlo_mpc_from_s0(
+            mc.reference_s0(int(name[1:].split("_")[0])), device=dev)[0]
         return (T.solve_batch_shared, qp.astype(f64),
-                T.Settings(eps_abs=1e-6, eps_rel=1e-6))
+                T.Settings(eps_abs=eps, eps_rel=eps))
     if name in ("consensus", "consensus_mc_1024", "consensus_mc_64",
                 "config2_banded", "config2_inv"):
         from admm_library_torch.models.double_integrator import build_mpc_qp
@@ -245,6 +251,26 @@ def _timed(fn, *args):
                            while_passes=passes() - passes0)
 
 
+def _graph_nodes():
+    """Nodes of each graph of the check cache, by entry (its place and
+    kind) and variant: the graph's own nodes (its kept template) plus
+    those of its conditional bodies, counted at their capture."""
+    import ctypes
+    from admm_library_torch.core import graph
+    cuda = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    for i, (key, entry) in enumerate(graph.CACHE.entries.items()):
+        for variant, g in entry.graphs.items():
+            n = ctypes.c_size_t(0)
+            rc = cuda.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()),
+                                      None, ctypes.byref(n))
+            if rc != 0:
+                raise RuntimeError(f"cuGraphGetNodes returned {rc}")
+            out[f"{i}:{key[0]} {variant}"] = (
+                n.value + getattr(entry, "body_nodes", {}).get(variant, 0))
+    return out
+
+
 def _profiled(fn, *args):
     """Device busy ms, kernels and host launch calls of one run."""
     import torch
@@ -280,6 +306,9 @@ def worker(root, side, turn, reruns, profiled, paths, unprofiled=()):
     from admm_library_torch.ops import _build
     torch.use_deterministic_algorithms(True)
     dev = torch.device("cuda", 0)
+    # Each graph keeps its template, so that its nodes can be counted
+    # (host memory only).
+    graph.CACHE.keep_graphs = True
     _build.build()          # nvcc at most once a side, before any clock
     for name in paths:
         fn, *args = _path(name, dev)
@@ -295,7 +324,8 @@ def worker(root, side, turn, reruns, profiled, paths, unprofiled=()):
                    graph_reruns={k: sum(r[2][k] for r in reruns_)
                                  for k in graph_first},
                    host_reads=[r[2]["host_reads"] for r in reruns_],
-                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   graph_nodes=_graph_nodes())
         if hasattr(sol, "cg_steps"):
             rec["cg_steps"] = int(sol.cg_steps)
         bodies = sum(n for e in graph.CACHE.entries.values()
@@ -410,6 +440,7 @@ def main():
                                    if "replay_idle_share" in r],
                 graph_first=recs[0]["graph_first"],
                 graph_reruns=recs[0]["graph_reruns"],
+                graph_nodes=recs[0]["graph_nodes"],
                 peak_memory_bytes=max(r["peak_memory_bytes"]
                                       for r in recs))
         summary["rerun_tree_over_parent"] = (summary["tree"]["rerun_s"]

@@ -868,8 +868,9 @@ def _recorded_loops(monkeypatch, fn, *args, **kw):
     """fn(*args, **kw) with every CheckLoop's (kind, step, state at its
     first check) recorded: the loop's own step (with the pre it runs
     inside its checks) and a clone of its initial state, for the phase
-    loops, which start from raw data, after their prologue. Returns (fn's
-    result, the records)."""
+    loops, which start from raw data, after their prologue. Every loop
+    runs plain, so that a program's loops are met once and nothing of
+    the recording enters a graph. Returns (fn's result, the records)."""
     from admm_library_torch.core import graph
     loops = []
     real = graph.CheckLoop
@@ -881,9 +882,10 @@ def _recorded_loops(monkeypatch, fn, *args, **kw):
             first = dict(first, **loop.step(first, admm.PROLOGUE))
         loops.append((kind, loop.step, first))
         return loop
-    monkeypatch.setattr(graph, "CheckLoop", spy)
-    out = fn(*args, **kw)
-    monkeypatch.setattr(graph, "CheckLoop", real)
+    with monkeypatch.context() as m:
+        m.setattr(graph, "CheckLoop", spy)
+        m.setattr(graph, "capturable", lambda *a, **k: False)
+        out = fn(*args, **kw)
     return out, loops
 
 
@@ -958,8 +960,10 @@ def test_replayed_check_is_the_eager_check_b128_round(dev, monkeypatch):
 
 def _eager_and_captured(monkeypatch, fn, *args):
     """fn(*args) with every check eager, then with the capture rule as
-    it is, from an empty cache: (eager result, captured result, the
-    cache's counters)."""
+    it is, from an empty cache, twice (a program's first run is its
+    warm-up and capture, the second its replay; the second bitwise the
+    first): (eager result, captured result, the cache's counters over
+    both runs)."""
     from admm_library_torch.core import graph
     with monkeypatch.context() as m:
         m.setattr(graph, "capturable", lambda *a, **k: False)
@@ -968,17 +972,21 @@ def _eager_and_captured(monkeypatch, fn, *args):
     before = dict(graph.CACHE.stats)
     passes = graph.CACHE.while_passes()
     captured = fn(*args)
+    again = fn(*args)
+    for f in ("x", "z", "y", "status"):
+        assert torch.equal(getattr(captured, f), getattr(again, f)), f
     stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
     stats["while_passes"] = graph.CACHE.while_passes() - passes
     return eager, captured, stats
 
 
 def _assert_checks_in_phases(stats):
-    """The captured run's checks ran inside phase graphs: a phase in the
-    cache, captured and launched, its WHILE node passed."""
+    """The captured runs' checks ran inside phase graphs: a phase, or a
+    program holding phases (graph.program), in the cache, captured and
+    launched, its WHILE nodes passed."""
     from admm_library_torch.core import graph
     phases = [v for e in graph.CACHE.entries.values() for v in e.graphs
-              if isinstance(v, graph.Phase)]
+              if isinstance(v, graph.Phase) or v == graph.PROGRAM]
     assert phases and stats["while_passes"] > 0
     assert stats["captures"] >= len(phases) and stats["replays"] >= 1
 
@@ -1147,13 +1155,19 @@ def test_captured_solves_are_the_eager_solves(dev, monkeypatch):
                                   batch=16, N=10, dim=2, device=dev)
     cases = [(solve, _small_l1_soc(dev), Settings(backend="inv")),
              (solve_batch_shared, qp, Settings())]
+    from admm_library_torch.core import graph
     for fn, problem, s in cases:
         fused.fused_iterate_shared.launches = 0
         eager, captured, stats = _eager_and_captured(monkeypatch, fn,
                                                      problem, s)
+        # A program's first run is its warm-up, then its capture.
+        assert stats["captures"] > 0
+        replays = graph.CACHE.stats["replays"]
+        again = fn(problem, s)
         for f in ("x", "z", "y", "status", "iters", "r_prim", "r_dual"):
             assert torch.equal(getattr(eager, f), getattr(captured, f)), f
-        assert stats["replays"] > 0
+            assert torch.equal(getattr(eager, f), getattr(again, f)), f
+        assert graph.CACHE.stats["replays"] > replays
     assert fused.fused_iterate_shared.launches > 0
 
 
@@ -1240,6 +1254,7 @@ def test_first_meeting_capture_is_the_eager_segment(dev, monkeypatch):
         return loop
     with monkeypatch.context() as m:
         m.setattr(graph, "CheckLoop", spy)
+        m.setattr(graph, "capturable", lambda *a, **k: False)
         solve_batch_shared(qp.astype(torch.float64),
                            Settings(rho=10.0, max_iter=0))
     step, state = next((st, s0) for kind, st, s0 in raw
@@ -1698,6 +1713,92 @@ def test_a_rerun_captures_nothing(path, dev):
     for f in ("x", "z", "y", "status", "iters"):
         assert torch.equal(getattr(first, f), getattr(again, f)), f
 
+
+
+# ---- whole-solve programs (graph.program) ----
+
+def _count_reads(monkeypatch):
+    """A list that grows by one at each host read of a CUDA tensor
+    (item, tolist, bool, float, int) while the test runs."""
+    reads = []
+    for name in ("item", "tolist", "__bool__", "__float__", "__int__"):
+        real = getattr(torch.Tensor, name)
+
+        def read(t, *a, _real=real, **k):
+            if t.is_cuda:
+                reads.append(1)
+            return _real(t, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, read)
+    return reads
+
+
+def _program_case(case, dev):
+    from admm_library_torch import solve, solve_batch
+    qp16 = mc.monte_carlo_mpc(torch.Generator().manual_seed(4), batch=16,
+                              N=10, dim=2, device=dev)[0].astype(
+                                  torch.float64)
+    one = _small_l1_soc(dev)
+    cases = {
+        "fallback_inv": (solve_batch_shared, qp16, Settings(
+            eps_abs=1e-9, eps_rel=1e-9)),
+        "mixed_chol": (solve_batch_shared, _mixed_batch(dev), Settings(
+            backend="chol", rho=10.0)),
+        "two_phase": (solve_batch_shared, qp16, Settings(
+            recenter_rounds=0)),
+        "cg_rounds": (solve_batch_shared, qp16, Settings(
+            backend="cg", max_iter=300)),
+        "solve_batch_hybrid": (solve_batch, QPData(
+            **{f: torch.stack([getattr(one, f)] * 3)
+               for f in ("P", "q", "A", "l", "u", "lam")}, cone=one.cone),
+            Settings(backend="chol", rho=10.0)),
+        "solve_double": (solve, one, Settings(precision="double",
+                                              backend="inv")),
+    }
+    return cases[case]
+
+
+@pytest.mark.parametrize("case", ["fallback_inv", "mixed_chol",
+                                  "two_phase", "cg_rounds",
+                                  "solve_batch_hybrid", "solve_double"])
+def test_a_program_rerun_is_one_graph_launch(case, dev, monkeypatch):
+    """solve_batch_shared and api._solve_core as one program: the first
+    run (its warm-up, then its capture) and a rerun (one graph launch,
+    no host read, nothing captured or warmed) bitwise the same solve
+    with every segment eager, the kernels launched as often; with a
+    1e-9 target the f64 fallback's phase ran inside the IF node."""
+    from admm_library_torch.core import graph
+    from admm_library_torch.ops import pallas_cg
+    fn, qp, s = _program_case(case, dev)
+    kernels = (fused.fused_iterate_shared, pallas_cg.pallas_cg_solve)
+
+    def run(count=False):
+        for k in kernels:
+            k.launches = 0
+        with monkeypatch.context() as m:
+            reads = _count_reads(m) if count else []
+            out = fn(qp, s)
+            torch.cuda.synchronize()
+            n_reads = len(reads)
+        return out, [k.launches for k in kernels], n_reads
+    with monkeypatch.context() as m:
+        m.setattr(graph, "capturable", lambda *a, **k: False)
+        eager, eager_launches, _ = run()
+    graph.CACHE.clear()
+    first, first_launches, _ = run()
+    before = dict(graph.CACHE.stats)
+    again, again_launches, n_reads = run(count=True)
+    stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
+    for f in ("x", "z", "y", "status", "iters", "r_prim", "r_dual", "obj",
+              "rho", "history"):
+        assert torch.equal(getattr(eager, f), getattr(first, f)), f
+        assert torch.equal(getattr(eager, f), getattr(again, f)), f
+    assert eager_launches == first_launches == again_launches
+    assert stats["replays"] == 1 and n_reads == 0
+    assert stats["captures"] == 0 and stats["eager_checks"] == 0
+    if case == "fallback_inv":
+        entry, = graph.CACHE.entries.values()
+        assert int(entry.loops["node1/loop0:run_admm_batch_shared"]
+                   ["it"]) > 0
 
 
 # ---- conditional nodes: graph.while_blocks inside a capture ----

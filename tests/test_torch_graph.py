@@ -159,12 +159,15 @@ class TraceNodes:
 
 def node_kind(block):
     """What a conditional node's body is: 'cg' (a block of
-    `graph.while_blocks`), 'phase' (the WHILE body of `graph.phase_nodes`)
-    or 'segment' (a check variant's or the refactor's IF body there)."""
+    `graph.while_blocks`), 'phase' (the WHILE body of `graph.phase_nodes`),
+    'segment' (a check variant's or the refactor's IF body there) or
+    'program' (a program's branch, `graph.cond` or `graph.repeat`)."""
     fn = getattr(block, "func", block)
     name = fn.__qualname__
     if name.startswith("while_blocks"):
         return "cg"
+    if name.startswith("_Program.body"):
+        return "program"
     if name.startswith("phase_nodes") and block is not fn:
         return "segment"
     return "phase"
@@ -176,12 +179,15 @@ class HostNodes:
     flag holds, at most `count` passes. `graph.while_blocks`' and
     `graph.phase_nodes`' captured forms (the state written in place) then
     run on the CPU. Counts the nodes and the passes of their bodies,
-    with each node's kind (`node_kind`), the passes of the CGs' bodies
-    and the segments whose IF bodies ran."""
+    with each node's kind (`node_kind`) and depth (1 for a node of the
+    graph itself, one more for each body it sits in), the passes of the
+    CGs' bodies and the segments whose IF bodies ran."""
 
     def __init__(self):
         self.nodes = []
         self.kinds = []
+        self.depths = []
+        self.depth = 0
         self.passes = 0
         self.cg_passes = 0
         self.segments = []
@@ -190,10 +196,15 @@ class HostNodes:
         kind = node_kind(block)
         self.nodes.append(count)
         self.kinds.append(kind)
+        self.depths.append(self.depth + 1)
         for _ in range(count):
             if not bool(live):
                 break
-            block()
+            self.depth += 1
+            try:
+                block()
+            finally:
+                self.depth -= 1
             self.passes += 1
             if kind == "cg":
                 self.cg_passes += 1

@@ -141,8 +141,8 @@ def test_segments_make_no_host_read(rows, precision, monkeypatch):
     assert {(False, True), (True, False)} <= loop
     if precision == "hybrid":
         assert rec.variants("solve_shared_recentered") == {
-            batch.START, ("setup", True), ("setup", False),
-            batch.SAFEGUARD, batch.FINAL, batch.JOIN}
+            batch.START, batch.CARRY, batch.SETUP, batch.SAFEGUARD,
+            batch.FINAL, batch.JOIN}
 
 
 # ---------------------------------------------------------------- (b)
@@ -158,13 +158,13 @@ def _case(name):
     fb = {batch.JOIN}
     cases = {
         "box_hybrid": (_mc_batch(), T.Settings(backend="inv"), {},
-                       {("setup", True)}),
+                       {batch.SETUP}),
         "box_hybrid_f32_data": (_mc_batch(F32), T.Settings(backend="inv"),
-                                {}, {("setup", True)}),
+                                {}, {batch.SETUP}),
         "mixed_hybrid": (_raw_batch("soc"), SETTINGS, {},
-                         {("setup", True), batch.REFACTOR}),
+                         {batch.SETUP, batch.REFACTOR}),
         "l1_hybrid_lane_q": (_raw_batch("l1", lane_q=True), SETTINGS, {},
-                             {("setup", True)}),
+                             {batch.SETUP}),
         "box_refactors_lane_q": (_raw_batch("box", lane_q=True), SETTINGS,
                                  {}, {batch.REFACTOR}),
         "f64_fallback": (_mc_batch(), T.Settings(backend="inv",
@@ -180,13 +180,13 @@ def _case(name):
                                               recenter_rounds=0), {},
                       set()),
         "chol_hybrid": (_raw_batch("box"), SETTINGS.replace(
-            backend="chol"), {}, {("setup", True)}),
+            backend="chol"), {}, {batch.SETUP}),
         "cg_hybrid": (_raw_batch("box"), SETTINGS.replace(
             backend="cg", max_iter=100), {}, {batch.REFACTOR}),
         "warm_start_no_history": (_mc_batch(), T.Settings(
             backend="inv", history=0, stall_checks=2), "warm", set()),
         "data_axis_1rank": (_mc_batch(), SETTINGS, "mesh",
-                            {("setup", True)}),
+                            {batch.SETUP}),
     }
     return cases[name]
 
@@ -222,15 +222,26 @@ def _buffered(monkeypatch):
     """The capture path's bookkeeping on the CPU: every loop keeps its
     state in the static buffers of a fresh cache's entries (loads by
     path, writes, new keys, results cloned out), each segment run
-    eagerly into them in place of a graph."""
+    eagerly into them in place of a graph. A program's first run is its
+    warm-up into its entry; a later run is its node form where a node
+    builder is installed (`test_torch_graph.install_nodes`), else the
+    warm-up's form again."""
     cache = graph.CheckCache()
 
     def run(entry, variant):
         entry.write(entry.step(entry.buffers, variant))
         entry.cache.stats["replays"] += 1
+
+    def run_program(entry, variant, driver):
+        mode = ("nodes" if entry.warm and graph._node_runner() is not None
+                else "warm")
+        entry.warm = True
+        entry.cache.stats["replays"] += 1
+        return graph._drive(entry, driver, mode)
     monkeypatch.setattr(graph, "capturable", lambda *a, **k: True)
     monkeypatch.setattr(graph, "CACHE", cache)
     monkeypatch.setattr(graph._Entry, "run", run)
+    monkeypatch.setattr(graph._Entry, "run_program", run_program)
     return cache
 
 
