@@ -1,0 +1,6 @@
+"""The median host-clock time of every batch call of the window."""
+from benchmark import arith
+
+
+def read(run):
+    return arith.percentile(run.calls_ms, 50)
