@@ -47,6 +47,7 @@ from .precision import clean64
 from .problem import QPData, objective
 from .settings import Settings
 from .solution import Solution, Status
+from .utils import trace
 
 _INFEASIBLE = (int(Status.PRIMAL_INFEASIBLE), int(Status.DUAL_INFEASIBLE))
 _SOLVED = int(Status.SOLVED)
@@ -135,22 +136,27 @@ def _core_program(inputs, *, cone, settings: Settings,
     """The driver of `_solve_core`'s program: the solve by precision
     strategy from its inputs ('raw' problem, warm start 'x0', 'z0',
     'y0'); returns the Solution's leaves. The phases pass their iterates
-    on the device."""
+    on the device. A one-phase solve runs inside the span 'single' or
+    'double', the hybrid one inside 'phase1' and 'phase2'."""
     f32, f64 = torch.float32, torch.float64
     qp = QPData(**inputs["raw"], cone=cone)
     x0, z0, y0 = inputs["x0"], inputs["z0"], inputs["y0"]
     if settings.precision == "single":
-        sol = _solve_one_phase(qp, x0, z0, y0, settings, backend)
+        with trace.span("single"):
+            sol = _solve_one_phase(qp, x0, z0, y0, settings, backend)
     elif settings.precision == "double":
-        sol = _solve_one_phase(qp, x0, z0, y0, settings, backend,
-                               dtype=f64)
+        with trace.span("double"):
+            sol = _solve_one_phase(qp, x0, z0, y0, settings, backend,
+                                   dtype=f64)
     else:
-        sol32 = _solve_one_phase(qp, x0, z0, y0, _s32_of(settings), backend,
-                                 dtype=f32)
-        sol = _solve_one_phase(
-            qp, sol32.x, sol32.z, sol32.y,
-            settings.replace(precision="single", warm_start=True), backend,
-            dtype=f64, p1=sol32)
+        with trace.span("phase1"):
+            sol32 = _solve_one_phase(qp, x0, z0, y0, _s32_of(settings),
+                                     backend, dtype=f32)
+        with trace.span("phase2"):
+            sol = _solve_one_phase(
+                qp, sol32.x, sol32.z, sol32.y,
+                settings.replace(precision="single", warm_start=True),
+                backend, dtype=f64, p1=sol32)
     return sol.leaves()
 
 
@@ -489,8 +495,15 @@ def solve(qp: QPData, settings: Settings = Settings(),
     problems through solve_batch_shared at batch 1 (at least 4 rounds
     for SOC), and an SOC problem left unsolved there through
     `_f64_continuation`; L1 problems and recenter_rounds=0 take the
-    staged path (module docstring).
+    staged path (module docstring). The call is the host span 'solve'
+    (utils/trace).
     """
+    with trace.host("solve"):
+        return _solve(qp, settings, x0, z0, y0)
+
+
+def _solve(qp: QPData, settings: Settings, x0, z0, y0) -> Solution:
+    """`solve`'s work."""
     if (qp.P.dim() != 2 or qp.A.dim() != 2 or qp.q.dim() != 1
             or qp.l.dim() != 1 or qp.u.dim() != 1):
         raise ValueError(

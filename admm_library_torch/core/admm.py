@@ -34,6 +34,7 @@ from ..precision import clean64
 from ..problem import QPData, is_equality_row, mv, objective, vm
 from ..settings import Settings
 from ..solution import Status
+from ..utils import trace
 from . import graph
 from .scaling import Scaling, ruiz_equilibrate
 
@@ -90,10 +91,11 @@ def admm_iteration(qp: QPData, fac, x, z, y, rho_vec, settings: Settings,
 
 def iterate_block(qp, fac, x, z, y, rho_vec, settings, backend, k: int,
                   z_off=None):
-    """Run k plain iterations."""
-    for _ in range(k):
-        x, z, y = admm_iteration(qp, fac, x, z, y, rho_vec, settings,
-                                 backend, z_off=z_off)
+    """Run k plain iterations, inside the span 'iterate_block'."""
+    with trace.span("iterate_block"):
+        for _ in range(k):
+            x, z, y = admm_iteration(qp, fac, x, z, y, rho_vec, settings,
+                                     backend, z_off=z_off)
     return x, z, y
 
 

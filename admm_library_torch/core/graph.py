@@ -83,6 +83,13 @@ A hand-written kernel launched inside a capture is counted by the graph
 wrapper's `launches`, and a launch inside a conditional body adds one
 to a device counter of its own at each pass, read only when `launches`
 is asked for, so that count stays the number of times the kernel ran.
+
+With `utils.trace` on, every segment, phase and program branch runs
+inside a span of its own (`_segment`, `phase_nodes`, `plain_checks`,
+`cond`, `repeat`, `program`): stamp kernels inside a capture, host
+timing elsewhere; the entry's host work (`program`, `_Entry`) is
+recorded as host spans. Off, a capture holds no stamp and no count of
+the phases' WHILE passes.
 """
 from __future__ import annotations
 
@@ -92,11 +99,12 @@ import ctypes
 import functools
 import gc
 import math
-import time
 import weakref
 from typing import NamedTuple
 
 import torch
+
+from ..utils import trace
 
 # Backends whose check has no host read: one product ('inv'), two
 # triangular solves ('chol'), block sweeps whose trip counts are static
@@ -241,18 +249,26 @@ def plain_checks(run, read, phase: Phase, max_iter: int):
     """The host loop over checks, the plain form of a phase: `run(variant)`
     runs one segment, `read()` gives the check's flags as host values
     (the one device-to-host read of a check); after a check whose
-    flags[1] asks for it, a REFACTOR."""
+    flags[1] asks for it, a REFACTOR. Inside the span 'checks'."""
     it, checks, live = 0, 0, True
-    while (live and it < max_iter
-           and (phase.checks is None or checks < phase.checks)):
-        run(phase.tag + variant_at(it // phase.k, phase.restart_checks,
-                                   phase.interval))
-        it += phase.k
-        checks += 1
-        flags = read()
-        live = not flags[0] if phase.done else bool(flags[0])
-        if phase.refactor and flags[1]:
-            run(REFACTOR)
+    with trace.span("checks"):
+        while (live and it < max_iter
+               and (phase.checks is None or checks < phase.checks)):
+            run(phase.tag + variant_at(it // phase.k, phase.restart_checks,
+                                       phase.interval))
+            it += phase.k
+            checks += 1
+            flags = read()
+            live = not flags[0] if phase.done else bool(flags[0])
+            if phase.refactor and flags[1]:
+                run(REFACTOR)
+
+
+def _segment(step, state, variant):
+    """`step(state, variant)` inside the span of its segment: 'check'
+    for a residual check, else the segment's name."""
+    with trace.span("check" if is_check(variant) else variant[0]):
+        return step(state, variant)
 
 
 def _matches(parts, static):
@@ -305,15 +321,18 @@ def phase_nodes(runner, step, state, phase: Phase) -> None:
     before any check; the check itself where one variant is reachable),
     then, for a loop that refactors, an IF node on flags[1] holding the
     REFACTOR. Each body writes its segment's updates into the state in
-    place, so every value is the plain loop's, bit for bit."""
+    place, so every value is the plain loop's, bit for bit. The WHILE
+    node sits inside the span 'checks', each body inside its segment's;
+    with tracing on, each pass adds one to the cache's pass counter."""
     def run(variant):
-        _write_in_place(state, step(state, variant))
+        _write_in_place(state, _segment(step, state, variant))
 
     it = state["it"]
     live = ((it < state["max_iter"])
             & ((it == 0) | _live(state["flags"], phase.done)))
     live = live.reshape(()).to(torch.bool, copy=True)
-    passes = getattr(runner, "pass_counter", None)
+    counter = getattr(runner, "pass_counter", None)
+    passes = None if counter is None else counter()
 
     def one_pass():
         parts = variant_at(state["it"] // phase.k, phase.restart_checks,
@@ -336,7 +355,8 @@ def phase_nodes(runner, step, state, phase: Phase) -> None:
         live.copy_((state["it"] < state["max_iter"])
                    & _live(state["flags"], phase.done))
 
-    runner.node(live, PHASE_PASSES, one_pass)
+    with trace.span("checks"):
+        runner.node(live, PHASE_PASSES, one_pass)
 
 
 # The capture under way in a CheckCache (a `_Capture`), else None.
@@ -515,13 +535,15 @@ class _Program:
         else:
             _write(buffers, updates)
 
-    def body(self, name, block):
-        """`block()` as the body of the branch `name`: the loops it
-        builds are named inside it, the same at every pass."""
+    def body(self, name, block, span):
+        """`block()` as the body of the branch `name`, inside the span
+        `span`: the loops it builds are named inside it, the same at
+        every pass."""
         outer = self.scope, self.counts
         self.scope, self.counts = name, {}
         try:
-            block()
+            with trace.span(span):
+                block()
         finally:
             self.scope, self.counts = outer
 
@@ -541,20 +563,22 @@ class _Program:
         return runner
 
 
-def cond(pred, body, read) -> None:
+def cond(pred, body, read, span: str = "cond") -> None:
     """The counterpart of `lax.cond` in a driver: `body()` where `pred`
-    (a tensor of one element) holds. Plain (no program, or a program's
-    warm-up), `read(pred)` is the host's read of the flag (agreed over a
-    mesh where the caller's `read` does that); inside a captured program
-    it is an IF node, its body captured whether or not a run takes it.
-    A warm-up that does not take the branch makes its entries."""
+    (a tensor of one element) holds, inside the span `span`. Plain (no
+    program, or a program's warm-up), `read(pred)` is the host's read of
+    the flag (agreed over a mesh where the caller's `read` does that);
+    inside a captured program it is an IF node, its body captured
+    whether or not a run takes it. A warm-up that does not take the
+    branch makes its entries."""
     prog = _program
     if prog is None:
         if read(pred):
-            body()
+            with trace.span(span):
+                body()
         return
     name = prog.name("node")
-    run = functools.partial(prog.body, name, body)
+    run = functools.partial(prog.body, name, body, span)
     if prog.mode == "nodes":
         prog.runner().node(pred.reshape(()).to(torch.bool, copy=True), 1,
                            run)
@@ -565,17 +589,19 @@ def cond(pred, body, read) -> None:
             run()
 
 
-def repeat(count: int, body, pred, read) -> None:
+def repeat(count: int, body, pred, read, span: str = "repeat") -> None:
     """The counterpart of a `lax.while_loop` over rounds in a driver:
     `body()` at most `count` times, the first pass always, each later
     one while `pred()` (a tensor of one element, read after the pass
-    before) holds. Plain, `read(pred())` is the host's read before each
-    later pass; inside a captured program it is one WHILE node of budget
-    `count` whose body, captured once, is one pass."""
+    before) holds; each pass inside the span `span`. Plain,
+    `read(pred())` is the host's read before each later pass; inside a
+    captured program it is one WHILE node of budget `count` whose body,
+    captured once, is one pass."""
     prog = _program
     if prog is None:
         for r in range(count):
-            body()
+            with trace.span(span):
+                body()
             if r + 1 < count and not read(pred()):
                 break
         return
@@ -584,7 +610,7 @@ def repeat(count: int, body, pred, read) -> None:
     name = prog.name("node")
     if prog.mode != "nodes":
         for r in range(count):
-            prog.body(name, body)
+            prog.body(name, body, span)
             if (prog.mode == "make" or r + 1 == count
                     or not read(pred())):
                 break
@@ -595,7 +621,7 @@ def repeat(count: int, body, pred, read) -> None:
         body()
         live.copy_(pred().reshape(()))
     prog.runner().node(live, count, functools.partial(prog.body, name,
-                                                      one_pass))
+                                                      one_pass, span))
 
 
 def _drive(entry, driver, mode: str):
@@ -623,15 +649,26 @@ def program(kind: str, driver, inputs: dict, backend: str, mesh=None,
     and a copy of the outputs out. Elsewhere (the CPU, a mesh axis of
     size > 1) it is `driver(inputs)`, the plain host form. A program
     inside a program is its driver, its loops the outer one's. A capture
-    or a node that fails raises."""
+    or a node that fails raises. The driver runs inside the span `kind`
+    (captured: its graph's first and last nodes, each replay a row of
+    the trace's ring); the key and the inputs' copies are the host span
+    'inputs', the copies out 'outputs'."""
+    outermost = _program is None
+
+    def traced(buffers):
+        with trace.span(kind, ring=outermost):
+            return driver(buffers)
     dev = next(t for _, t in _leaves(inputs)).device
-    if _program is not None or not capturable(dev, backend, mesh, kind):
-        return driver(inputs)
-    if dev.type == "cuda":
-        CACHE.prepare_nodes(dev)
-    entry = CACHE.entry(check_key(kind, backend, None, inputs, **static),
-                        None, inputs)
-    return _map(torch.clone, entry.run_program(PROGRAM, driver))
+    if not outermost or not capturable(dev, backend, mesh, kind):
+        return traced(inputs)
+    with trace.host("inputs"):
+        if dev.type == "cuda":
+            CACHE.prepare_nodes(dev)
+        entry = CACHE.entry(check_key(kind, backend, None, inputs,
+                                      **static), None, inputs)
+    out = entry.run_program(PROGRAM, traced)
+    with trace.host("outputs"):
+        return _map(torch.clone, out)
 
 
 # The conditional-node library (csrc/graph_cond.cu), loaded by `nodes`.
@@ -698,19 +735,25 @@ _ROUTE_STREAM = "_cuda_beginAllocateCurrentStreamToPool"
 class _Capture:
     """The capture under way in `_Entry._capture_once`: the kernel
     wrappers launched at its top level and in its conditional bodies (in
-    launch order), its conditional nodes' body node count, and the depth
-    of the body being captured (0 at top level)."""
+    launch order), its conditional nodes' body node count, whether a
+    phase's WHILE passes went uncounted, and the depth of the body being
+    captured (0 at top level)."""
 
     def __init__(self, entry):
         self.entry = entry
         self.launched = []
         self.body_launched = []
+        self.passes_blind = False
         self.body_nodes = 0
         self.depth = 0
 
-    @property
     def pass_counter(self):
-        """The cache's count of phase WHILE passes on the entry's device."""
+        """The cache's count of phase WHILE passes on the entry's device,
+        while tracing is on; else None, and the capture's passes are
+        uncounted."""
+        if not trace.enabled():
+            self.passes_blind = True
+            return None
         return self.entry.cache.passes.get(self.entry.device)
 
     def node(self, live, count, block):
@@ -763,14 +806,15 @@ def check_key(kind: str, backend: str, settings, state, **static):
     """The cache key of a loop: its kind, backend, the CHECK_FIELDS of
     its settings (none for a loop whose step reads no Settings, given
     `settings` None), the path, shape, dtype and device of every state
-    tensor, and the static arguments of its step (cone, restart_checks,
-    ...), which must be hashable."""
+    tensor, the static arguments of its step (cone, restart_checks,
+    ...), which must be hashable, and whether tracing is on (a traced
+    graph holds stamps and the pass counter)."""
     return (kind, backend,
             () if settings is None else
             tuple(getattr(settings, f) for f in CHECK_FIELDS),
             tuple((p, tuple(t.shape), t.dtype, t.device)
                   for p, t in _leaves(state)),
-            tuple(sorted(static.items())))
+            tuple(sorted(static.items())), trace.enabled())
 
 
 class _Entry:
@@ -790,6 +834,7 @@ class _Entry:
         self.graphs = {}
         self.kernels = {}
         self.body_kernels = {}
+        self.blind_passes = {}
         self.body_nodes = {}
         self.warm = False
 
@@ -840,13 +885,15 @@ class _Entry:
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
-        self.graphs[variant].replay()
+        with trace.host("launch"):
+            self.graphs[variant].replay()
         if timed is not None:
             end.record()
             timed.append((start, end))
         self.cache.stats["replays"] += 1
         for kernel in self.kernels[variant]:
             _add_launch(kernel)
+        self.cache.blind_passes += self.blind_passes[variant]
 
     def run(self, variant):
         if variant not in self.graphs:
@@ -886,11 +933,12 @@ class _Entry:
         return self.outputs[variant]
 
     def _warm(self, fn):
-        """fn() eagerly on the capture stream, the entry's warm-up."""
+        """fn() eagerly on the capture stream, the entry's warm-up (the
+        host span 'warm-up')."""
         stream = self.cache.stream(self.device)
         cur = torch.cuda.current_stream(self.device)
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
+        with trace.host("warm-up"), torch.cuda.stream(stream):
             out = fn()
         cur.wait_stream(stream)
         self.warm = True
@@ -912,38 +960,49 @@ class _Entry:
         stats = self.cache.stats
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        t0 = time.perf_counter()
-        # No garbage collection inside a capture: collecting an
-        # unreachable CUDAGraph (a dropped cache's) destroys it, a call
-        # that invalidates the capture under way. torch.cuda.graph runs
-        # gc.collect() before each capture for the same reason.
-        gc_on = gc.isenabled()
-        gc.disable()
-        try:
-            grown = []
-            graph, cap = self._capture_once(body, stream, grown)
-            if grown:
-                for buffers, key, value in grown:
-                    buffers[key] = torch.empty_like(value)
-                # Drop the first graph and its outputs before the
-                # second capture.
-                del graph, value
-                grown.clear()
+        # capture_ms is the host span 'capture''s own clock pair.
+        with trace.clock("capture") as span:
+            # No garbage collection inside a capture: collecting an
+            # unreachable CUDAGraph (a dropped cache's) destroys it, a
+            # call that invalidates the capture under way.
+            # torch.cuda.graph runs gc.collect() before each capture for
+            # the same reason.
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                grown = []
                 graph, cap = self._capture_once(body, stream, grown)
                 if grown:
-                    raise RuntimeError(f"segment {variant} added state "
-                                       "entries at its second capture")
-        finally:
-            if gc_on:
-                gc.enable()
-        if self.cache.keep_graphs:
-            graph.instantiate()
-        _upload(graph, self.device)
-        stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
+                    for buffers, key, value in grown:
+                        buffers[key] = torch.empty_like(value)
+                    # Drop the first graph and its outputs before the
+                    # second capture.
+                    del graph, value
+                    grown.clear()
+                    graph, cap = self._capture_once(body, stream, grown)
+                    if grown:
+                        raise RuntimeError(f"segment {variant} added "
+                                           "state entries at its second "
+                                           "capture")
+            finally:
+                if gc_on:
+                    gc.enable()
+            if self.cache.keep_graphs:
+                graph.instantiate()
+            _upload(graph, self.device)
+        stats["capture_ms"] += span.ns / 1e6
         stats["captures"] += 1
+        self._keep(variant, graph, cap)
+
+    def _keep(self, variant, graph, cap):
+        """The captured graph of `variant` and what its capture `cap`
+        counted: the kernels it launches at top level and in its bodies,
+        whether its phases' passes went uncounted (tracing off) and its
+        bodies' nodes."""
         self.graphs[variant] = graph
         self.kernels[variant] = cap.launched
         self.body_kernels[variant] = cap.body_launched
+        self.blind_passes[variant] = int(cap.passes_blind)
         self.body_nodes[variant] = cap.body_nodes
 
     def _capture_once(self, body, stream, grown):
@@ -969,7 +1028,9 @@ class CheckCache:
     least recently used goes first), with counters for the measuring
     scripts: captures, replays (graph launches), eager segments (each
     entry's warm-up) and the host milliseconds spent capturing, and on
-    the card the passes of every phase's WHILE node (`while_passes`).
+    the card the passes of every phase's WHILE node captured with
+    tracing on (`while_passes`; `blind_passes` counts the replays of
+    graphs whose passes went uncounted).
     One side stream per device serves every capture, and one body stream
     per device and depth every conditional body. With `keep_graphs` set,
     each graph keeps its captured template beside its executable
@@ -987,6 +1048,7 @@ class CheckCache:
         self.entries = collections.OrderedDict()
         self.streams = {}
         self.passes = {}
+        self.blind_passes = 0
         self.stats = dict(captures=0, replays=0, eager_checks=0,
                           capture_ms=0.0)
 
@@ -1026,10 +1088,11 @@ class CheckCache:
         """What a capture that adds conditional nodes on `device` needs
         made before it: the node library, a body stream (with its cuBLAS
         workspace) for each depth, the launch counters of the kernel
-        wrappers and the count of WHILE passes."""
+        wrappers, the count of WHILE passes and the trace's slots."""
         from ..ops import fused, pallas_cg  # noqa: F401 (their Counted)
         dev = torch.device(device)
         nodes()
+        trace.prepare(dev)
         for depth in range(1, NODE_DEPTH + 1):
             self.body_stream(dev, depth)
         for kernel in _COUNTED:
@@ -1039,7 +1102,13 @@ class CheckCache:
 
     def while_passes(self) -> int:
         """The passes of every phase WHILE node replayed so far (a read
-        of the card)."""
+        of the card). Raises where a graph whose passes went uncounted
+        (captured with tracing off) has replayed since `zero_counts`."""
+        if self.blind_passes:
+            raise RuntimeError(
+                f"{self.blind_passes} replays of phases captured with "
+                "tracing off: their WHILE passes were not counted; switch "
+                "utils.trace on before the capture")
         return sum(int(c.item()) for c in self.passes.values())
 
     def replay_ms(self) -> float:
@@ -1055,6 +1124,17 @@ class CheckCache:
 
 
 CACHE = CheckCache()
+
+
+def zero_counts(cache=None) -> None:
+    """Every kernel wrapper's `launches` and the cache's WHILE passes set
+    to zero, and the passes' uncounted replays forgotten."""
+    cache = CACHE if cache is None else cache
+    for kernel in _COUNTED:
+        kernel.launches = 0
+    for counter in cache.passes.values():
+        counter.zero_()
+    cache.blind_passes = 0
 
 
 class CheckLoop:
@@ -1104,11 +1184,12 @@ class CheckLoop:
         """Run one segment; after a check the caller may read
         state['flags']."""
         if self._prog is not None:
-            self._prog.write(self.state, self.step(self.state, variant))
+            self._prog.write(self.state, _segment(self.step, self.state,
+                                                  variant))
         elif self.capture:
             self._entry.run(variant)
         else:
-            self.state.update(self.step(self.state, variant))
+            self.state.update(_segment(self.step, self.state, variant))
 
     def run_checks(self, settings, restart_checks: int, *, tag=(),
                    refactor: bool = True, done: bool = False, agree=None):
@@ -1210,7 +1291,7 @@ class _LoopStep:
 
     def __call__(self, state, variant):
         if not isinstance(variant, Phase):
-            return self.step(state, variant)
+            return _segment(self.step, state, variant)
         runner = _node_runner()
         if runner is not None:
             phase_nodes(runner, self.step, state, variant)
@@ -1219,7 +1300,7 @@ class _LoopStep:
         work = dict(state)
 
         def run(v):
-            work.update(self.step(work, v))
+            work.update(_segment(self.step, work, v))
 
         def read():
             flags = work["flags"]

@@ -4,7 +4,8 @@
 // (admm_library_tpu/ops/kkt.py cg_solve). This is no port of a TPU
 // kernel: it holds two one-thread kernels that set a node's condition
 // and the host calls that add the node to the graph a stream is
-// capturing into and capture its body.
+// capturing into and capture its body, and the one-thread stamp kernel
+// of utils/trace.py's spans.
 //
 // One node, as core/graph.py drives it:
 //
@@ -47,6 +48,40 @@ __global__ void cond_rearm(cudaGraphConditionalHandle handle,
   cudaGraphSetConditional(handle, (*flag && passes < limit) ? 1u : 0u);
 }
 
+// A span's stamp (utils/trace.py): reads %globaltimer (ns). `slots`
+// holds n_slots open stamps, then n_slots totals, then n_slots counts,
+// the ring's head, the calibration stamp and `ring` rows of (sequence
+// number, slot, start, end). Modes: 0 begin (open[id] = now), 1 end
+// (total[id] += now - open[id], count[id] += 1), 2 end and a ring row,
+// 3 calibration (the stamp alone).
+__global__ void trace_stamp(long long* slots, int n_slots, int ring, int id,
+                            int mode) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long t = static_cast<long long>(now);
+  long long* head = slots + 3 * n_slots;
+  if (mode == 0) {
+    slots[id] = t;
+    return;
+  }
+  if (mode == 3) {
+    head[1] = t;
+    return;
+  }
+  const long long t0 = slots[id];
+  slots[n_slots + id] += t - t0;
+  slots[2 * n_slots + id] += 1;
+  if (mode == 2) {
+    const long long seq = head[0];
+    long long* row = head + 2 + 4 * (seq % ring);
+    row[0] = seq;
+    row[1] = id;
+    row[2] = t0;
+    row[3] = t;
+    head[0] = seq + 1;
+  }
+}
+
 inline int result(cudaError_t err) {
   if (err != cudaSuccess) cudaGetLastError();
   return static_cast<int>(err);
@@ -60,12 +95,13 @@ inline int result(cudaError_t err) {
 
 }  // namespace
 
-// Loads both kernels (outside any capture: a lazy module load inside a
+// Loads the kernels (outside any capture: a lazy module load inside a
 // global-mode capture is not allowed).
 extern "C" int admm_cond_init() {
   cudaFuncAttributes attr;
   COND_TRY(cudaFuncGetAttributes(&attr, cond_arm));
   COND_TRY(cudaFuncGetAttributes(&attr, cond_rearm));
+  COND_TRY(cudaFuncGetAttributes(&attr, trace_stamp));
   return 0;
 }
 
@@ -147,6 +183,17 @@ extern "C" int admm_cond_abort(void* side) {
     err = cudaStreamEndCapture(s, &body);
   }
   return result(err);
+}
+
+// One stamp on `stream` (captured where the stream captures): see
+// trace_stamp.
+extern "C" int admm_trace_stamp(void* stream, long long* slots, int n_slots,
+                                int ring, int id, int mode) {
+  if (id < 0 || id >= n_slots || mode < 0 || mode > 3 || ring < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  trace_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      slots, n_slots, ring, id, mode);
+  return result(cudaGetLastError());
 }
 
 extern "C" const char* admm_cond_error_string(int err) {

@@ -58,6 +58,7 @@ from ..precision import clean64
 from ..problem import QPData, objective
 from ..settings import Settings
 from ..solution import Solution, Status
+from ..utils import trace
 from . import runtime
 from .runtime import DATA_AXIS, Mesh
 
@@ -347,17 +348,19 @@ def batch_step(state, variant, *, cone, settings: Settings, backend: str,
 
 
 def _fused_pre(settings: Settings, cone):
-    """The fused kernel's k-block from a check's state: (xn, zn, yn)."""
+    """The fused kernel's k-block from a check's state: (xn, zn, yn),
+    the kernel's launch alone inside the span 'kernel1'."""
     def pre(state):
         d = state["qp"]
         rho_vec = admm.rho_vec_of(state["rho_bar"], state["eq_mask"],
                                   settings, cone)
-        xn, zn, yn = fused_ops.fused_iterate_shared(
-            d["A"], state["fac"]["Minv"], state["fac"]["M"], d["q"],
-            rho_vec, d["lam"], d["l"], d["u"], state["x"], state["z"],
-            state["y"], cone=cone, sigma=settings.sigma,
-            alpha=settings.alpha, k=settings.check_every,
-            refine_steps=settings.refine_steps)
+        with trace.span("kernel1"):
+            xn, zn, yn = fused_ops.fused_iterate_shared(
+                d["A"], state["fac"]["Minv"], state["fac"]["M"], d["q"],
+                rho_vec, d["lam"], d["l"], d["u"], state["x"], state["z"],
+                state["y"], cone=cone, sigma=settings.sigma,
+                alpha=settings.alpha, k=settings.check_every,
+                refine_steps=settings.refine_steps)
         return dict(xn=xn, zn=zn, yn=yn)
     return pre
 
@@ -734,7 +737,8 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     rounds after the first run while a lane is neither solved in its
     round nor frozen (`graph.repeat`), the f64 phase where a lane is
     unsolved and feasible (`graph.cond`); plain, each reads one flag,
-    agreed over the mesh.
+    agreed over the mesh. Phase 1, each round and the fallback run inside
+    the spans 'phase1', 'round' and 'fallback'.
     """
     f32, f64 = torch.float32, torch.float64
     cone = qp.cone
@@ -749,8 +753,9 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     # One Ruiz pass serves phase 1 and every correction round.
     drv(START)
     scaling1 = Scaling(**drv.state["sc"])
-    sol = _phase(qp, x0, z0, y0, s1, backend, scaling=scaling1, mesh=mesh,
-                 dtype=f32)
+    with trace.span("phase1"):
+        sol = _phase(qp, x0, z0, y0, s1, backend, scaling=scaling1,
+                     mesh=mesh, dtype=f32)
     drv.set(dict(p1=dict(x=sol.x, y=sol.y, z=sol.z, status=sol.status,
                          iters=sol.iters, rho=sol.rho,
                          history=sol.history)))
@@ -785,9 +790,9 @@ def _solve_shared_recentered(qp: QPData, x0, z0, y0, settings: Settings,
     # or froze: a round costs a factorisation and check_every iterations
     # even when it converges at once.
     graph.repeat(max(settings.recenter_rounds, 0), round_,
-                 lambda: drv.state["flags"], agreed)
+                 lambda: drv.state["flags"], agreed, span="round")
     drv(FINAL)
-    graph.cond(drv.state["flags"], fallback, agreed)
+    graph.cond(drv.state["flags"], fallback, agreed, span="fallback")
     out, = drv.result("out")
     return Solution(**out)
 
@@ -796,27 +801,34 @@ def _shared_program(inputs, *, cone, settings: Settings, backend: str,
                     mesh) -> dict:
     """The driver of `_solve_shared_core`'s program: the solve by
     precision strategy from its inputs ('raw' problem, warm start 'x0',
-    'z0', 'y0'); returns the Solution's leaves."""
+    'z0', 'y0'); returns the Solution's leaves. A one-phase solve runs
+    inside the span 'single' or 'double', the two-phase one inside
+    'phase1' and 'phase2'."""
     qp = QPData(**inputs["raw"], cone=cone)
     x0, z0, y0 = inputs["x0"], inputs["z0"], inputs["y0"]
     precision = settings.precision
     f32, f64 = torch.float32, torch.float64
     if precision == "single":
-        sol = _phase(qp, x0, z0, y0, settings, backend, mesh=mesh)
+        with trace.span("single"):
+            sol = _phase(qp, x0, z0, y0, settings, backend, mesh=mesh)
     elif precision == "double":
-        sol = _phase(qp, x0, z0, y0, settings, backend, mesh=mesh,
-                     dtype=f64)
+        with trace.span("double"):
+            sol = _phase(qp, x0, z0, y0, settings, backend, mesh=mesh,
+                         dtype=f64)
     elif settings.recenter_rounds > 0:
         sol = _solve_shared_recentered(qp, x0, z0, y0, settings, backend,
                                        mesh)
     else:
         # recenter_rounds=0: the classic f32 -> f64 two-phase.
-        sol32 = _phase(qp, x0, z0, y0, _s32_of_shared(settings), backend,
-                       mesh=mesh, dtype=f32)
-        sol64 = _phase(qp, clean64(sol32.x), clean64(sol32.z),
-                       clean64(sol32.y),
-                       settings.replace(precision="single", warm_start=True),
-                       backend, mesh=mesh, dtype=f64)
+        with trace.span("phase1"):
+            sol32 = _phase(qp, x0, z0, y0, _s32_of_shared(settings),
+                           backend, mesh=mesh, dtype=f32)
+        with trace.span("phase2"):
+            sol64 = _phase(qp, clean64(sol32.x), clean64(sol32.z),
+                           clean64(sol32.y),
+                           settings.replace(precision="single",
+                                            warm_start=True),
+                           backend, mesh=mesh, dtype=f64)
         p1_inf = (sol32.status == _PINF) | (sol32.status == _DINF)
         d = qp.dtype
         sol = Solution(
@@ -857,20 +869,23 @@ def solve_batch_shared(qp: QPData, settings: Settings = Settings(),
     hold this rank's lanes (`shard_batch`); the solution is then this
     rank's lanes, and every rank of the mesh must call with the same
     settings. Tensors carry no placement, so the mesh is passed here
-    where the reference reads it from the batch's sharding.
+    where the reference reads it from the batch's sharding. The call is
+    the host span 'solve_batch_shared' (utils/trace).
     """
     if qp.l.dim() < 2:
         raise ValueError("solve_batch_shared expects batched l/u (B, m)")
-    dtype, dev = qp.dtype, qp.device
-    B = qp.l.shape[0]
-    if x0 is None:
-        x0 = torch.zeros((B, qp.n), dtype=dtype, device=dev)
-    if z0 is None:
-        z0 = torch.zeros((B, qp.m), dtype=dtype, device=dev)
-    if y0 is None:
-        y0 = torch.zeros_like(z0)
-    backend = resolve_backend(settings, dev, qp.n)
-    return _solve_shared_core(qp, x0, z0, y0, settings, backend, mesh)
+    with trace.host("solve_batch_shared"):
+        with trace.host("inputs"):
+            dtype, dev = qp.dtype, qp.device
+            B = qp.l.shape[0]
+            if x0 is None:
+                x0 = torch.zeros((B, qp.n), dtype=dtype, device=dev)
+            if z0 is None:
+                z0 = torch.zeros((B, qp.m), dtype=dtype, device=dev)
+            if y0 is None:
+                y0 = torch.zeros_like(z0)
+            backend = resolve_backend(settings, dev, qp.n)
+        return _solve_shared_core(qp, x0, z0, y0, settings, backend, mesh)
 
 
 def make_data_mesh(n_devices: int | None = None, device=None,

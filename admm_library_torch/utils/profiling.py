@@ -23,7 +23,9 @@ def _sync():
 def trace(logdir: str):
     """Profile the enclosed block, host and (where there is one) the
     card, and write the trace under `logdir` (`*.pt.trace.json`, which
-    TensorBoard and chrome://tracing read). Yields the profiler."""
+    TensorBoard and chrome://tracing read). Yields the profiler.
+    It cannot see the kernels inside CUDA-graph conditional bodies (a
+    captured solve's phases): use `utils/trace` for those."""
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)

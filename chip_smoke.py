@@ -211,7 +211,12 @@ Every captured path is held bitwise to the same solve with every
 segment eager, each kernel launched as often. A kernel's launches count
 the times it ran: one per eager launch, one per replay of a graph that
 holds it at top level, and one per pass of a conditional body that
-launches it (counted on the card).
+launches it (counted on the card). The script runs with utils/trace
+off, so every bitwise check holds the graphs a caller replays; the
+passes of the phases' WHILE nodes, which the card counts only in graphs
+captured with tracing on, come from a traced first run and rerun of
+each path of the graph phase, held bitwise to its untraced rerun (and
+from the nested probe, run traced).
 Phases 9-18 run no kernel of their own: their backends are plain
 PyTorch, the forms the JAX package's lax.scan, vmap and shard_map map
 to (phase 15 runs the fused kernel on its lanes).
@@ -526,16 +531,24 @@ def _nested_probe(dev):
                                  adaptive_rho_interval=2), 3)
         return [int(loop.state[k]) for k in ("it", "acc", "r")]
 
+    from admm_library_torch.utils import trace
     cache = graph.CheckCache()
     cache.prepare_nodes(dev)
     got = {}
-    for stop, max_iter in ((5, 20), (9, 20), (30, 13), (1, 20), (12, 20),
-                           (7, 7)):
-        want = run(False, stop, max_iter, None)
-        got[f"{stop}/{max_iter}"] = have = run(True, stop, max_iter, cache)
-        check(have == want, f"device: the nested nodes ran to {have} "
-              f"(stop {stop}, max_iter {max_iter}), the plain loop to "
-              f"{want}")
+    # Traced: the card counts the WHILE passes only in a traced capture.
+    trace.enable()
+    try:
+        for stop, max_iter in ((5, 20), (9, 20), (30, 13), (1, 20),
+                               (12, 20), (7, 7)):
+            want = run(False, stop, max_iter, None)
+            got[f"{stop}/{max_iter}"] = have = run(True, stop, max_iter,
+                                                   cache)
+            check(have == want, f"device: the nested nodes ran to {have} "
+                  f"(stop {stop}, max_iter {max_iter}), the plain loop to "
+                  f"{want}")
+    finally:
+        trace.disable()
+        trace.reset()
     entry, = cache.entries.values()
     (phase, nodes), = entry.body_nodes.items()
     check(len(phase.reachable) == 4, "device: the nested probe's phase does "
@@ -979,8 +992,8 @@ def _captured_runs(fn, *args, reruns=1):
     """fn(*args) from an empty check cache, then `reruns` reruns: every
     result, and a record of the captured checks (core/graph.py) with
     each run's wall-clock, kernel launches, segments run by name
-    (`_SegmentCount`), the host's reads (`_HostReads`), the passes of the
-    phases' WHILE nodes and graph.CACHE.stats deltas (captures, replays
+    (`_SegmentCount`), the host's reads (`_HostReads`) and
+    graph.CACHE.stats deltas (captures, replays
     (graph launches), warm-ups, capture ms; `graph_rerun` the last
     rerun, `graph_reruns` each where there are more), the cache's
     entries, the nodes of each graph (counted after the last run, so
@@ -996,7 +1009,6 @@ def _captured_runs(fn, *args, reruns=1):
         before = dict(graph.CACHE.stats)
         if i == reruns:
             graph.CACHE.replay_events = []
-        passes = graph.CACHE.while_passes()
         reads = _HostReads()
         with _SegmentCount() as segments, _ProgramCalls(reads) as progs:
             sol, wall, launches = _timed_run(fn, *args, reads=reads)
@@ -1004,7 +1016,6 @@ def _captured_runs(fn, *args, reruns=1):
         runs.append(dict(wall_s=wall, launches=launches,
                          segments=segments.counts, host_reads=reads.count,
                          programs=progs.calls,
-                         while_passes=graph.CACHE.while_passes() - passes,
                          **{
                              k: graph.CACHE.stats[k] - before[k]
                              for k in before}))
@@ -2837,6 +2848,30 @@ def _fallback_iters():
     return int(state["it"])
 
 
+def _traced_fields(tag, want, fn, *args):
+    """fn(*args) with utils/trace on (its graphs entries of their own): a
+    first run (warm-up and capture) and a rerun, held bitwise to the
+    untraced rerun `want`, and the passes of the phases' WHILE nodes in
+    the traced rerun, which the card counts only in graphs captured with
+    tracing on. Returns the record's fields."""
+    from admm_library_torch.core import graph
+    from admm_library_torch.utils import trace
+    trace.enable()
+    try:
+        fn(*args)
+        graph.zero_counts()
+        sol, wall, _ = _timed_run(fn, *args)
+        passes = graph.CACHE.while_passes()
+    finally:
+        trace.disable()
+        trace.reset()
+    out = dict(traced_rerun_wall_s=wall, traced_rerun_while_passes=passes,
+               traced_rerun_is_untraced_bitwise=_bitwise(sol, want))
+    check(out["traced_rerun_is_untraced_bitwise"],
+          f"{tag}: the traced rerun differs from the untraced one")
+    return out
+
+
 def _check_batch_graph(name, rec):
     check(rec["graphs_holding_kernel_1"] > 0,
           f"graph {name}: no graph holds kernel 1")
@@ -2920,13 +2955,11 @@ def phase_graph(dev):
         runs = []
         for _ in range(2):
             before = dict(graph.CACHE.stats)
-            passes = graph.CACHE.while_passes()
             reads = _HostReads()
             with _SegmentCount() as segments, _ProgramCalls(reads) as progs:
                 sol, wall, launches = _timed_run(fn, qp, s, reads=reads)
             runs.append(dict(wall_s=wall, **launches, **{
                 k: graph.CACHE.stats[k] - before[k] for k in before},
-                while_passes=graph.CACHE.while_passes() - passes,
                 host_reads=reads.count, segments=segments.counts,
                 programs=progs.calls))
             if len(runs) == 1:
@@ -2956,6 +2989,7 @@ def phase_graph(dev):
                                            first_launches, fn, qp, s))
         if name == "b128_fallback":
             rec["fallback_iters"] = _fallback_iters()
+        rec.update(_traced_fields(f"graph {name}", sol, fn, qp, s))
         emit("graph", **rec)
         check(runs[0]["captures"] > 0, f"graph {name}: nothing was captured")
         # Every variant met in the first run was captured there (each

@@ -45,8 +45,10 @@ and iterations are equal. Prints one JSON line per (side, turn, path),
 one summary line per path (medians over every turn, the tree's median
 rerun over the parent's), then the card's nvidia-smi name and power
 limit. Each record also holds the passes of the phases' WHILE nodes
-where the side counts them (`while_passes`, since the phase loop runs
-on the card) and the host's reads of each rerun counted in Python
+where the side counts them with tracing off (`while_passes`: a side
+with utils/trace counts them only in traced graphs and records None,
+since both sides run untraced and no rerun is timed with stamps) and
+the host's reads of each rerun counted in Python
 (`host_reads`: item, tolist, bool, float and int on CUDA tensors),
 which needs no profiler and so covers the paths whose kernels the
 profiler cannot hold. Needs a CUDA card; no JAX. `_scratch/` is
@@ -237,7 +239,11 @@ def _timed(fn, *args):
     counts them, the passes of its phases' WHILE nodes)."""
     import torch
     from admm_library_torch.core import graph
-    passes = getattr(graph.CACHE, "while_passes", lambda: 0)
+    try:
+        from admm_library_torch.utils import trace  # noqa: F401
+        passes = lambda: None  # noqa: E731  (counted only when traced)
+    except ImportError:
+        passes = getattr(graph.CACHE, "while_passes", lambda: 0)
     before = dict(graph.CACHE.stats)
     torch.cuda.synchronize()
     passes0 = passes()
@@ -248,7 +254,8 @@ def _timed(fn, *args):
         secs = time.perf_counter() - t0
     stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
     return out, secs, dict(stats, host_reads=reads.count,
-                           while_passes=passes() - passes0)
+                           while_passes=(None if passes0 is None
+                                         else passes() - passes0))
 
 
 def _graph_nodes():

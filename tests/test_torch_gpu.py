@@ -7,16 +7,20 @@ machine run it without the JAX suite's conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
+import contextlib
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from admm_library_torch import ConeSpec, QPData, Settings, Status
 from admm_library_torch import solve_batch_shared
-from admm_library_torch.core import admm
+from admm_library_torch.core import admm, graph
 from admm_library_torch.core.scaling import ruiz_equilibrate
 from admm_library_torch.models import monte_carlo as mc
 from admm_library_torch.ops import fused, kkt
+from admm_library_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -959,24 +963,37 @@ def test_replayed_check_is_the_eager_check_b128_round(dev, monkeypatch):
 
 
 def _eager_and_captured(monkeypatch, fn, *args):
-    """fn(*args) with every check eager, then with the capture rule as
-    it is, from an empty cache, twice (a program's first run is its
-    warm-up and capture, the second its replay; the second bitwise the
-    first): (eager result, captured result, the cache's counters over
-    both runs)."""
+    """fn(*args) with every check eager; then twice with utils/trace on,
+    which alone counts the phases' WHILE passes on the card; then with
+    the capture rule as it is and tracing off, from an empty cache,
+    twice (a program's first run is its warm-up and capture, the second
+    its replay; the second bitwise the first, and each traced run
+    bitwise the first): (eager result, captured result, the cache's
+    counters over the two untraced runs and the traced runs' WHILE
+    passes). The cache is left as the untraced runs leave it."""
     from admm_library_torch.core import graph
     with monkeypatch.context() as m:
         m.setattr(graph, "capturable", lambda *a, **k: False)
         eager = fn(*args)
     graph.CACHE.clear()
+    trace.enable()
+    try:
+        graph.zero_counts()
+        traced = [fn(*args) for _ in range(2)]
+        passes = graph.CACHE.while_passes()
+    finally:
+        trace.disable()
+        trace.reset()
+    graph.CACHE.clear()
+    graph.zero_counts()
     before = dict(graph.CACHE.stats)
-    passes = graph.CACHE.while_passes()
     captured = fn(*args)
     again = fn(*args)
     for f in ("x", "z", "y", "status"):
-        assert torch.equal(getattr(captured, f), getattr(again, f)), f
+        for other in [again] + traced:
+            assert torch.equal(getattr(captured, f), getattr(other, f)), f
     stats = {k: graph.CACHE.stats[k] - before[k] for k in before}
-    stats["while_passes"] = graph.CACHE.while_passes() - passes
+    stats["while_passes"] = passes
     return eager, captured, stats
 
 
@@ -1036,8 +1053,9 @@ def test_captured_cg_loop_is_the_eager_loop(loop, backend, cg_max_iter, dev,
                                      cg_max_iter=cg_max_iter)
     if backend == "pallas_cg":
         # Every launch of the captured run came from the phase's bodies,
-        # counted on the card.
-        assert counts[0] > 0 and counts[0] == counts[1]
+        # counted on the card (counts: eager, two traced runs, then the
+        # untraced first run and rerun).
+        assert counts[0] > 0 and counts[0] == counts[3]
         assert pcg.pallas_cg_solve.host == 0
     else:
         bodies = [e.body_nodes[v] for e in graph.CACHE.entries.values()
@@ -2042,3 +2060,189 @@ def test_kernel_1_in_an_if_body_is_the_eager_launch(dev):
     assert fused.fused_iterate_shared.launches == 2
     assert fused.fused_iterate_shared.host == 0
     assert cache.stats["captures"] == 1 and cache.stats["replays"] == 3
+
+
+# ---------------------------------------------------------------- spans
+
+def _mc16(dev, seed=2):
+    qp, _, _ = mc.monte_carlo_mpc(torch.Generator().manual_seed(seed),
+                                  batch=16, N=10, dim=2, device=dev)
+    return qp
+
+
+@pytest.fixture
+def tracing(dev):
+    """Tracing on for the test, with counts zeroed and everything
+    recorded forgotten after."""
+    trace.reset()
+    trace.enable()
+    graph.zero_counts()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+def _graph_nodes(entry, variant):
+    """Nodes of an entry's captured graph (its kept template) and of its
+    conditional bodies."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(
+        ctypes.c_void_p(entry.graphs[variant].raw_cuda_graph()), None,
+        ctypes.byref(n))
+    assert rc == 0
+    return n.value + entry.body_nodes.get(variant, 0)
+
+
+def test_stamps_time_a_captured_kernel_as_cuda_events_do(dev, tracing):
+    """A span around products of known CUDA-event time inside a captured
+    graph reads that time within 2% or 2 us a replay; its count is the
+    replays."""
+    trace.prepare(dev)
+    a = torch.randn(4096, 4096, device=dev)
+    side = torch.cuda.Stream(dev)
+    graphs = []
+    for spanned in (False, True):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                a @ a
+        torch.cuda.synchronize()
+        with torch.cuda.graph(g, stream=side):
+            with (trace.span("probe") if spanned
+                  else contextlib.nullcontext()):
+                b = a @ a
+                b = b @ a
+        graphs.append(g)
+    times = []
+    for g in graphs:
+        g.replay()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(10):
+            g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 10)
+    out = trace.read()
+    probe = out["device"]["probe"]
+    assert probe["count"] == 11
+    span_ms = probe["ns"] / probe["count"] / 1e6
+    assert abs(span_ms - times[0]) <= max(0.02 * times[0], 0.002), (
+        span_ms, times)
+    (clock,) = out["clock"].values()
+    assert clock["uncertainty_ns"] < 20_000 and out["replays"] == []
+
+
+def test_a_traced_program_records_its_tree_on_the_card(dev, tracing):
+    """A traced solve_batch_shared: its first run (the eager warm-up)
+    timed on the host, its replay on the card's stamps with the same
+    paths and, on the same data, the same counts; the program span one
+    ring row that lies between the launch and the end of the call on
+    the host clock, and within 1% of the replay's CUDA-event time."""
+    qp, s = _mc16(dev), Settings()
+    graph.CACHE.replay_events = []
+    try:
+        solve_batch_shared(qp, s)
+        warm = trace.read()
+        trace.reset()
+        fused.fused_iterate_shared.launches = 0
+        solve_batch_shared(qp, s)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter_ns()
+        events = graph.CACHE.replay_events
+        (event_ms,) = [a.elapsed_time(b) for a, b in events]
+    finally:
+        graph.CACHE.replay_events = None
+    out = trace.read()
+    device, host = out["device"], warm["host"]
+    root = "solve_batch_shared"
+    assert device and set(device) <= set(host)
+    for path, t in device.items():
+        assert t["count"] == host[path]["count"], path
+    for path in ("", "/phase1/checks/check/kernel1", "/round/checks/check",
+                 "/final"):
+        assert root + path in device, path
+    assert device[root]["count"] == 1
+    assert (device[root + "/phase1/checks/check/kernel1"]["count"]
+            == device[root + "/phase1/checks/check"]["count"])
+    (row,) = out["replays"]
+    (clock,) = out["clock"].values()
+    u = clock["uncertainty_ns"]
+    assert u < 20_000 and row["path"] == root
+    launch = [sp for sp in out["spans"] if sp["name"] == "launch"]
+    assert len(launch) == 1
+    assert launch[0]["start"] - u <= row["start"] < row["end"] <= t_end + u
+    assert abs(device[root]["ns"] / 1e6 - event_ms) <= 0.01 * event_ms
+    assert fused.fused_iterate_shared.launches == sum(
+        t["count"] for p, t in device.items() if p.endswith("/kernel1"))
+    # On the card too each span holds its children: the parts of the
+    # program (kernel 1, the plain body, the rest of the checks, the
+    # work outside them) sum to its span.
+    for path, t in device.items():
+        inner = sum(c["ns"] for p, c in device.items()
+                    if p.rpartition("/")[0] == path)
+        assert t["ns"] >= inner, path
+
+
+def test_an_untraced_program_holds_no_stamp_and_no_counter(dev,
+                                                            monkeypatch):
+    """With tracing off the captured program holds no stamp and no count
+    of its phases' WHILE passes: its node count is the traced graph's
+    less one node a stamp and a phase's pass counter (kernel 1's launch
+    counters are in both). Its answers are the traced program's, bit
+    for bit; after its replay the launches still read, the passes raise,
+    and zeroing the counts clears that."""
+    qp, s = _mc16(dev, seed=3), Settings()
+    stamps, phases = [], []
+    real_stamp, real_phase = trace._stamp, graph.phase_nodes
+
+    def stamp(d, slot, mode):
+        if torch.cuda.is_current_stream_capturing():
+            stamps.append(mode)
+        return real_stamp(d, slot, mode)
+
+    def phase(*a, **k):
+        phases.append(1)
+        return real_phase(*a, **k)
+    monkeypatch.setattr(trace, "_stamp", stamp)
+    monkeypatch.setattr(graph, "phase_nodes", phase)
+    monkeypatch.setattr(graph.CACHE, "keep_graphs", True)
+    graph.CACHE.clear()
+    try:
+        nodes, entries, sols = [], [], []
+        for on in (False, True):
+            if on:
+                trace.enable()
+            del stamps[:], phases[:]
+            for _ in range(2):
+                sol = solve_batch_shared(qp, s)
+            sols.append(sol)
+            entry = list(graph.CACHE.entries.values())[-1]
+            nodes.append(_graph_nodes(entry, graph.PROGRAM))
+            entries.append((entry, len(stamps), len(phases)))
+            if not on:
+                assert entry.blind_passes[graph.PROGRAM] == 1
+                assert stamps == []
+                assert fused.fused_iterate_shared.launches > 0
+                with pytest.raises(RuntimeError, match="tracing off"):
+                    graph.CACHE.while_passes()
+                graph.zero_counts()
+        for f in ("x", "z", "y", "status", "iters"):
+            assert torch.equal(getattr(sols[0], f), getattr(sols[1], f)), f
+        (off, _, _), (on, n_stamps, n_phases) = entries
+        assert on.blind_passes[graph.PROGRAM] == 0
+        assert (len(on.body_kernels[graph.PROGRAM])
+                == len(off.body_kernels[graph.PROGRAM]) > 0)
+        assert n_stamps > 0 and n_phases > 0
+        assert nodes[1] - nodes[0] == n_stamps + n_phases, (nodes, n_stamps,
+                                                            n_phases)
+    finally:
+        trace.disable()
+        trace.reset()
+        graph.zero_counts()
+        graph.CACHE.clear()
