@@ -16,18 +16,28 @@
 // What bounds it. A k-block must read A, Minv and M once and do
 // 2 B k (2 m n + (1 + 2 refine) n^2) flops: at B=1, n=2000, k=25 about
 // 15 us of HBM and as much of FFMA; at B=128, n=450 about 97 us of
-// FFMA. What
+// FFMA; at B=1024, n=450 0.78 ms of FFMA, with each product moving the
+// lanes' left operand and the matrix through L2 to every block that
+// needs them. What
 // held the first design (one launch of a tiled GEMM per product,
 // 125-150 dependent launches per k-block, at B=1 one busy tile row of
-// 32) far from that was latency, and latency still sets the pace here:
-// grid barriers and round trips to L2 (PERF.md section 6).
+// 32) far from that was latency, and latency still sets the pace up to
+// B=256: grid barriers and round trips to L2 (PERF.md section 6).
 //
-// Design. One persistent cooperative launch runs all k iterations with
-// one block per SM. ops/fused.plan cuts A into (lane group x row chunk
-// x column chunk) tiles, one per block, and M^-1 and M likewise; a block
-// keeps its tiles in shared memory for the whole launch where they fit
-// (the Pallas kernel's VMEM residency, spread over the grid) and
-// streams them from L2 in every product where they do not. Each product
+// Two designs, chosen by ops/fused.plan from B. Up to B=256 the split
+// design below, which spreads each product over the whole grid. Above
+// it the cluster design (namespace big, further down), where the FFMA
+// rate and the L2 set the pace: clusters own their lanes, so the grid
+// needs no barrier and no partial sums, and each block runs its
+// products as a Hopper SGEMM, register-blocked and fed by TMA.
+//
+// The split design. One persistent cooperative launch runs all k
+// iterations with one block per SM. ops/fused.plan cuts A into (lane
+// group x row chunk x column chunk) tiles, one per block, and M^-1 and
+// M likewise; a block keeps its tiles in shared memory for the whole
+// launch where they fit (the Pallas kernel's VMEM residency, spread
+// over the grid) and streams them from L2 in every product where they
+// do not. Each product
 // is a phase in which every block multiplies its lanes' slice of the
 // left operand (staged in shared memory) by its tile, the reduction
 // axis split over the threads as well, and writes its partial sums; a
@@ -61,22 +71,22 @@
 // loads; nothing is padded in device memory.
 //
 // Numerics. Products of f32 operands, no TF32; the accumulator is f64
-// up to B=256 (each product then rounded to f32 once, whatever the
-// partition) and f32 above. An output's partial sums are formed in a
-// fixed order inside a block and added across blocks in chunk order by
-// one thread (no atomics), so reruns are bitwise identical. The
+// (each product then rounded to f32 once, whatever the partition). An
+// output's partial sums are formed in a fixed order inside a block and
+// added across blocks in chunk order by one thread (no atomics), so reruns are bitwise identical. The
 // elementwise steps use _rn intrinsics so that nvcc does not contract
 // them into FMAs, and follow the plain PyTorch version's operation
 // order. Comparisons are written so that a NaN propagates (the
 // solver's NaN tripwire relies on it).
 //
 // Interface: plain C, loaded with ctypes (ops/fused.py). The entry
-// point launches once on the given stream and returns the first
-// non-zero CUDA error. It may be called while that stream is being
-// captured into a CUDA graph: the barrier counter is then zeroed by a
-// node of the same graph before the kernel's node, so every replay
-// starts it from 0.
+// point launches once on the given stream, the design its plan's
+// length names, and returns the first non-zero CUDA error. It may be
+// called while that stream is being captured into a CUDA graph: the
+// split design's barrier counter is then zeroed by a node of the same
+// graph before the kernel's node, so every replay starts it from 0.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -89,7 +99,7 @@ namespace {
 __host__ __device__ constexpr int threads_of(int tl) {
   return tl == 1 ? 512 : 256;
 }
-constexpr int PLAN_INTS = 29;
+constexpr int PLAN_INTS = 28;
 
 struct Tiling {
   int groups, lanes, rsplits, rchunk, csplits, cchunk;
@@ -205,10 +215,10 @@ __device__ __forceinline__ float4 load4_global(const float* p, int left,
   return v;
 }
 
-// The accumulator AccT of the products (ops/fused.acc_bytes): f64 up to
-// B=256, where latency and barriers set the pace and the FMA units idle,
-// so that a product of f32 operands is rounded once, whatever the
-// partition; f32 at larger B, where the FMA rate starts to matter.
+// The accumulator AccT of the products (ops/fused.ACC_BYTES): f64, as
+// latency and barriers set the pace here and the FMA units idle, so
+// that a product of f32 operands is rounded once, whatever the
+// partition.
 
 __device__ __forceinline__ float mac(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -635,6 +645,662 @@ cudaError_t launch(Args& a, int grid, int smem, cudaStream_t s) {
   return err != cudaSuccess ? err : last;
 }
 
+
+// ---- The large-batch design (B > F64_BATCH, ops/fused.ClusterPlan) ----
+//
+// Lanes are independent, so a thread-block cluster owns its lanes
+// outright: cluster g takes lanes [g L, (g+1) L), and its block of rank
+// j computes columns [j w, (j+1) w) of every n-wide product's output
+// (w = cols_n) and rows [j w', (j+1) w') of A in the z-tilde product
+// (w' = cols_m), over the whole reduction axis. No output is split over
+// blocks, so there are no partial sums in L2 and no summing phases, and
+// the only barriers are the cluster's own (barrier.cluster, release and
+// acquire), not the grid's: 5 an iteration with refine_steps = 1, 6
+// where the cone has SOC blocks. Each product's elementwise step runs in
+// the epilogue of the product that feeds it; the z-tilde product's
+// epilogue writes rho.z - y, the next rhs product's left operand.
+//
+// A product is a tiled SGEMM on the FFMA units, f32 throughout (no
+// TF32). A tile is LT = 72 lanes x CT = 64 columns. Eight consumer
+// warps compute it: four groups of 8 x 8 threads, a thread holding 9
+// lanes x 8 columns in registers (17 float4 shared-memory loads per 288
+// FFMA, over 4 FFMAs per word loaded), each group taking every fourth
+// run of 4 reduction steps of a stage; the groups' sums are added in
+// group order through shared memory. A ninth, producer warp streams the
+// stages of KC = 32 reduction steps into a ring of STAGES with bulk
+// tensor copies (TMA: one box of the left operand and one of the
+// matrix a stage, zero past the tensors' ends) that complete on an
+// mbarrier per stage; the consumers release a stage on a second one. So
+// the next stages arrive while the FFMAs of this one run, and no
+// consumer starts a copy. The copies need rows of 16 bytes: the scratch
+// has them, and the entry point copies A, M^-1 and M into such rows
+// (cudaMemcpy2DAsync) where n is not a multiple of 4. The boxes of 32
+// steps come swizzled (128B): the four thread rows of a warp and the
+// eight columns of a quarter warp read distinct banks. The z-tilde
+// product takes A's rows k-contiguous, as the left operand is; a quarter
+// warp of the n-wide products reads 32 neighbouring columns.
+//
+// What bounds it at the flagship shape (B=1024, n=450, m=456, k=25):
+// 52.1 GFLOP of FFMA, 0.78 ms at 67 TFLOP/s over the whole card, and
+// the L2: each block reads its 72 lanes' left operand and its 64
+// columns of the matrix once per product, 17 KB a stage of 32 steps,
+// about 3.9 GB a k-block over the card's 120 blocks (15 clusters of 8).
+//
+// The launch puts every cluster on the card at once (checked against
+// cudaOccupancyMaxActiveClusters, and refused otherwise, as the
+// cooperative launch is). The sums run in a fixed order for a given
+// plan, with no atomics: reruns are bitwise identical.
+
+#define FUSED_CLUSTER_SYNC() \
+  asm volatile(                                                        \
+      "barrier.cluster.arrive.release.aligned;\n"                      \
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory")
+
+namespace big {
+
+constexpr int CT = 64;                  // output columns of a tile
+constexpr int RL = 9;                   // lanes of a thread
+constexpr int LT = 8 * RL;              // lanes of a tile
+constexpr int KC = 32;                  // reduction steps of a stage
+constexpr int STAGE = LT * KC + KC * CT;  // floats of a stage: Ls, then Rs
+constexpr int STAGES = 4;
+constexpr int GROUPS = 4;               // consumer groups of 64 threads
+constexpr int CONSUMERS = 64 * GROUPS;
+constexpr int THREADS = CONSUMERS + 32; // and the producer warp
+constexpr int MAX_CLUSTER = 8;
+constexpr int PLAN_INTS = 9;
+// Shared memory, in floats from a 1024-byte aligned base: the ring, the
+// groups' sums, the mbarriers (full, then empty, 8 bytes each); 1024
+// bytes more for the alignment.
+constexpr int RED = STAGES * STAGE;
+constexpr int BARS = RED + GROUPS * LT * CT;
+constexpr int SMEM_BYTES = 4 * BARS + 16 * STAGES + 1024;
+static_assert((4 * LT * KC) % 1024 == 0 && (4 * STAGE) % 1024 == 0,
+              "stages and their parts start on 1024 bytes (128-byte swizzle)");
+
+// The tensor maps of the bulk tensor copies: the left operands v, rhs,
+// xt and r (boxes of LT lanes x KC steps), A, M^-1 and M as R[k][c]
+// (KC rows x CT columns) and A as R[c][k] (CT rows x KC steps). Boxes
+// of 128-byte rows are swizzled (128B); all read zero out of bounds.
+struct Maps {
+  CUtensorMap v, rhs, xt, r, a_nn, a_nt, minv, m;
+};
+
+struct Args {
+  const float* A;       // (m, ld_n)
+  const float* Minv;    // (n, ld_n)
+  const float* M;       // (n, ld_n)
+  const float* q;       // (n)
+  const float* rho;     // (m)
+  const float* lam_r;   // (ml)
+  const float* l;       // (B, m)
+  const float* u;       // (B, m)
+  float* x;             // (B, n) in/out
+  float* z;             // (B, m) in/out
+  float* y;             // (B, m) in/out
+  float* rhs;           // (B, ld_n) scratch
+  float* xt;            // (B, ld_n) scratch
+  float* r;             // (B, ld_n) scratch
+  float* v;             // (B, ld_m) scratch: rho.z - y
+  float* w;             // (B, ld_m) scratch: relaxed z-tilde on SOC rows
+  int B, n, m, mb, ml, n_soc, soc_dim;
+  float sigma, alpha, one_minus_alpha;
+  int k, refine_steps;
+  int cluster, lanes, ld_n, ld_m, cols_n, cols_m;
+};
+
+enum Epi { E_RHS, E_SOLVE, E_RESID, E_CORRECT, E_ZT };
+
+__device__ __forceinline__ float relax(const Args& a, float t, float prev) {
+  return __fadd_rn(__fmul_rn(a.alpha, t), __fmul_rn(a.one_minus_alpha, prev));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned long long* bar,
+                                          int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The box of `map` at (c0 innermost, c1) into shared dst (1024-byte
+// aligned), completing on bar.
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         int c0, int c1,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// The operands of a tile: lanes [lb, lt1) of the left operand (map L,
+// K steps long, zero past them) and the matrix R (map R), for columns
+// [ct, ct + CT) of the output.
+struct Operands {
+  const CUtensorMap* L;
+  const CUtensorMap* R;
+  int K, lb, lt1, ct;
+};
+
+// The producer (one thread): stage q's boxes for reduction steps [k0, k0
+// + KC): Ls (LT x KC) of the left operand, and Rs, (KC x CT) of R[k][c]
+// for NT = false, (CT x KC) of A's rows for NT = true.
+template <bool NT>
+__device__ __forceinline__ void produce(const Operands& o, float* Ls,
+                                        float* Rs, int k0,
+                                        unsigned long long* full) {
+  bar_expect(full, 4 * STAGE);
+  tma_load(Ls, o.L, k0, o.lb, full);
+  if (!NT)
+    tma_load(Rs, o.R, o.ct, k0, full);
+  else
+    tma_load(Rs, o.R, k0, o.ct, full);
+}
+
+// A consumer thread's 9 x 8 register tile over its group's runs of a
+// stage (steps of 4 below `steps`): lanes ty + 8 i; NT = false: columns
+// 4 tx .. 4 tx + 3 and 32 + 4 tx .. 32 + 4 tx + 3; NT = true: columns
+// tx + 8 j. Ls and the NT Rs hold 128-byte rows whose 16-byte pieces p
+// sit at p ^ (row % 8): the four thread rows of a warp (ty) and the
+// eight columns of a quarter warp (tx) read distinct banks.
+template <bool NT>
+__device__ __forceinline__ void consume(const float* Ls, const float* Rs,
+                                        float (&acc)[RL][8], int kg, int ty,
+                                        int tx, int steps) {
+#pragma unroll
+  for (int run = 0; run < KC / 4 / GROUPS; ++run) {
+    const int s = kg + GROUPS * run;
+    if (s >= steps) break;
+    float4 lv[RL];
+#pragma unroll
+    for (int i = 0; i < RL; ++i)
+      lv[i] = *reinterpret_cast<const float4*>(Ls + (ty + 8 * i) * KC +
+                                               4 * (s ^ ty));
+    if (!NT) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* Rr = Rs + (4 * s + kk) * CT;
+        const float4 r0 = *reinterpret_cast<const float4*>(Rr + 4 * tx);
+        const float4 r1 = *reinterpret_cast<const float4*>(Rr + 32 + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < RL; ++i) {
+          const float lk = lane_of(lv[i], kk);
+          acc[i][0] = fmaf(lk, r0.x, acc[i][0]);
+          acc[i][1] = fmaf(lk, r0.y, acc[i][1]);
+          acc[i][2] = fmaf(lk, r0.z, acc[i][2]);
+          acc[i][3] = fmaf(lk, r0.w, acc[i][3]);
+          acc[i][4] = fmaf(lk, r1.x, acc[i][4]);
+          acc[i][5] = fmaf(lk, r1.y, acc[i][5]);
+          acc[i][6] = fmaf(lk, r1.z, acc[i][6]);
+          acc[i][7] = fmaf(lk, r1.w, acc[i][7]);
+        }
+      }
+    } else {
+      float4 rv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        rv[j] = *reinterpret_cast<const float4*>(Rs + (tx + 8 * j) * KC +
+                                                 4 * (s ^ tx));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < RL; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(lane_of(lv[i], kk), lane_of(rv[j], kk), acc[i][j]);
+    }
+  }
+}
+
+// The elementwise steps of EU outputs (b[u], c[u]) whose products are
+// s[u], where ok[u]: the same operations in the same order as finish_n
+// and finish_zt. Every load of the batch is made before the first
+// store, so that the batch costs one round trip to L2, not EU.
+constexpr int EU = 8;
+
+template <int EPI>
+__device__ __forceinline__ void epilogue(const Args& a, const int (&b)[EU],
+                                         const int (&c)[EU],
+                                         const float (&s)[EU],
+                                         const bool (&ok)[EU], bool last) {
+  if (EPI == E_RHS) {
+    float xv[EU], qv[EU];
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      xv[u] = ok[u] ? __ldcg(a.x + (size_t)b[u] * a.n + c[u]) : 0.f;
+      qv[u] = ok[u] ? __ldg(a.q + c[u]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < EU; ++u)
+      if (ok[u])
+        a.rhs[(size_t)b[u] * a.ld_n + c[u]] = __fadd_rn(
+            __fsub_rn(__fmul_rn(a.sigma, xv[u]), qv[u]), s[u]);
+  } else if (EPI == E_RESID) {
+    float rv[EU];
+#pragma unroll
+    for (int u = 0; u < EU; ++u)
+      rv[u] = ok[u] ? __ldcg(a.rhs + (size_t)b[u] * a.ld_n + c[u]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < EU; ++u)
+      if (ok[u]) a.r[(size_t)b[u] * a.ld_n + c[u]] = __fsub_rn(rv[u], s[u]);
+  } else if (EPI == E_SOLVE || EPI == E_CORRECT) {
+    float tv[EU], xv[EU];
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      tv[u] = ok[u] && EPI == E_CORRECT
+                  ? __ldcg(a.xt + (size_t)b[u] * a.ld_n + c[u])
+                  : 0.f;
+      xv[u] = ok[u] && last ? __ldcg(a.x + (size_t)b[u] * a.n + c[u]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      if (!ok[u]) continue;
+      const float v = EPI == E_SOLVE ? s[u] : __fadd_rn(tv[u], s[u]);
+      a.xt[(size_t)b[u] * a.ld_n + c[u]] = v;
+      if (last) a.x[(size_t)b[u] * a.n + c[u]] = relax(a, v, xv[u]);
+    }
+  } else {
+    const int rows = a.mb + a.ml;
+    float zv[EU], yv[EU], rv[EU], lv[EU], uv[EU], lam[EU];
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      const size_t i = (size_t)b[u] * a.m + c[u];
+      const bool row = ok[u] && c[u] < rows;
+      zv[u] = ok[u] ? __ldcg(a.z + i) : 0.f;
+      yv[u] = row ? __ldcg(a.y + i) : 0.f;
+      rv[u] = row ? __ldg(a.rho + c[u]) : 1.f;
+      lv[u] = row ? __ldg(a.l + i) : 0.f;
+      uv[u] = row ? __ldg(a.u + i) : 0.f;
+      lam[u] = row && c[u] >= a.mb ? __ldg(a.lam_r + c[u] - a.mb) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      if (!ok[u]) continue;
+      const size_t i = (size_t)b[u] * a.m + c[u];
+      const size_t iv = (size_t)b[u] * a.ld_m + c[u];
+      const float w = relax(a, s[u], zv[u]);
+      if (c[u] >= rows) {                       // SOC row: after a barrier
+        a.w[iv] = w;
+        continue;
+      }
+      const float rho = rv[u];
+      const float v = __fadd_rn(w, __fdiv_rn(yv[u], rho));
+      float p = v;
+      if (c[u] >= a.mb) {                       // L1 row: soft-threshold
+        float t = __fsub_rn(fabsf(v), lam[u]);
+        t = t < 0.f ? 0.f : t;
+        const float sgn = v > 0.f ? 1.f : (v < 0.f ? -1.f : v);
+        p = __fmul_rn(sgn, t);
+      }
+      const float zn = clip(p, lv[u], uv[u]);
+      const float yn = __fadd_rn(yv[u], __fmul_rn(rho, __fsub_rn(w, zn)));
+      a.z[i] = zn;
+      a.y[i] = yn;
+      a.v[iv] = __fsub_rn(__fmul_rn(rho, zn), yn);
+    }
+  }
+}
+
+// out[b, c] = sum_k left[b, k] R(k, c) for lanes [lb, lt1) and columns
+// [ct, ct1) (at most LT and CT of them), then its epilogue. q counts the
+// block's stages so far, the same in every warp.
+template <bool NT, int EPI>
+__device__ void tile(const Args& a, float* sm, const Operands& o, int ct1,
+                     bool last, int& q) {
+  const int tid = threadIdx.x;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(sm + BARS);
+  unsigned long long* empty = full + STAGES;
+  float* red = sm + RED;
+  const int chunks = (o.K + KC - 1) / KC;
+  const int kg = tid / 64, ty = (tid % 64) / 8, tx = tid % 8;
+  float acc[RL][8];
+#pragma unroll
+  for (int i = 0; i < RL; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if (tid >= CONSUMERS) {
+    for (int c = 0; c < chunks; ++c, ++q) {
+      const int st = q % STAGES;
+      if (tid > CONSUMERS) continue;
+      if (q >= STAGES) bar_wait(empty + st, ((q / STAGES) & 1) ^ 1);
+      float* Ls = sm + st * STAGE;
+      produce<NT>(o, Ls, Ls + LT * KC, c * KC, full + st);
+    }
+  } else {
+    for (int c = 0; c < chunks; ++c, ++q) {
+      const int st = q % STAGES;
+      bar_wait(full + st, (q / STAGES) & 1);
+      const float* Ls = sm + st * STAGE;
+      consume<NT>(Ls, Ls + LT * KC, acc, kg, ty, tx,
+                  (min(KC, o.K - c * KC) + 3) / 4);
+      __syncwarp();
+      if (tid % 32 == 0) bar_arrive(empty + st);
+    }
+  }
+  if (tid < CONSUMERS) {
+    float* mine = red + kg * LT * CT;
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      float* row = mine + (ty + 8 * i) * CT;
+      if (!NT) {
+        *reinterpret_cast<float4*>(row + 4 * tx) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(row + 32 + 4 * tx) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) row[tx + 8 * j] = acc[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e0 = tid; e0 < LT * CT; e0 += EU * THREADS) {
+    int b[EU], c[EU];
+    float s[EU];
+    bool ok[EU];
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      const int e = e0 + u * THREADS;
+      b[u] = o.lb + e / CT;
+      c[u] = o.ct + e % CT;
+      ok[u] = e < LT * CT && b[u] < o.lt1 && c[u] < ct1;
+      float v = 0.f;
+      if (ok[u]) {
+        v = red[e];
+#pragma unroll
+        for (int g = 1; g < GROUPS; ++g) v = __fadd_rn(v, red[g * LT * CT + e]);
+      }
+      s[u] = v;
+    }
+    epilogue<EPI>(a, b, c, s, ok, last);
+  }
+  // The next tile's consumers write red only after its stages, which
+  // the producer fills after this barrier.
+  __syncthreads();
+}
+
+// A block's share of one product: every tile of its lanes [b0, b1) and
+// output columns [c0, c1), the reduction K steps long.
+template <bool NT, int EPI>
+__device__ __forceinline__ void product(const Args& a, float* sm,
+                                        const CUtensorMap* L,
+                                        const CUtensorMap* R, int K, int b0,
+                                        int b1, int c0, int c1, bool last,
+                                        int& q) {
+  for (int lb = b0; lb < b1; lb += LT)
+    for (int ct = c0; ct < c1; ct += CT) {
+      const Operands o{L, R, K, lb, min(b1, lb + LT), ct};
+      tile<NT, EPI>(a, sm, o, min(c1, ct + CT), last, q);
+    }
+}
+
+// After the z-tilde product, the SOC blocks of the cluster's lanes: one
+// thread per (lane, block), spread over the cluster's blocks; the same
+// operations as finish_zt's, from the relaxed w the epilogue stored.
+__device__ void soc_phase(const Args& a, int b0, int b1, int rank) {
+  const int rows = a.mb + a.ml, d = a.soc_dim;
+  const int total = (b1 - b0) * a.n_soc;
+  for (int e = rank * blockDim.x + threadIdx.x; e < total;
+       e += a.cluster * blockDim.x) {
+    const int b = b0 + e / a.n_soc, c0 = rows + (e % a.n_soc) * d;
+    const size_t i0 = (size_t)b * a.m + c0, v0 = (size_t)b * a.ld_m + c0;
+    float nu2 = 0.f, t0 = 0.f;
+    for (int j = 0; j < d; ++j) {
+      const float w = __ldcg(a.w + v0 + j);
+      const float v = __fadd_rn(w, __fdiv_rn(__ldcg(a.y + i0 + j),
+                                             __ldg(a.rho + c0 + j)));
+      if (j == 0) t0 = v;
+      else nu2 = __fadd_rn(nu2, __fmul_rn(v, v));
+    }
+    const float nu = __fsqrt_rn(nu2 < 0.f ? 0.f : nu2);
+    const float safe = nu > 0.f ? nu : 1.f;
+    const float cmid = __fmul_rn(0.5f, __fadd_rn(t0, nu));
+    const bool in_cone = nu <= t0, in_polar = nu <= -t0;
+    const float t_out = in_cone ? t0 : (in_polar ? 0.f : cmid);
+    const float scal = in_cone ? 1.f : (in_polar ? 0.f : __fdiv_rn(cmid, safe));
+    for (int j = 0; j < d; ++j) {
+      const size_t i = i0 + j;
+      const float rho = __ldg(a.rho + c0 + j);
+      const float w = __ldcg(a.w + v0 + j);
+      const float yv = __ldcg(a.y + i);
+      const float zn =
+          j == 0 ? t_out : __fmul_rn(__fadd_rn(w, __fdiv_rn(yv, rho)), scal);
+      const float yn = __fadd_rn(yv, __fmul_rn(rho, __fsub_rn(w, zn)));
+      a.z[i] = zn;
+      a.y[i] = yn;
+      a.v[v0 + j] = __fsub_rn(__fmul_rn(rho, zn), yn);
+    }
+  }
+}
+
+// The cluster barrier between phases: the phase's stores are made
+// visible to the cluster, and to the bulk copies (the async proxy) that
+// read them next.
+__device__ __forceinline__ void phase_barrier() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  FUSED_CLUSTER_SYNC();
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_iterate_clusters(Args a, const __grid_constant__ Maps maps) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
+  const int rank = blockIdx.x % a.cluster, g = blockIdx.x / a.cluster;
+  const int b0 = g * a.lanes, b1 = min(a.B, b0 + a.lanes);
+  const int n0 = min(a.n, rank * a.cols_n), n1 = min(a.n, n0 + a.cols_n);
+  const int m0 = min(a.m, rank * a.cols_m), m1 = min(a.m, m0 + a.cols_m);
+  const int tid = threadIdx.x;
+  // The mbarriers: full completes on the producer's arrival and the
+  // stage's bytes, empty on one arrival per consumer warp.
+  if (tid == 0) {
+    unsigned long long* full = reinterpret_cast<unsigned long long*>(sm + BARS);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + s, 1);
+      bar_init(full + STAGES + s, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The first left operand, rho.z - y, for this block's rows of A.
+  const int wm = m1 - m0;
+  for (int e = tid; e < (b1 - b0) * wm; e += THREADS) {
+    const int b = b0 + e / wm, c = m0 + e % wm;
+    const size_t i = (size_t)b * a.m + c;
+    a.v[(size_t)b * a.ld_m + c] =
+        __fsub_rn(__fmul_rn(__ldg(a.rho + c), __ldcg(a.z + i)), __ldcg(a.y + i));
+  }
+  __syncthreads();
+  phase_barrier();
+  int q = 0;
+  for (int it = 0; it < a.k; ++it) {
+    product<false, E_RHS>(a, sm, &maps.v, &maps.a_nn, a.m, b0, b1, n0, n1,
+                          false, q);
+    phase_barrier();
+    product<false, E_SOLVE>(a, sm, &maps.rhs, &maps.minv, a.n, b0, b1, n0,
+                            n1, a.refine_steps == 0, q);
+    phase_barrier();
+    for (int st = 0; st < a.refine_steps; ++st) {
+      product<false, E_RESID>(a, sm, &maps.xt, &maps.m, a.n, b0, b1, n0, n1,
+                              false, q);
+      phase_barrier();
+      product<false, E_CORRECT>(a, sm, &maps.r, &maps.minv, a.n, b0, b1, n0,
+                                n1, st == a.refine_steps - 1, q);
+      phase_barrier();
+    }
+    product<true, E_ZT>(a, sm, &maps.xt, &maps.a_nt, a.n, b0, b1, m0, m1,
+                        false, q);
+    if (a.n_soc) {
+      phase_barrier();
+      soc_phase(a, b0, b1, rank);
+    }
+    phase_barrier();
+  }
+}
+
+// Clusters of the design the card holds at once, asked once per device
+// and cluster size (the first launch is eager, so no capture meets the
+// query), after the block's shared memory attribute is set.
+cudaError_t max_clusters(int C, int* count) {
+  static bool smem_set[MAX_DEVICES];
+  static int seen[MAX_DEVICES][MAX_CLUSTER + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (C < 1 || C > MAX_CLUSTER) return cudaErrorInvalidValue;
+  const void* fn = reinterpret_cast<const void*>(&fused_iterate_clusters);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  if (seen[dev][C] > 0) {
+    *count = seen[dev][C];
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(count, fn, &cfg);
+  if (err == cudaSuccess && *count > 0) seen[dev][C] = *count;
+  return err;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found once through cudaGetDriverEntryPoint
+// (the library links no libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of the (rows x cols) f32 matrix at p with rows of ld floats, in
+// boxes of box_rows x box_cols; swizzled where a box row is 128 bytes.
+bool encode(EncodeTiled fn, CUtensorMap* map, const float* p, int rows,
+            int cols, int ld, int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            4 * box_cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch(Args& a, int grid, cudaStream_t s) {
+  int count = 0;
+  cudaError_t err = max_clusters(a.cluster, &count);
+  if (err != cudaSuccess) return err;
+  if (count * a.cluster < grid) return cudaErrorCooperativeLaunchTooLarge;
+  const EncodeTiled fn = encoder();
+  if (!fn) return cudaErrorNotSupported;
+  Maps maps;
+  const bool ok =
+      encode(fn, &maps.v, a.v, a.B, a.m, a.ld_m, LT, KC) &&
+      encode(fn, &maps.rhs, a.rhs, a.B, a.n, a.ld_n, LT, KC) &&
+      encode(fn, &maps.xt, a.xt, a.B, a.n, a.ld_n, LT, KC) &&
+      encode(fn, &maps.r, a.r, a.B, a.n, a.ld_n, LT, KC) &&
+      encode(fn, &maps.a_nn, a.A, a.m, a.n, a.ld_n, KC, CT) &&
+      encode(fn, &maps.a_nt, a.A, a.m, a.n, a.ld_n, CT, KC) &&
+      encode(fn, &maps.minv, a.Minv, a.n, a.n, a.ld_n, KC, CT) &&
+      encode(fn, &maps.m, a.M, a.n, a.n, a.ld_n, KC, CT);
+  if (!ok) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_iterate_clusters, a, maps);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// The plan's ints (ops/fused.ClusterPlan.as_ints): grid, cluster,
+// threads, shared memory bytes, lanes a cluster, ld_n, ld_m, cols_n,
+// cols_m. Tile columns start on 16 bytes.
+bool valid_plan(const int* p, int B, int n, int m) {
+  const int grid = p[0], C = p[1], lanes = p[4];
+  return C >= 1 && C <= MAX_CLUSTER && grid >= C && grid % C == 0 &&
+         p[2] == THREADS && p[3] == SMEM_BYTES && lanes >= 1 &&
+         (grid / C) * lanes >= B && p[5] >= n && p[5] % 4 == 0 &&
+         p[6] >= m && p[6] % 4 == 0 && p[7] % 4 == 0 && p[8] % 4 == 0 &&
+         p[7] * C >= n && p[8] * C >= m;
+}
+
+}  // namespace big
+
 }  // namespace
 
 extern "C" int admm_fused_iterate_f32(
@@ -645,6 +1311,34 @@ extern "C" int admm_fused_iterate_f32(
     int ml, int n_soc, int soc_dim, float sigma, float alpha,
     float one_minus_alpha, int k, int refine_steps, const int* plan,
     int plan_len, void* stream) {
+  if (plan_len == big::PLAN_INTS) {
+    if (!big::valid_plan(plan, B, n, m))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // Where ld_n is not n, A, M^-1 and M are copied into part_n with
+    // rows of ld_n floats (the bulk copies read rows of 16 bytes);
+    // part_m holds the (B, ld_m) scratch v, then w; bar is not used.
+    const int ld_n = plan[5];
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* mats[3] = {A, Minv, M};
+    if (ld_n != n) {
+      float* dst = static_cast<float*>(part_n);
+      const int rows[3] = {m, n, n};
+      for (int i = 0; i < 3; ++i) {
+        const cudaError_t err = cudaMemcpy2DAsync(
+            dst, 4 * (size_t)ld_n, mats[i], 4 * (size_t)n, 4 * (size_t)n,
+            rows[i], cudaMemcpyDeviceToDevice, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        mats[i] = dst;
+        dst += (size_t)rows[i] * ld_n;
+      }
+    }
+    float* vw = static_cast<float*>(part_m);
+    big::Args b{mats[0], mats[1], mats[2], q, rho, lam_r, l, u, x, z, y, rhs,
+                xt, r, vw, vw + (size_t)B * plan[6], B, n, m, mb, ml, n_soc,
+                soc_dim, sigma, alpha, one_minus_alpha, k, refine_steps,
+                plan[1], plan[4], ld_n, plan[6], plan[7], plan[8]};
+    return static_cast<int>(big::launch(b, plan[0], s));
+  }
   if (plan_len != PLAN_INTS || plan[3] != threads_of(plan[1]))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{A, Minv, M, q, rho, lam_r, l, u, x, z, y, rhs, xt, r, part_n, part_m,
@@ -667,18 +1361,19 @@ extern "C" int admm_fused_iterate_f32(
   a.tn = Tiling{plan[22], plan[23], plan[24], plan[25], plan[26], plan[27]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  const int acc = plan[28];
-  if (tl == 1 && acc == 8)
+  if (tl == 1)
     err = launch<1, double>(a, grid, smem, s);
-  else if (tl == 1 && acc == 4)
-    err = launch<1, float>(a, grid, smem, s);
-  else if (tl == 4 && acc == 8)
+  else if (tl == 4)
     err = launch<4, double>(a, grid, smem, s);
-  else if (tl == 4 && acc == 4)
-    err = launch<4, float>(a, grid, smem, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// Clusters of `cluster` blocks of the large-batch design the current
+// card holds at once.
+extern "C" int admm_fused_max_clusters(int cluster, int* count) {
+  return static_cast<int>(big::max_clusters(cluster, count));
 }
 
 extern "C" int admm_fused_device_limits(int device, int* sms, int* smem) {

@@ -27,6 +27,21 @@ step (rhs assembly, refinement, relaxation, prox, dual update).
 `plan` chooses the partition from the shapes, the SM count and the
 shared memory a block may use.
 
+Above F64_BATCH lanes that split design gives way to the cluster design
+(`ClusterPlan`), which `plan` chooses from B alone. There the work is
+large: at B=1024, n=450 a 25-iteration block is 52.1 GFLOP, 0.78 ms of
+f32 FFMA over the H100, and each product moves every lane's left
+operand and the matrix through L2 to each block that multiplies them.
+The split design spent most of its 5.9 ms on product phases far from
+the FFMA rate, and the rest on 250 grid barriers and 125 summing phases.
+The cluster design gives each thread-block cluster its own lanes, so the
+grid needs no barrier and no partial sums (5 cluster barriers an
+iteration), and runs each block's share of a product as a Hopper
+SGEMM: 9 × 8 register tiles on the FFMA units, fed through a ring of
+TMA boxes by a producer warp, with the elementwise steps in the
+products' epilogues. It measured 3.0–3.3 ms a block at B=1024 on the
+H100 (PERF.md §6).
+
 `fused_iterate_shared_reference` is the same math in plain PyTorch (the
 JAX kernel's `_iter_math`). The wrapper uses it for CPU tensors only;
 for CUDA tensors it launches the kernel or raises.
@@ -45,7 +60,15 @@ from .prox import project_cone
 from . import _build
 
 SMALL_BATCH = 8                 # B up to this: GEMV-shaped, one lane per tile
-F64_BATCH = 256                 # B up to this: f64 accumulators
+F64_BATCH = 256                 # B up to this: the split design (Plan);
+                                # above it the cluster design (ClusterPlan)
+# Bytes of the split design's accumulator: f64, as latency and barriers
+# set its pace and the FMA units idle, so that a product of f32 operands
+# is rounded once, whatever the partition (measured on the H100: an
+# f32-accumulated kernel's error at B=128 was 1.7 times the cuBLAS
+# twin's, and config 5's batch then took 375 iterations to an f64 KKT
+# residual of 1.00002e-6; f64 accumulation, 350 and 9.995e-7).
+ACC_BYTES = 8
 LEFT_BYTES = 32 * 1024          # shared memory for the staged left operand
 # Cost model of one block's share of a product: FFMA at half the SM's
 # issue rate (the operands come from shared memory) and its share of the
@@ -132,7 +155,6 @@ class Plan:
     grid: int
     lane_tile: int
     lane_chunk: int
-    acc_bytes: int
     a: Tiling
     nn: Tiling
     a_resident: bool
@@ -151,9 +173,18 @@ class Plan:
         minv = nn if self.minv_resident else 0
         mm = nn if self.m_resident else 0
         left = self.lane_chunk * self.ld_left
-        red = threads(self.lane_tile) * self.lane_tile * self.acc_bytes
+        red = threads(self.lane_tile) * self.lane_tile * ACC_BYTES
         offs = [0, a, a + minv, a + minv + mm, a + minv + mm + left]
         return offs, offs[-1] + red
+
+    design = "split"
+
+    def describe(self):
+        return dict(design=self.design, grid=self.grid,
+                    lane_tile=self.lane_tile, a=self.a.as_ints(),
+                    nn=self.nn.as_ints(), a_resident=self.a_resident,
+                    minv_resident=self.minv_resident,
+                    m_resident=self.m_resident, smem_bytes=self.smem_bytes)
 
     def as_ints(self):
         offs, _ = self.offsets()
@@ -162,7 +193,7 @@ class Plan:
                  self.smem_bytes, int(self.a_resident),
                  int(self.minv_resident), int(self.m_resident), self.ld_a,
                  self.ld_nn, self.ld_left] + offs
-                + self.a.as_ints() + self.nn.as_ints() + [self.acc_bytes])
+                + self.a.as_ints() + self.nn.as_ints())
 
 
 def _tiling(B, rows, cols, lane_groups, row_splits, col_splits):
@@ -187,32 +218,19 @@ def _candidates(B, rows, cols, grid, tl):
         nl *= 2
 
 
-def acc_bytes(B: int) -> int:
-    """Bytes of the kernel's accumulator. f64 up to F64_BATCH lanes,
-    where latency and barriers set the pace and the FMA units idle: a
-    product of f32 operands is then rounded once, whatever the
-    partition (measured on the H100: the f32-accumulated kernel's
-    error at B=128 was 1.7 times the cuBLAS twin's, and config 5's
-    batch then took 375 iterations to an f64 KKT residual of
-    1.00002e-6; f64 accumulation, 350 and 9.995e-7). f32 above it,
-    where the FMA rate starts to matter (B=1024: 5.8 ms per block with
-    f32, 10.4 ms with f64)."""
-    return 8 if B <= F64_BATCH else 4
-
-
 def _lane_chunk(lanes, tl, ld_left):
     return min(_cdiv(lanes, tl), LEFT_BYTES // (4 * ld_left * tl)) * tl
 
 
 def _product_ns(t: Tiling, B, k_chunk, out_chunk, splits, n_out, tl,
-                streamed, grid, acc):
+                streamed, grid):
     """Modelled time of one block's share of one product and of the
     phase that adds its partial sums. A streamed tile is read once per
     lane chunk with few loads in flight, so at a fraction of the L2
     rate."""
     fma = _cdiv(t.lanes, tl) * tl * k_chunk * out_chunk
-    moved = t.lanes * (4 * k_chunk + acc * out_chunk)
-    moved += acc * splits * B * n_out / grid
+    moved = t.lanes * (4 * k_chunk + ACC_BYTES * out_chunk)
+    moved += ACC_BYTES * splits * B * n_out / grid
     ns = fma / _FMA_PER_NS + moved / _L2_BYTES_PER_NS
     if streamed:
         chunks = _cdiv(t.lanes, _lane_chunk(t.lanes, tl, padded_ld(k_chunk)))
@@ -229,17 +247,25 @@ def _best_under(options, room):
 
 @functools.lru_cache(maxsize=256)
 def plan(B: int, n: int, m: int, refine_steps: int, sms: int,
-         smem_bytes: int) -> Plan:
-    """The partition of (B, n, m) over a grid of one block per SM, for a
-    card with `sms` SMs and `smem_bytes` of shared memory per block.
+         smem_bytes: int, max_clusters: int | None = None):
+    """The kernel's design and partition of (B, n, m), for a card with
+    `sms` SMs and `smem_bytes` of shared memory per block.
 
-    A cut of A (rhs and z-tilde products) and a cut of M⁻¹ and M (the
-    x-tilde products) are chosen together for the least modelled time
-    per iteration, each tile resident in shared memory where the room
-    left allows, among cuts whose left operand fits LEFT_BYTES for one
-    register tile of lanes."""
-    tl, acc = lane_tile(B), acc_bytes(B)
-    red = threads(tl) * tl * 4 * acc
+    Above F64_BATCH lanes, the cluster design (`ClusterPlan`): as many
+    clusters of `cluster_size(n, m)` blocks as the card holds at once
+    (`max_clusters`, or sms // C where not given), at most one for each
+    CLUSTER_LANES lanes, the lanes spread evenly over them.
+
+    Up to F64_BATCH, the split design (`Plan`) over a grid of one block
+    per SM: a cut of A (rhs and z-tilde products) and a cut of M⁻¹ and
+    M (the x-tilde products) are chosen together for the least modelled
+    time per iteration, each tile resident in shared memory where the
+    room left allows, among cuts whose left operand fits LEFT_BYTES for
+    one register tile of lanes."""
+    if B > F64_BATCH:
+        return _cluster_plan(B, n, m, sms, smem_bytes, max_clusters)
+    tl = lane_tile(B)
+    red = threads(tl) * tl * 4 * ACC_BYTES
     budget = smem_bytes - red - LEFT_BYTES - 1024
     if budget < 0:
         raise ValueError(f"{smem_bytes} bytes of shared memory per block "
@@ -256,9 +282,9 @@ def plan(B: int, n: int, m: int, refine_steps: int, sms: int,
         tile = 4 * t.row_chunk * padded_ld(t.col_chunk)
         for res in (True, False):
             cost = (_product_ns(t, B, t.row_chunk, t.col_chunk, t.row_splits,
-                                n, tl, not res, sms, acc)
+                                n, tl, not res, sms)
                     + _product_ns(t, B, t.col_chunk, t.row_chunk,
-                                  t.col_splits, m, tl, not res, sms, acc))
+                                  t.col_splits, m, tl, not res, sms))
             a_opts.append((tile if res else 0, cost, t.tiles, t, res))
     # M⁻¹ and M: (resident bytes, cost, tiles, tiling, M⁻¹ res, M res).
     n_opts = []
@@ -269,7 +295,7 @@ def plan(B: int, n: int, m: int, refine_steps: int, sms: int,
 
         def one(streamed):
             return _product_ns(t, B, t.row_chunk, t.col_chunk, t.row_splits,
-                               n, tl, streamed, sms, acc)
+                               n, tl, streamed, sms)
         for res_minv, res_m in ((True, True), (True, False), (False, False)):
             cost = ((1 + refine_steps) * one(not res_minv)
                     + refine_steps * one(not res_m))
@@ -290,7 +316,7 @@ def plan(B: int, n: int, m: int, refine_steps: int, sms: int,
                          "kernel's shared memory")
     _, ta, a_res, tn, minv_res, m_res = best
     ld_left = padded_ld(max(ta.row_chunk, ta.col_chunk, tn.row_chunk))
-    p = Plan(grid=sms, lane_tile=tl, acc_bytes=acc,
+    p = Plan(grid=sms, lane_tile=tl,
              lane_chunk=_lane_chunk(max(ta.lanes, tn.lanes), tl, ld_left),
              a=ta, nn=tn, a_resident=a_res, minv_resident=minv_res,
              m_resident=m_res, ld_a=padded_ld(ta.col_chunk),
@@ -300,6 +326,88 @@ def plan(B: int, n: int, m: int, refine_steps: int, sms: int,
         raise ValueError(f"fused kernel plan needs {total} bytes of "
                          f"shared memory, {smem_bytes} available")
     return dataclasses.replace(p, smem_bytes=total)
+
+
+# The cluster design's fixed shapes (csrc/fused_iterate.cu, namespace
+# big): a tile of CLUSTER_LANES lanes × CLUSTER_COLS columns, computed by
+# 8 consumer warps (a thread's register tile 9 lanes × 8 columns) fed by
+# one producer warp; stages of CLUSTER_KC reduction steps in a ring of
+# CLUSTER_STAGES; the groups' sums; the ring's mbarriers.
+CLUSTER_COLS = 64
+CLUSTER_LANES = 72
+CLUSTER_KC = 32
+CLUSTER_STAGES = 4
+CLUSTER_GROUPS = 4
+CLUSTER_THREADS = 64 * CLUSTER_GROUPS + 32
+CLUSTER_MAX = 8
+
+
+def cluster_smem_bytes() -> int:
+    """Shared memory of a block of the cluster design: the ring (each
+    stage the left operand's CLUSTER_LANES × KC box, then the matrix's KC
+    × 64 or 64 × KC), the groups' sums, two 8-byte mbarriers a stage, and
+    1024 bytes to align the ring for the 128-byte swizzle."""
+    stage = (CLUSTER_LANES + CLUSTER_COLS) * CLUSTER_KC
+    floats = (CLUSTER_STAGES * stage
+              + CLUSTER_GROUPS * CLUSTER_LANES * CLUSTER_COLS)
+    return 4 * floats + 16 * CLUSTER_STAGES + 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """The large-batch design's partition (B > F64_BATCH): `grid` blocks
+    in clusters of `cluster`; cluster g owns lanes [g lanes, (g+1)
+    lanes) outright, its block of rank j the output columns [j cols_n,
+    (j+1) cols_n) of the n-wide products and the rows [j cols_m, (j+1)
+    cols_m) of A in the z̃ product, over the whole reduction axis, in
+    tiles of CLUSTER_LANES lanes × CLUSTER_COLS columns. Scratch rows
+    are ld_n and ld_m floats, multiples of 4 (16-byte rows for the bulk
+    copies); the entry point copies A, M⁻¹ and M into rows of ld_n
+    floats where ld_n is not n."""
+
+    grid: int
+    cluster: int
+    lanes: int
+    ld_n: int
+    ld_m: int
+    cols_n: int
+    cols_m: int
+
+    design = "cluster"
+    threads = CLUSTER_THREADS
+
+    @property
+    def smem_bytes(self) -> int:
+        return cluster_smem_bytes()
+
+    def as_ints(self):
+        return [self.grid, self.cluster, self.threads, self.smem_bytes,
+                self.lanes, self.ld_n, self.ld_m, self.cols_n, self.cols_m]
+
+    def describe(self):
+        return dataclasses.asdict(self) | {"design": self.design,
+                                           "threads": self.threads,
+                                           "smem_bytes": self.smem_bytes}
+
+
+def cluster_size(n: int, m: int) -> int:
+    """Blocks of a cluster: one tile of columns each where n and m allow,
+    at most CLUSTER_MAX (portable cluster sizes)."""
+    return min(CLUSTER_MAX, _cdiv(max(n, m), CLUSTER_COLS))
+
+
+def _cluster_plan(B, n, m, sms, smem_bytes, max_clusters):
+    C = cluster_size(n, m)
+    wave = sms // C if max_clusters is None else min(sms // C, max_clusters)
+    if wave < 1:
+        raise ValueError(f"no cluster of {C} blocks fits the card")
+    if cluster_smem_bytes() > smem_bytes:
+        raise ValueError(f"fused kernel plan needs {cluster_smem_bytes()} "
+                         f"bytes of shared memory, {smem_bytes} available")
+    lanes = _cdiv(B, min(wave, _cdiv(B, CLUSTER_LANES)))
+    return ClusterPlan(grid=_cdiv(B, lanes) * C, cluster=C, lanes=lanes,
+                       ld_n=_up4(n), ld_m=_up4(m),
+                       cols_n=4 * _cdiv(n, 4 * C), cols_m=4 * _cdiv(m, 4 * C))
 
 
 def prox_units(cone: ConeSpec):
@@ -327,21 +435,46 @@ def _entry():
         lib.admm_fused_device_limits.restype = ctypes.c_int
         lib.admm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.admm_cuda_error_string.restype = ctypes.c_char_p
+        lib.admm_fused_max_clusters.argtypes = [i32, ptr]
+        lib.admm_fused_max_clusters.restype = ctypes.c_int
         _c_entry = (fn, lib.admm_fused_device_limits,
-                    lib.admm_cuda_error_string)
+                    lib.admm_cuda_error_string, lib.admm_fused_max_clusters)
     return _c_entry
 
 
 @functools.lru_cache(maxsize=None)
 def device_limits(index: int):
     """(SM count, shared memory a block may opt in to) of a CUDA card."""
-    _, limits, err_str = _entry()
+    _, limits, err_str, _ = _entry()
     sms, smem = ctypes.c_int(), ctypes.c_int()
     rc = limits(index, ctypes.byref(sms), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"fused kernel: device query failed ({rc}: "
                            f"{err_str(rc).decode()})")
     return sms.value, smem.value
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(index: int, cluster: int) -> int:
+    """Clusters of `cluster` blocks of the cluster design that CUDA card
+    `index` holds at once (cudaOccupancyMaxActiveClusters)."""
+    _, _, err_str, query = _entry()
+    count = ctypes.c_int()
+    with torch.cuda.device(index):
+        rc = query(cluster, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"fused kernel: cluster occupancy query failed "
+                           f"({rc}: {err_str(rc).decode()})")
+    return count.value
+
+
+def device_plan(B: int, n: int, m: int, refine_steps: int, index: int):
+    """`plan` for CUDA card `index`, with its SM count, shared memory and,
+    for the cluster design, its cluster occupancy."""
+    sms, smem = device_limits(index)
+    clusters = (max_clusters(index, cluster_size(n, m))
+                if B > F64_BATCH else None)
+    return plan(B, n, m, refine_steps, sms, smem, clusters)
 
 
 def _lam_over_rho(lam, rho_vec, cone: ConeSpec):
@@ -413,19 +546,31 @@ def fused_iterate_shared(A, Minv, M, q, rho_vec, lam, l, u, x, z, y,
         raise ValueError(f"fused kernel: unsupported device {x.device}")
     _check_cuda(B, n, m, cone, A=A, Minv=Minv, M=M, q=q, rho_vec=rho_vec,
                 lam=lam, l=l, u=u, x=x, z=z, y=y)
-    fn, _, err_str = _entry()
-    p = plan(B, n, m, int(refine_steps), *device_limits(x.device.index))
+    fn, _, err_str, _ = _entry()
+    p = device_plan(B, n, m, int(refine_steps), x.device.index)
     lam_r = _lam_over_rho(lam, rho_vec, cone).contiguous()
     xo, zo, yo = (t.clone() for t in (x, z, y))
-    rhs, xt, r = (torch.empty_like(xo) for _ in range(3))
-    acc = torch.float64 if p.acc_bytes == 8 else torch.float32
-    # Inside a CUDA graph capture the scratch comes from the graph's
-    # pool and the barrier's zero fill is a node of the graph, so every
-    # replay starts the counter from 0.
-    part_n = torch.empty((max(p.a.row_splits, p.nn.row_splits), B, n),
-                         dtype=acc, device=x.device)
-    part_m = torch.empty((p.a.col_splits, B, m), dtype=acc, device=x.device)
-    barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if p.design == "cluster":
+        # Rows of a multiple of 4 floats for the bulk copies: the scratch
+        # here, and A, M⁻¹ and M copied by the entry point into part_n
+        # where n is not such a multiple. Nothing is summed across
+        # blocks.
+        rhs, xt, r = (torch.empty((B, p.ld_n), device=x.device)
+                      for _ in range(3))
+        part_n = (torch.empty((m + 2 * n) * p.ld_n, device=x.device)
+                  if p.ld_n != n else None)
+        part_m = torch.empty((2, B, p.ld_m), device=x.device)
+        barrier = None
+    else:
+        rhs, xt, r = (torch.empty_like(xo) for _ in range(3))
+        # Inside a CUDA graph capture the scratch comes from the graph's
+        # pool and the barrier's zero fill is a node of the graph, so
+        # every replay starts the counter from 0.
+        part_n = torch.empty((max(p.a.row_splits, p.nn.row_splits), B, n),
+                             dtype=torch.float64, device=x.device)
+        part_m = torch.empty((p.a.col_splits, B, m), dtype=torch.float64,
+                             device=x.device)
+        barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
     ints = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
     soc_dim = cone.soc_dims[0] if cone.m_soc else 0
 
@@ -446,6 +591,7 @@ def fused_iterate_shared(A, Minv, M, q, rho_vec, lam, l, u, x, z, y,
             f"fused_iterate_shared: CUDA launch failed ({rc}: "
             f"{err_str(rc).decode()})")
     graph.count_launch(fused_iterate_shared, x.device)
+    fused_iterate_shared.calls_by_design[p.design] += 1
     return xo, zo, yo
 
 
@@ -453,3 +599,7 @@ def fused_iterate_shared(A, Minv, M, q, rho_vec, lam, l, u, x, z, y,
 # a call inside a captured graph (core/graph.py), one per replay of that
 # graph, or, inside a conditional body, one per pass of that body.
 fused_iterate_shared = graph.Counted(fused_iterate_shared)
+# The wrapper's calls on CUDA tensors by the design they ran, counted on
+# the host: each eager launch and each capture of one once (`launches`
+# counts the replays too).
+fused_iterate_shared.calls_by_design = {"split": 0, "cluster": 0}

@@ -864,8 +864,8 @@ def phase_kernel(dev):
             B, n, m = x.shape[0], x.shape[1], z.shape[1]
             bound_ms, bound_by = bound(*_fused_work(
                 B, n, m, cone.m_l1, k, kw["refine_steps"]))
-            p = fused.plan(B, n, m, kw["refine_steps"],
-                           *fused.device_limits(x.device.index))
+            p = fused.device_plan(B, n, m, kw["refine_steps"],
+                                  x.device.index)
             scale = max(float(t.abs().max()) for t in ref64)
             rec = dict(case=case, B=B, n=n, m=m, k=k,
                        max_abs_err=dict(zip(LEAVES, err)),
@@ -878,11 +878,7 @@ def phase_kernel(dev):
                        library="torch.matmul products only (cuBLAS, "
                                "one CUDA graph)",
                        bound_ms=bound_ms, bound_by=bound_by,
-                       plan=dict(lane_tile=p.lane_tile, a=p.a.as_ints(),
-                                 nn=p.nn.as_ints(), a_resident=p.a_resident,
-                                 minv_resident=p.minv_resident,
-                                 m_resident=p.m_resident,
-                                 smem_bytes=p.smem_bytes))
+                       plan=p.describe())
             if case == "low_thrust_soc_b1":
                 rec.update(soc_in=_soc_kinds(z, cone),
                            soc_out=_soc_kinds(ref64[1], cone))

@@ -109,12 +109,14 @@ def test_wrapper_on_cpu_is_the_twin(case):
     settings, cone, ops, k, _ = case()
     kw = _kw(settings, _tcone(cone), k)
     before = tfused.fused_iterate_shared.launches
+    by_design = dict(tfused.fused_iterate_shared.calls_by_design)
     got = tfused.fused_iterate_shared(*map(torch.from_numpy, ops), **kw)
     ref = tfused.fused_iterate_shared_reference(
         *map(torch.from_numpy, ops), **kw)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert tfused.fused_iterate_shared.launches == before
+    assert tfused.fused_iterate_shared.calls_by_design == by_design
 
 
 def test_wrapper_rejects_ragged_soc():
@@ -157,6 +159,8 @@ PLAN_CASES = {
     "l1_soc_b9": (9, 20, 26, TCone(m_box=8, m_l1=6, soc_dims=(4,) * 3)),
     "odd_b8": (8, 7, 13, TCone(m_box=4, soc_dims=(3,) * 3)),
     "odd_b37": (37, 81, 101, TCone(m_box=2, m_l1=3, soc_dims=(3,) * 32)),
+    "config5_b257": (257, 450, 456, TCone(m_box=456)),
+    "odd_b300": (300, 81, 101, TCone(m_box=2, m_l1=3, soc_dims=(3,) * 32)),
 }
 
 
@@ -170,15 +174,45 @@ def _partition(ranges, extent):
     return rs
 
 
+def _cluster_outputs(p, B, width, cols):
+    """(lane, column) of every output a block of the cluster plan p
+    writes in a product `width` columns wide, block by block."""
+    out = []
+    for blk in range(p.grid):
+        g, rank = divmod(blk, p.cluster)
+        b0, b1 = g * p.lanes, min(B, (g + 1) * p.lanes)
+        c0 = min(width, rank * cols)
+        c1 = min(width, c0 + cols)
+        for lb in range(b0, b1, tfused.CLUSTER_LANES):
+            for ct in range(c0, c1, tfused.CLUSTER_COLS):
+                out += [(b, c)
+                        for b in range(lb, min(b1, lb + tfused.CLUSTER_LANES))
+                        for c in range(ct, min(c1, ct + tfused.CLUSTER_COLS))]
+    return out
+
+
 @pytest.mark.parametrize("case", sorted(PLAN_CASES))
 def test_plan_covers_every_output_once(case):
-    """Each tiling's tiles are the product of a partition of the lanes,
-    one of the matrix rows and one of its columns, each tile once, at
-    most one per block: so every output of the rhs and x-tilde products
-    (columns) and of the z-tilde product (rows of A) is written by one
-    tile of each reduction chunk, and summed once per chunk."""
+    """Split design: each tiling's tiles are the product of a partition
+    of the lanes, one of the matrix rows and one of its columns, each
+    tile once, at most one per block: so every output of the rhs and
+    x-tilde products (columns) and of the z-tilde product (rows of A) is
+    written by one tile of each reduction chunk, and summed once per
+    chunk. Cluster design: every output of the n-wide products and of
+    the z-tilde product is written by exactly one tile of one block, over
+    the whole reduction axis; the clusters own disjoint lanes."""
     B, n, m, _ = PLAN_CASES[case]
     p = tfused.plan(B, n, m, 1, **H100)
+    if p.design == "cluster":
+        for width, cols in ((n, p.cols_n), (m, p.cols_m)):
+            outs = _cluster_outputs(p, B, width, cols)
+            assert len(outs) == len(set(outs)) == B * width
+        assert p.grid % p.cluster == 0
+        assert (p.grid // p.cluster - 1) * p.lanes < B <= \
+            p.grid // p.cluster * p.lanes
+        # Tile columns start on 16 bytes (the bulk copies' boxes).
+        assert p.cols_n % 4 == p.cols_m % 4 == 0
+        return
     for t, rows, cols in ((p.a, m, n), (p.nn, n, n)):
         assert t.tiles <= p.grid
         tiles = [t.tile(i, B, rows, cols) for i in range(t.tiles)]
@@ -199,6 +233,35 @@ def test_plan_fits_shared_memory_and_keeps_soc_blocks_whole(case):
     B, n, m, cone = PLAN_CASES[case]
     assert cone.m == m
     p = tfused.plan(B, n, m, 1, **H100)
+    if p.design == "cluster":
+        _cluster_plan_fits(p, n, m)
+    else:
+        _split_plan_fits(p)
+    # The prox phase: every row in exactly one unit, each SOC block one
+    # whole unit.
+    units = tfused.prox_units(cone)
+    rows = [r for s, d in units for r in range(s, s + d)]
+    assert rows == list(range(m))
+    soc0 = cone.m_box + cone.m_l1
+    d = cone.soc_dims[0] if cone.m_soc else 0
+    assert [u for u in units if u[0] >= soc0] == [
+        (soc0 + b * d, d) for b in range(cone.n_soc)]
+
+
+def _cluster_plan_fits(p, n, m):
+    """Within the card's shared memory and the portable cluster sizes,
+    one wave of clusters, scratch and matrix rows of 16 bytes, and each
+    block's columns within one or more whole tiles."""
+    assert p.smem_bytes == tfused.cluster_smem_bytes() <= H100["smem_bytes"]
+    assert 1 <= p.cluster <= tfused.CLUSTER_MAX
+    assert p.grid // p.cluster <= H100["sms"] // p.cluster
+    assert p.threads == 64 * tfused.CLUSTER_GROUPS + 32 <= 1024
+    assert p.ld_n >= n and p.ld_m >= m and p.ld_n % 4 == p.ld_m % 4 == 0
+    assert p.cols_n * p.cluster >= n and p.cols_m * p.cluster >= m
+    assert len(p.as_ints()) == 9
+
+
+def _split_plan_fits(p):
     offs, floats = p.offsets()
     assert p.smem_bytes == 4 * floats <= H100["smem_bytes"]
     assert offs == sorted(offs) and all(o % 4 == 0 for o in offs)
@@ -211,35 +274,92 @@ def test_plan_fits_shared_memory_and_keeps_soc_blocks_whole(case):
     assert p.ld_left >= max(p.a.row_chunk, p.a.col_chunk, p.nn.row_chunk)
     assert p.lane_chunk % p.lane_tile == 0 and p.lane_chunk >= p.lane_tile
     assert 4 * p.lane_chunk * p.ld_left <= tfused.LEFT_BYTES
-    # The prox phase: every row in exactly one unit, each SOC block one
-    # whole unit.
-    units = tfused.prox_units(cone)
-    rows = [r for s, d in units for r in range(s, s + d)]
-    assert rows == list(range(m))
-    soc0 = cone.m_box + cone.m_l1
-    d = cone.soc_dims[0] if cone.m_soc else 0
-    assert [u for u in units if u[0] >= soc0] == [
-        (soc0 + b * d, d) for b in range(cone.n_soc)]
 
 
-@pytest.mark.parametrize("B", [1, 3, 8, 9, 37, 128, 1024])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 37, 128, 257, 1024])
 def test_plan_regimes(B):
-    """Up to SMALL_BATCH lanes the products are GEMV-shaped: one lane per
-    register tile and the reduction axis split over the grid (split-K).
-    Above it, register tiles of 4 lanes. f64 accumulators up to
-    F64_BATCH lanes, f32 above. The flagship matrices stay in shared
-    memory."""
+    """Up to F64_BATCH lanes the split design: up to SMALL_BATCH lanes
+    the products are GEMV-shaped, one lane per register tile and the
+    reduction axis split over the grid (split-K); above it, register
+    tiles of 4 lanes; f64 accumulators; the flagship matrices stay in
+    shared memory. Above F64_BATCH the cluster design: clusters of 8
+    blocks own their lanes, one 64-column tile a block."""
     p = tfused.plan(B, 450, 456, 1, **H100)
+    if B > tfused.F64_BATCH:
+        assert p.design == "cluster" and isinstance(p, tfused.ClusterPlan)
+        assert p.cluster == 8 and p.cols_n <= tfused.CLUSTER_COLS
+        assert p.cols_m <= tfused.CLUSTER_COLS
+        assert p.lanes <= tfused.CLUSTER_LANES
+        return
+    assert p.design == "split" and isinstance(p, tfused.Plan)
     small = B <= tfused.SMALL_BATCH
     assert p.lane_tile == (1 if small else 4)
     assert tfused.threads(p.lane_tile) == (512 if small else 256)
-    assert p.acc_bytes == tfused.acc_bytes(B) == (
-        8 if B <= tfused.F64_BATCH else 4)
+    # f64 accumulators: 4 of 8 bytes for each lane of a register tile.
+    offs, floats = p.offsets()
+    assert tfused.ACC_BYTES == 8
+    assert 4 * (floats - offs[-1]) == (
+        tfused.threads(p.lane_tile) * p.lane_tile * 4 * 8)
     if small:
         assert p.a.row_splits > 1 and p.a.col_splits > 1
         assert p.nn.row_splits > 1
     assert p.a_resident and p.minv_resident
     assert p.a.tiles > p.grid // 2 and p.nn.tiles > p.grid // 2
+
+
+# The split design's plans at the main path's shapes (B=1: config 2
+# through solve and config 4; config 5 at B=128), pinned: work on the
+# cluster design leaves them be.
+SPLIT_PLANS = {
+    (1, 450, 456): [132, 1, 1, 512, 41200, 1, 1, 1, 52, 28, 76, 0, 1872,
+                    4000, 6128, 6204, 1, 1, 13, 36, 10, 48, 1, 1, 6, 76,
+                    19, 24],
+    (128, 450, 456): [132, 4, 16, 256, 210624, 1, 1, 1, 116, 60, 228, 0,
+                      13456, 27136, 40816, 44464, 8, 16, 4, 116, 4, 116, 8,
+                      16, 2, 228, 8, 60],
+    (1, 2000, 2206): [132, 1, 1, 512, 156112, 1, 0, 0, 188, 92, 340, 0,
+                      34592, 34592, 34592, 34932, 1, 1, 12, 184, 11, 184, 1,
+                      1, 6, 336, 22, 92],
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SPLIT_PLANS))
+def test_split_plans_are_pinned(shape):
+    p = tfused.plan(*shape, 1, **H100, max_clusters=15)
+    assert p.design == "split"
+    assert p.as_ints() == SPLIT_PLANS[shape]
+
+
+@pytest.mark.parametrize("clusters,grid,lanes", [(15, 120, 69),
+                                                 (16, 120, 69),
+                                                 (10, 80, 103),
+                                                 (4, 32, 256)])
+def test_cluster_plan_fills_one_wave_of_the_card(clusters, grid, lanes):
+    """B=1024 at the flagship shape on a card that holds `clusters`
+    clusters of 8 at once (the H100 80GB HBM3: 15): one wave of at most
+    ⌈B / CLUSTER_LANES⌉ clusters, the lanes spread evenly; where a
+    cluster's lanes pass one tile it runs several tiles."""
+    p = tfused.plan(1024, 450, 456, 1, **H100, max_clusters=clusters)
+    assert (p.grid, p.lanes) == (grid, lanes)
+    assert p.grid // p.cluster <= clusters
+    assert _cluster_outputs(p, 1024, 450, p.cols_n) and len(set(
+        _cluster_outputs(p, 1024, 456, p.cols_m))) == 1024 * 456
+
+
+def test_cluster_plan_refuses_a_card_without_room():
+    with pytest.raises(ValueError, match="cluster"):
+        tfused.plan(1024, 450, 456, 1, **H100, max_clusters=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused.plan(1024, 450, 456, 1, sms=132, smem_bytes=100 * 1024)
+
+
+def test_design_counters_sit_beside_the_launch_count():
+    """The wrapper counts its calls by design beside the launch count,
+    one count for each design the planner chooses."""
+    kernel = tfused.fused_iterate_shared
+    assert isinstance(kernel.launches, int)
+    assert set(kernel.calls_by_design) == {"split", "cluster"} == {
+        tfused.plan(B, 450, 456, 1, **H100).design for B in (128, 1024)}
 
 
 def test_plan_at_config4_keeps_a_resident_and_streams_the_rest():

@@ -8,6 +8,7 @@ machine run it without the JAX suite's conftest:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -134,8 +135,8 @@ def _flagship(dev, B):
     """Config 5's operands (n=450, m=456: rows of 1,800 bytes, not a
     multiple of 16) for the first B of the reference's dispersions, with
     a nonzero iterate."""
-    qp, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128)[:B],
-                                          device=dev)
+    s0 = mc.reference_s0(1024 if B > 128 else 128)[:B]
+    qp, _, _ = mc.monte_carlo_mpc_from_s0(s0, device=dev)
     rng = np.random.default_rng(B)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
     x = t(0.1 * rng.standard_normal((B, qp.n)))
@@ -168,18 +169,25 @@ def _odd_soc(dev, B):
 
 @pytest.mark.parametrize("case", [_flagship, _odd_soc],
                          ids=["flagship_n450", "odd_soc"])
-@pytest.mark.parametrize("B", [1, 3, 8, 9, 37])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 37, 257, 1024])
 def test_kernel_regimes(case, B, dev):
     """Both sides of the small-batch threshold (GEMV-shaped split-K up to
-    8 lanes, register tiles of lanes above), n not a multiple of 4, SOC
-    blocks across chunk boundaries; k=1 with refine_steps 0 and 2, and
-    k=10: each leaf within twice the f32 twin's error against the f64
-    twin (floor 1e-5), and a rerun bitwise identical."""
+    8 lanes, register tiles of lanes above) and of F64_BATCH (the
+    cluster design above it), n not a multiple of 4, SOC blocks across
+    chunk and column-slice boundaries; k=1 with refine_steps 0 and 2,
+    and k=10: each leaf within twice the f32 twin's error against the
+    f64 twin (floor 1e-5), a rerun bitwise identical, and the design the
+    plan names launched."""
     args, kw = case(dev, B)
+    design = "cluster" if B > fused.F64_BATCH else "split"
     for k, refine in ((1, 0), (1, 2), (10, 1)):
         kw.update(k=k, refine_steps=refine)
+        before = dict(fused.fused_iterate_shared.calls_by_design)
         got = fused.fused_iterate_shared(*args, **kw)
         again = fused.fused_iterate_shared(*args, **kw)
+        after = fused.fused_iterate_shared.calls_by_design
+        assert {d: after[d] - before[d] for d in after} == {
+            d: 2 if d == design else 0 for d in after}
         twin = fused.fused_iterate_shared_reference(*args, **kw)
         ref = fused.fused_iterate_shared_reference(
             *(a.double() for a in args), **kw)
@@ -194,24 +202,39 @@ def test_kernel_regimes(case, B, dev):
 def test_kernel_never_runs_the_twin_and_raises_on_a_refused_launch(
         dev, monkeypatch):
     """On CUDA tensors the wrapper launches the kernel, never the plain
-    twin; a cooperative launch larger than the co-resident grid is
-    refused and raises, and is not counted."""
-    args, kw = _flagship(dev, 3)
-    kw["k"] = 2
-
+    twin; in both designs a grid larger than the card holds at once (a
+    cooperative launch; clusters beyond cudaOccupancyMaxActiveClusters)
+    is refused and raises, and is not counted."""
     def boom(*a, **k):
         raise AssertionError("the plain twin ran on CUDA tensors")
 
     monkeypatch.setattr(fused, "fused_iterate_shared_reference", boom)
-    before = fused.fused_iterate_shared.launches
-    fused.fused_iterate_shared(*args, **kw)
-    torch.cuda.synchronize()
-    assert fused.fused_iterate_shared.launches == before + 1
     sms, smem = fused.device_limits(0)
-    monkeypatch.setattr(fused, "device_limits", lambda i: (4 * sms, smem))
-    with pytest.raises(RuntimeError, match="launch failed"):
+    for B in (3, 257):
+        args, kw = _flagship(dev, B)
+        kw["k"] = 2
+        before = fused.fused_iterate_shared.launches
+        by_design = dict(fused.fused_iterate_shared.calls_by_design)
         fused.fused_iterate_shared(*args, **kw)
-    assert fused.fused_iterate_shared.launches == before + 1
+        torch.cuda.synchronize()
+        assert fused.fused_iterate_shared.launches == before + 1
+        p = fused.device_plan(B, 450, 456, kw["refine_steps"], 0)
+        with monkeypatch.context() as patch:
+            if p.design == "split":
+                patch.setattr(fused, "device_limits",
+                              lambda i: (4 * sms, smem))
+            else:
+                # The planner never asks for more clusters than the card
+                # holds; a plan that does is refused by the entry point.
+                wave = fused.max_clusters(0, p.cluster)
+                big = dataclasses.replace(p, grid=(wave + 1) * p.cluster)
+                patch.setattr(fused, "device_plan", lambda *a: big)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fused.fused_iterate_shared(*args, **kw)
+        assert fused.fused_iterate_shared.launches == before + 1
+        design = "cluster" if B > fused.F64_BATCH else "split"
+        after = fused.fused_iterate_shared.calls_by_design
+        assert after[design] == by_design[design] + 1
 
 
 def test_small_solve_goes_through_the_kernel(dev):
@@ -223,6 +246,26 @@ def test_small_solve_goes_through_the_kernel(dev):
     assert bool((sol.status == int(Status.SOLVED)).all())
     plain = solve_batch_shared(qp, Settings(fused="off"))
     assert bool((plain.status == int(Status.SOLVED)).all())
+    assert abs(int(sol.iters.max()) - int(plain.iters.max())) <= 25
+
+
+def test_large_batch_solve_goes_through_the_cluster_design(dev):
+    """Config 5's 1024 reference dispersions: phase 1 runs the cluster
+    design; the plain body reaches the same statuses within 25
+    iterations."""
+    qp, _, _ = mc.monte_carlo_mpc_from_s0(mc.reference_s0(1024),
+                                          device=dev)
+    qp = qp.astype(torch.float64)
+    from admm_library_torch.core import graph
+    graph.CACHE.clear()     # a fresh warm-up and capture: calls counted
+    fused.fused_iterate_shared.launches = 0
+    cluster = fused.fused_iterate_shared.calls_by_design["cluster"]
+    sol = solve_batch_shared(qp, Settings())
+    assert fused.fused_iterate_shared.launches > 0
+    assert fused.fused_iterate_shared.calls_by_design["cluster"] > cluster
+    plain = solve_batch_shared(qp, Settings(fused="off"))
+    assert bool((sol.status == int(Status.SOLVED)).all())
+    assert torch.equal(sol.status, plain.status)
     assert abs(int(sol.iters.max()) - int(plain.iters.max())) <= 25
 
 
@@ -1232,14 +1275,17 @@ def test_captured_batch_solve_is_the_eager_solve(case, dev, monkeypatch):
         assert fused.fused_iterate_shared.launches > 0
 
 
+@pytest.mark.parametrize("B", [128, 1024])
 def test_check_graph_with_kernel_1_is_the_eager_pre_and_check(
-        dev, monkeypatch):
-    """Config 5's phase-1 loop at batch 128 (f32, 'inv'): each check
+        dev, monkeypatch, B):
+    """Config 5's phase-1 loop at batch 128 (the split design) and 1024
+    (the cluster design, n not a multiple of 4: the entry point's row
+    copies and its TMA boxes inside the graph) (f32, 'inv'): each check
     variant with the fused kernel's launch inside its graph replays
     bitwise the eager kernel launch and check, and every captured check
-    holds the kernel."""
+    holds the kernel, of the design the plan names."""
     from admm_library_torch.core import graph
-    qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(128), device=dev)[0]
+    qp = mc.monte_carlo_mpc_from_s0(mc.reference_s0(B), device=dev)[0]
     _, loops = _recorded_loops(monkeypatch, solve_batch_shared,
                                qp.astype(torch.float64),
                                Settings(eps_abs=1e-6, eps_rel=1e-6,
@@ -1248,9 +1294,14 @@ def test_check_graph_with_kernel_1_is_the_eager_pre_and_check(
                        if kind == "run_admm_batch_shared")
     assert isinstance(step, graph._PreStep)
     assert state["x"].dtype == torch.float32
+    before = dict(fused.fused_iterate_shared.calls_by_design)
     entry = _replay_is_eager(step, state)
     for variant in _CHECK_VARIANTS:
         assert entry.kernels[variant] == [fused.fused_iterate_shared]
+    design = "cluster" if B > fused.F64_BATCH else "split"
+    calls = {d: c - before[d]
+             for d, c in fused.fused_iterate_shared.calls_by_design.items()}
+    assert calls[design] > 0 and sum(calls.values()) == calls[design]
 
 
 def test_first_meeting_capture_is_the_eager_segment(dev, monkeypatch):
